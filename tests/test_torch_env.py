@@ -1,0 +1,233 @@
+"""The closed loop of the PyTorch port against the JAX package: 3 segments
+of sim/env.step_segment on the flagship path (ground-truth sensing, scene
+SDF, NEO planner, random missions, periodic replanning) at B=8.
+
+Both sides start from the same JAX reset state (worlds, goals: half of
+them across the obstacle field, some close enough to complete). Threefry
+draws cannot be replayed in torch, so the JAX draws of every segment (the
+local-target noise, the retry-bank noise, the next goal's uniform) are made
+from the JAX state's keys exactly as jax's step_segment splits them, and
+passed to the port. The net is the committed
+artifacts/planner_net_smallconv.onnx: the port loads it with
+learn/weights.from_onnx, the JAX side gets the same initializers as flax
+variables (the inverse of from_flax's layout change).
+
+Tolerances: plans come out of 12-iteration L-BFGS solves whose last digits
+differ between the frameworks, so the setpoint buffer and the drone state
+are held to the solver's cost-basin tolerance, 5e-3 (as
+test_torch_costs_solver.py and tests/test_solve_pallas.py); plan flags,
+goals and mission counts must agree exactly.
+"""
+
+import os
+from functools import partial
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from neoplanner_tpu.config import CameraParams as JCameraParams
+from neoplanner_tpu.config import MapParams as JMapParams
+from neoplanner_tpu.config import MissionParams as JMissionParams
+from neoplanner_tpu.config import NetParams as JNetParams
+from neoplanner_tpu.config import PlannerParams as JPlannerParams
+from neoplanner_tpu.config import SimParams as JSimParams
+from neoplanner_tpu.config import WorldParams as JWorldParams
+from neoplanner_tpu.mapping import scene as jscene
+from neoplanner_tpu.sim import env as jenv
+from neoplanner_tpu.sim import missions as jmissions
+from neoplanner_tpu.world import scenegen as jscenegen
+from neoplanner_tpu_torch.config import (CameraParams, MapParams,
+                                         MissionParams, NetParams,
+                                         PlannerParams, SimParams,
+                                         WorldParams)
+from neoplanner_tpu_torch.learn import weights
+from neoplanner_tpu_torch.models import planner_net
+from neoplanner_tpu_torch import _cuda
+from neoplanner_tpu_torch.mapping import scene
+from neoplanner_tpu_torch.sim import env, missions
+from neoplanner_tpu_torch.world import scenegen
+from tests.test_torch_track import to_port_state
+
+B = 8
+SEGMENTS = 3
+PP = dict(max_iters=12, samples_per_piece=8, retry_num=2,
+          extra_lateral_scales=(), max_ls=4)
+MAPP = dict(width=256, height=192, origin_x=-4.0, origin_y=-9.6)
+CAM = dict(width=160, height=120)
+NET = dict(img_width=160, img_height=120, backbone="smallconv")
+ONNX = os.path.join(os.path.dirname(__file__), "..", "artifacts",
+                    "planner_net_smallconv.onnx")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _flax_variables(sd):
+    """The port's state_dict as flax PlannerNet variables (OIHW -> HWIO,
+    Linear (out, in) -> Dense (in, out))."""
+    def dense(name):
+        return {"kernel": sd[f"{name}.weight"].numpy().T,
+                "bias": sd[f"{name}.bias"].numpy()}
+    img = {f"Conv_{i}": {
+        "kernel": sd[f"img_backbone.convs.{i}.weight"].numpy().transpose(
+            2, 3, 1, 0),
+        "bias": sd[f"img_backbone.convs.{i}.bias"].numpy()} for i in range(4)}
+    img["Dense_0"] = dense("img_backbone.head")
+    params = {"img_backbone": img}
+    for name in ("motion_backbone", "mlp"):
+        for i in range(4):
+            params[f"{name}_{i}"] = dense(f"{name}.{i}")
+    return {"params": jax.tree_util.tree_map(jnp.asarray, params)}
+
+
+def _jax_draws(keys, pp):
+    """The draws jax's step_segment makes from each env's key."""
+    def one(k):
+        k1, k_t, k_p = jax.random.split(k, 3)
+        _, k_goal = jax.random.split(k1)
+        return (jax.random.normal(k_t, (2,)),
+                jax.random.normal(k_p, (pp.retry_num, pp.dims, pp.num_wpts)),
+                jax.random.uniform(k_goal))
+    tn, bn, gu = jax.vmap(one)(keys)
+    return env.Draws(target_noise=_t(tn), bank_noise=_t(bn), goal_u=_t(gu))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jpp, pp = JPlannerParams(**PP), PlannerParams(**PP)
+    jmp, jsp = JMissionParams(), JSimParams()
+    jcam = JCameraParams(**CAM)
+    jcfg = JNetParams(**NET)
+    sd = weights.from_onnx(ONNX)
+    variables = _flax_variables(sd)
+    worlds = jscenegen.generate_batch(jax.random.PRNGKey(0), B,
+                                      JWorldParams(num_boxes=10))
+    keys = jax.random.split(jax.random.PRNGKey(1), B)
+    # half the envs fly through the obstacle field toward x = 20 (replanning
+    # every segment); two start within reach of their goal (the mission
+    # completes at once and the next goal is drawn), two have it 0.7 m ahead
+    rng = np.random.default_rng(2)
+    goals = np.stack([np.array([20.0] * 4 + [0.0] * 2 + [0.7] * 2),
+                      rng.uniform(-1.5, 1.5, B)], -1).astype(np.float32)
+    goals[4:6, 1] = 0.1
+    js = jax.vmap(lambda k, w, g: jenv.reset(
+        k, w, g, jpp, jmp, JMapParams(**MAPP), plan_map="scene"))(
+            keys, worlds, jnp.asarray(goals))
+    step = jax.jit(jax.vmap(partial(
+        jenv.step_segment, pp=jpp, mp=jmp, sp=jsp, mission_mode="random",
+        sensing="gt", mapp=None, cam=jcam, planner="neo",
+        net_vars=variables, np_cfg=jcfg, plan_map="scene")))
+
+    net = planner_net.PlannerNet(NetParams(**NET))
+    net.load_state_dict(sd)
+    net.eval()
+    st = to_port_state(js, pp, MapParams(**MAPP))
+    out = []
+    for _ in range(SEGMENTS):
+        draws = _jax_draws(js.key, jpp)
+        js, jinfo = step(js)
+        st, info = env.step_segment(st, pp, MissionParams(), SimParams(),
+                                    CameraParams(**CAM), net, draws=draws)
+        out.append((js, jinfo, st, info))
+    return out
+
+
+@pytest.mark.parametrize("seg", range(SEGMENTS))
+def test_segment_state_matches(runs, seg):
+    js, jinfo, st, info = runs[seg]
+    np.testing.assert_array_equal(info.planned.numpy(),
+                                  np.asarray(jinfo.planned))
+    np.testing.assert_array_equal(info.ok.numpy(), np.asarray(jinfo.ok))
+    for f in ("pos", "vel", "quat"):
+        np.testing.assert_allclose(getattr(st.drone, f).numpy(),
+                                   np.asarray(getattr(js.drone, f)),
+                                   atol=5e-3)
+    np.testing.assert_allclose(st.buffer.numpy(), np.asarray(js.buffer),
+                               atol=5e-3)
+    np.testing.assert_allclose(st.goal.numpy(), np.asarray(js.goal),
+                               atol=1e-5)
+    for f in ("near_goal", "reached", "failed", "fail_count", "steps",
+              "flap", "plan_count", "missions_done", "missions_ok"):
+        np.testing.assert_array_equal(getattr(st, f).numpy(),
+                                      np.asarray(getattr(js, f)), err_msg=f)
+    np.testing.assert_allclose(st.metrics.numpy(), np.asarray(js.metrics),
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_loop_moves_plans_and_completes(runs):
+    """Not a vacuous match: drones moved, replanned, and missions ended."""
+    _, _, st, _ = runs[-1]
+    assert float(np.abs(st.drone.pos[:, :2].numpy()).max()) > 0.5
+    assert int(st.plan_count.sum()) > B
+    assert all(bool(r[3].ok.any()) for r in runs)
+    assert int(st.missions_done.sum()) >= 1
+
+
+def _scenes(n):
+    w = jscenegen.generate_batch(jax.random.PRNGKey(4), n,
+                                 JWorldParams(num_boxes=10))
+    jsc = jax.vmap(lambda x: jscene.build(x, JMapParams(**MAPP)))(w)
+    tsc = scene.SceneMap(centers=_t(jsc.centers), half=_t(jsc.half),
+                         is_cyl=_t(jsc.is_cyl), active=_t(jsc.active))
+    return jsc, tsc
+
+
+def test_set_local_target_matches():
+    """Receding-horizon targets, with retry noise and the lateral escape
+    out of obstacles: the same draws give the same targets (1e-5)."""
+    n = 16
+    jsc, tsc = _scenes(n)
+    rng = np.random.default_rng(9)
+    pos = np.stack([rng.uniform(0.0, 20.0, n), rng.uniform(-3.0, 3.0, n)],
+                   -1).astype(np.float32)
+    goal = (pos + [[12.0, 0.0]] * (np.arange(n)[:, None] % 4 != 0)
+            + [[2.0, 0.5]]).astype(np.float32)
+    fails = (np.arange(n) % 2).astype(np.int32)
+    keys = jax.random.split(jax.random.PRNGKey(5), n)
+    noise = jax.vmap(lambda k: jax.random.normal(k, (2,)))(keys)
+    jmp, jpp = JMissionParams(), JPlannerParams()
+    want_t, want_n = jax.vmap(lambda sc, p, g, k, f: jmissions.set_local_target(
+        sc, p, g, k, f, jmp, jpp))(jsc, pos, goal, keys, fails)
+    got_t, got_n = missions.set_local_target(
+        tsc, _t(pos), _t(goal), _t(noise), _t(fails), MissionParams(),
+        PlannerParams())
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
+
+
+@pytest.mark.parametrize("clear_dis", [0.0, 1.5])
+def test_sample_clear_goal_matches(clear_dis):
+    n = 16
+    jsc, tsc = _scenes(n)
+    keys = jax.random.split(jax.random.PRNGKey(6), n)
+    flap = (np.arange(n) % 2).astype(np.int32)
+    want_g, want_f = jax.vmap(lambda k, f, sc: jmissions.sample_clear_goal(
+        k, f, sc, clear_dis))(keys, jnp.asarray(flap), jsc)
+    u = jax.vmap(jax.random.uniform)(keys)
+    got_g, got_f = missions.sample_clear_goal(_t(u), _t(flap), tsc,
+                                              clear_dis)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
+
+
+def test_rollout_from_generator_on_cpu():
+    """The port's own entry points end to end on the CPU: worlds and draws
+    from a seeded torch.Generator, reset, two segments of rollout."""
+    pp = PlannerParams(max_iters=4, samples_per_piece=6, retry_num=2,
+                       extra_lateral_scales=(), max_ls=2)
+    gen = _cuda.make_generator(0, "cpu")
+    worlds = scenegen.generate_batch(gen, 3, WorldParams(num_boxes=10))
+    assert worlds.centers.shape == (3, 24, 3)
+    net = planner_net.load(ONNX, NetParams(**NET), "cpu")
+    st = env.reset(worlds, pp, MissionParams(), MapParams(**MAPP), gen)
+    st = env.rollout(st, 2, pp, MissionParams(), SimParams(),
+                     CameraParams(width=160, height=120), net)
+    assert int(st.plan_count.min()) >= 1
+    for t in (st.drone.pos, st.drone.quat, st.buffer, st.metrics):
+        assert bool(torch.isfinite(t).all())
