@@ -10,9 +10,12 @@ Phases, one short line each:
    at the shapes of the main path (B = 1024 envs), inputs from a numpy seed,
    TF32 off: max abs/rel error beside the stated tolerance, kernel and plain
    times (CUDA events, medians), the bound from bytes and operations;
-3. a small closed loop (B = 32, 2 segments) on the card against the same
+3. the lazy bank (expert.warm_start_plan: B1 on the first lanes, then on
+   the retries with a skip mask) at B = 1024 on the card against its plain
+   version on the CPU;
+4. a small closed loop (B = 32, 2 segments) on the card against the same
    loop on the CPU, where every kernel wrapper takes its plain version;
-4. the main path: the NEO closed loop of bench.py's flagship configuration
+5. the main path: the NEO closed loop of bench.py's flagship configuration
    at B = 1024 (scene SDF, ground-truth sensing, the smallconv PlannerNet
    from artifacts/planner_net_smallconv.onnx, random missions): one warm-up
    segment and 3 timed segments of env.step_segment, with every kernel's
@@ -265,7 +268,7 @@ def main() -> int:
     trace = torch.empty((B, 60, 5, 3), device=dev)
     track.launch_tracker(cmds, st_packed, prims6, tout, trace, pp, mp, sp)
     wd, wreach, wsteps, wmet, wmpos, wtrace = track._track_plain(
-        st, cmds, pp, mp, sp, 0)
+        st, cmds, pp, mp, sp)
     want = torch.cat([wd.pos, wd.vel, wd.yaw[:, None], wd.quat, wmpos, wmet,
                       wreach[:, None].float(), wsteps[:, None].float()], 1)
     err = max(err_line(tout, want), err_line(trace, wtrace))
@@ -273,7 +276,7 @@ def main() -> int:
            median_ms(torch, lambda: track.launch_tracker(
                cmds, st_packed, prims6, tout, trace, pp, mp, sp), 20),
            median_ms(torch, lambda: track._track_plain(
-               st, cmds, pp, mp, sp, 0), 5),
+               st, cmds, pp, mp, sp), 5),
            B * 60 * 200 + B * 10 * 20 * float(n_active.mean()),
            B * (60 * 6 + 22 + 24 * 6 + 18 + 60 * 15) * 4)
 
@@ -300,6 +303,7 @@ def main() -> int:
     _, pf1, _ = plain(pp1)
     err1 = err_line(f1, pf1)
     solve.launch_solver(x0, head, tail, prims6, env_of, skip, sol, pp)
+    it24 = sol[2].clone()
     px, pf, _ = plain(pp)
 
     def accepted(x):
@@ -316,21 +320,27 @@ def main() -> int:
 
     rel_f = rel(sol[1], pf)
     mean_gap = abs(float(sol[1].mean()) / float(pf.mean()) - 1.0)
-    # the control: the same plain solver on the CPU, first 256 problems
-    n_c = 256
-    sc_c = scene.SceneMap(*(getattr(sc, f)[:n_c].cpu() for f in
-                            ("centers", "half", "is_cyl", "active")))
-    _, pf_c, _ = solve._solve_plain(
-        x0[:n_c].cpu(), head[:n_c].cpu(), tail[:n_c].cpu(), sc_c,
-        torch.arange(n_c), pp)
-    rel_c = rel(pf[:n_c].cpu(), pf_c)
+    # the control: the same plain solver on the CPU, first 256 problems,
+    # at 1 and at 24 iterations
+    n_c = min(256, B)
+    sc_cpu = scene.SceneMap(*(getattr(sc, f).cpu() for f in
+                              ("centers", "half", "is_cyl", "active")))
+
+    def plain_cpu(p):
+        return solve._solve_plain(x0[:n_c].cpu(), head[:n_c].cpu(),
+                                  tail[:n_c].cpu(), sc_cpu,
+                                  torch.arange(n_c), p)[1]
+
+    rel_c1 = rel(pf1[:n_c].cpu(), plain_cpu(pp1))
+    rel_c = rel(pf[:n_c].cpu(), plain_cpu(pp))
     say(f"lbfgs_scene_solve 24 iters: accepted {int(ok_k.sum())}/{B} kernel, "
         f"{int(ok_p.sum())}/{B} plain, flags agree {agree:.3f} (tol 0.95); "
         f"f rel diff median {np.median(rel_f):.2e} (tol 1e-4) p99 "
         f"{np.percentile(rel_f, 99):.2e} max {rel_f.max():.2e}, mean f gap "
         f"{mean_gap:.2e} (tol 1e-2); iters mean "
         f"{float(sol[2].float().mean()):.1f}")
-    say(f"lbfgs plain GPU vs CPU ({n_c} problems): f rel diff median "
+    say(f"lbfgs plain GPU vs CPU ({n_c} problems): f rel diff max "
+        f"{rel_c1.max():.2e} at 1 iter; at 24 iters median "
         f"{np.median(rel_c):.2e} p99 {np.percentile(rel_c, 99):.2e} max "
         f"{rel_c.max():.2e}")
     if agree < 0.95 or np.median(rel_f) > 1e-4 or mean_gap > 1e-2:
@@ -348,6 +358,48 @@ def main() -> int:
            flops, B * (7 * 4 + 12 * 4 + 2 * 4 + 7 * 4 + 8) + B * 24 * 6 * 4,
            on="rel")
 
+    # ---- the lazy bank: warm_start_plan on the card (B1 on the first
+    # lanes, then B1 on the retries with the accepted envs skipped, B5 for
+    # acceptance and coefficients) against its plain version on the CPU,
+    # from B1's inputs. Skip mask: the kernel is deterministic and the first
+    # launch repeats B1's 24-iteration run, so an env whose first lane was
+    # accepted spends exactly that run's iterations (its retries skipped)
+    # and a rejected env spends more (its retries live). The selection is
+    # held to the solver's cost basin as B1 is: ok flags agree on >= 95% of
+    # envs, the median relative cost difference of the selected
+    # trajectories is <= 1e-4, and the median env's waypoints and durations
+    # agree to 1e-2 m and 1e-2 s.
+    noise = torch.from_numpy(rng.normal(size=(B, pp.retry_num, pp.dims,
+                                              pp.num_wpts))).float()
+    tg = expert.warm_start_plan(sc, head, tail, q0, ts0, noise.to(dev), pp)
+    t0 = time.perf_counter()
+    tc = expert.warm_start_plan(sc_cpu, head.cpu(), tail.cpu(), q0.cpu(),
+                                ts0.cpu(), noise, pp)
+    cpu_s = time.perf_counter() - t0
+    extra = (tg.iters - it24).cpu()
+    first_ok = ok_k.cpu()
+    skip_ok = bool((extra[first_ok] == 0).all())
+    live_ok = bool((extra[~first_ok] > 0).all())
+    agree_b = float((tg.ok.cpu() == tc.ok).float().mean())
+    wts = costs.weights(pp, "cpu")
+    rel_b = rel((tg.costs.cpu() @ wts), tc.costs @ wts)
+    d_w = (tg.int_wpts.cpu() - tc.int_wpts).abs().flatten(1).amax(1)
+    d_t = (tg.ts.cpu() - tc.ts).abs().amax(1)
+    say(f"lazy bank B={B}: {int((~first_ok).sum())} envs retried (iters "
+        f"> first lane: {live_ok}), {int(first_ok.sum())} skipped (iters = "
+        f"first lane: {skip_ok}); ok {int(tg.ok.sum())} card, "
+        f"{int(tc.ok.sum())} CPU, agree {agree_b:.3f} (tol 0.95); cost rel "
+        f"diff median {np.median(rel_b):.2e} (tol 1e-4) max "
+        f"{rel_b.max():.2e}; wpts diff median {float(d_w.median()):.2e} m "
+        f"max {float(d_w.max()):.3g}, ts diff median "
+        f"{float(d_t.median()):.2e} s max {float(d_t.max()):.3g} (tol 1e-2 "
+        f"on medians); CPU {cpu_s:.1f} s")
+    if not (skip_ok and live_ok) or agree_b < 0.95 \
+            or np.median(rel_b) > 1e-4 or float(d_w.median()) > 1e-2 \
+            or float(d_t.median()) > 1e-2:
+        raise AssertionError("the lazy bank on the card disagrees with its "
+                             "plain version")
+
     net = planner_net.load(onnx, npc, dev)
     net_cpu = planner_net.load(onnx, npc, "cpu")
 
@@ -361,22 +413,25 @@ def main() -> int:
     s_g = env.reset(w_g, pp, mp, mapp, _cuda.make_generator(5),
                     goal=s_c.goal.to(dev))
     s_g = s_g.replace(flap=s_c.flap.to(dev))
-    flags, diffs = 1.0, []
-    for _ in range(2):
+    # segment 1 plans every env while the drones hover on the reset buffer;
+    # segment 2 flies those plans. Gate: the plan flags of segment 1 agree
+    # on >= 90% of envs, and every drone's position after segment 2 is
+    # within 1e-3 m of the CPU loop's
+    for seg in range(2):
         d_c = env.draw(gen_c, Bs, pp)
         d_g = env.Draws(*(x.to(dev) for x in (d_c.target_noise,
                                               d_c.bank_noise, d_c.goal_u)))
         s_c, i_c = env.step_segment(s_c, pp, mp, sp, cam, net_cpu, draws=d_c)
         s_g, i_g = env.step_segment(s_g, pp, mp, sp, cam, net, draws=d_g)
-        flags = min(flags, float((i_g.ok.cpu() == i_c.ok).float().mean()))
-        diffs.append((s_g.drone.pos.cpu() - s_c.drone.pos).abs().amax(1))
-    diffs = torch.stack(diffs)
-    # the solves' roundoff spread (see B1 above) reaches the trajectories:
-    # the median drone is held to 1 cm, the plan flags to 90% agreement
-    say(f"small loop B={Bs}: plan flags agree {flags:.3f} (tol 0.9), drone "
-        f"pos diff median {float(diffs.median()):.3g} m (tol 0.01), max "
-        f"{float(diffs.max()):.3g} m")
-    if flags < 0.9 or float(diffs.median()) > 0.01:
+        if seg == 0:
+            n_plan = int(i_c.planned.sum())
+            flags = float((i_g.ok.cpu() == i_c.ok).float().mean())
+    diff = (s_g.drone.pos.cpu() - s_c.drone.pos).abs().amax(1)
+    say(f"small loop B={Bs}: segment 1 planned {n_plan}, plan flags agree "
+        f"{flags:.3f} (tol 0.9); after segment 2 drone pos diff max "
+        f"{float(diff.max()):.3g} m (tol 1e-3), moved "
+        f"{float(s_c.drone.pos[:, :2].norm(dim=1).median()):.3g} m (median)")
+    if n_plan != Bs or flags < 0.9 or float(diff.max()) > 1e-3:
         raise AssertionError("the closed loop on the card disagrees with the "
                              "plain path")
 
@@ -384,7 +439,8 @@ def main() -> int:
     state = env.reset(worlds, pp, mp, mapp, _cuda.make_generator(2))
     _cuda.reset_launches()
     state, info = env.step_segment(state, pp, mp, sp, cam, net)
-    planned, accepted_plans = info.planned.sum(), info.ok.sum()
+    warm = (int(info.planned.sum()), int(info.ok.sum()))
+    planned, accepted_plans = 0, 0
     torch.cuda.synchronize()
     timer = StageTimer()
     t0 = time.perf_counter()
@@ -400,8 +456,8 @@ def main() -> int:
     say(f"closed loop B={B}: {B * mp.steps_per_replan * SEGMENTS / secs:.0f} "
         f"steps/s ({secs * 1e3 / SEGMENTS:.1f} ms/segment), missions done "
         f"{int(state.missions_done.sum())} ok {int(state.missions_ok.sum())}, "
-        f"plans ok {int(accepted_plans)}/{int(planned)} over "
-        f"{SEGMENTS + 1} segments")
+        f"live replans ok {int(accepted_plans)}/{int(planned)} in the timed "
+        f"segments, {warm[1]}/{warm[0]} in the warm-up")
     say("stages ms/segment: " + ", ".join(
         f"{k} {stages.get(k, 0.0) / SEGMENTS:.2f}"
         for k in ("render", "net", "plan", "track")))

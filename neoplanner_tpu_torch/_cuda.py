@@ -45,12 +45,12 @@ _SIGNATURES = {
     # n_problems, n_prims, K, max_iters, max_ls, host params (float*), stream
     "neo_lbfgs_scene_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P, _P],
-    # cmds, state, prims, state_out, trace, n_envs, n_prims, spr, i0,
+    # cmds, state, prims, state_out, trace, n_envs, n_prims, spr,
     # host params (float*), stream
-    "neo_track_segment": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # pos, quat, prims, depth, n_envs, n_prims, width, out_rows, row_stride,
-    # host params [fx, fy, min_range, max_range, height] (float*), stream
-    "neo_render_depth": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "neo_track_segment": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # pos, quat, prims, depth, n_envs, n_prims, width, height,
+    # host params [fx, fy, min_range, max_range] (float*), stream
+    "neo_render_depth": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None

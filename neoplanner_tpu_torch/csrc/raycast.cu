@@ -30,7 +30,7 @@ constexpr float kInf = 1e9f;
 constexpr int kPrimFields = 8;  // cx cy cz hx hy hz is_cyl active
 
 struct CamParams {
-  float fx, fy, min_range, max_range, cam_height;
+  float fx, fy, min_range, max_range;
 };
 
 __device__ __forceinline__ void quat_rotate(const float (&q)[4],
@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(kBlock)
                         const float* __restrict__ quat,
                         const float* __restrict__ prims,
                         float* __restrict__ depth, int n_prims, int width,
-                        int out_rows, int row_stride, CamParams C) {
+                        int height, CamParams C) {
   extern __shared__ float sp[];  // [n_prims * 8] of this env
   const int e = blockIdx.y;
   const float* src = prims + static_cast<long long>(e) * n_prims * kPrimFields;
@@ -61,14 +61,14 @@ __global__ void __launch_bounds__(kBlock)
     sp[i] = src[i];
   __syncthreads();
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= out_rows * width) return;
+  if (pix >= height * width) return;
   const int row = pix / width, col = pix - row * width;
 
   // body-frame unit ray of this pixel (raycast.ray_dirs_camera)
   const float u = static_cast<float>(col) + 0.5f;
-  const float v = static_cast<float>(row_stride / 2 + row * row_stride) + 0.5f;
+  const float v = static_cast<float>(row) + 0.5f;
   const float x_opt = (u - static_cast<float>(width) / 2.0f) / C.fx;
-  const float y_opt = (v - C.cam_height / 2.0f) / C.fy;
+  const float y_opt = (v - static_cast<float>(height) / 2.0f) / C.fy;
   const float b[3] = {1.0f, -x_opt, -y_opt};
   const float bn = sqrtf(b[0] * b[0] + b[1] * b[1] + b[2] * b[2]);
   const float db[3] = {b[0] / bn, b[1] / bn, b[2] / bn};
@@ -128,7 +128,7 @@ __global__ void __launch_bounds__(kBlock)
   quat_rotate(q, xb_in, xb);
   const float z = t * (d[0] * xb[0] + d[1] * xb[1] + d[2] * xb[2]);
   const bool valid = t < kInf && z >= C.min_range && z <= C.max_range;
-  depth[static_cast<long long>(e) * out_rows * width + pix] =
+  depth[static_cast<long long>(e) * height * width + pix] =
       valid ? z : C.max_range;
 }
 
@@ -136,19 +136,19 @@ __global__ void __launch_bounds__(kBlock)
 
 extern "C" int neo_render_depth(const void* pos, const void* quat,
                                 const void* prims, void* depth, int n_envs,
-                                int n_prims, int width, int out_rows,
-                                int row_stride, const float* host_params,
+                                int n_prims, int width, int height,
+                                const float* host_params,
                                 void* stream) {
   CamParams C;
-  static_assert(sizeof(CamParams) == 5 * sizeof(float), "layout");
+  static_assert(sizeof(CamParams) == 4 * sizeof(float), "layout");
   memcpy(&C, host_params, sizeof(C));
   const size_t smem = static_cast<size_t>(n_prims) * kPrimFields * sizeof(float);
   const dim3 block(kBlock);
-  const dim3 grid((out_rows * width + kBlock - 1) / kBlock, n_envs);
+  const dim3 grid((height * width + kBlock - 1) / kBlock, n_envs);
   render_depth_kernel<<<grid, block, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<const float*>(quat),
       static_cast<const float*>(prims), static_cast<float*>(depth), n_prims,
-      width, out_rows, row_stride, C);
+      width, height, C);
   return static_cast<int>(cudaGetLastError());
 }

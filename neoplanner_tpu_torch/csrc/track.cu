@@ -103,8 +103,7 @@ __global__ void __launch_bounds__(kBlock)
                          const float* __restrict__ st_in,
                          const float* __restrict__ prims,
                          float* __restrict__ st_out, float* __restrict__ trace,
-                         int n_envs, int n_prims, int spr, int i0,
-                         TrackParams P) {
+                         int n_envs, int n_prims, int spr, TrackParams P) {
   extern __shared__ float smem[];  // [n_prims * 6][blockDim.x]
   const int tid = threadIdx.x;
   const int e = blockIdx.x * blockDim.x + tid;
@@ -160,7 +159,7 @@ __global__ void __launch_bounds__(kBlock)
     const float ex = px - gx, ey = py - gy;
     reached = reached || (active && sqrtf(ex * ex + ey * ey) < P.reach_thr);
 
-    if (((t + i0) % kMetricEvery == 0) && active && !reached) {
+    if ((t % kMetricEvery == 0) && active && !reached) {
       const float ddx = px - mpx, ddy = py - mpy;
       const float vviol = fmaxf(vx * vx + vy * vy - P.v_max * P.v_max, 0.0f);
       const float dis = neo::scene_min_dist<false>(pr, stride, n_prims, px,
@@ -197,7 +196,7 @@ __global__ void __launch_bounds__(kBlock)
 extern "C" int neo_track_segment(const void* cmds, const void* state,
                                  const void* prims, void* state_out,
                                  void* trace, int n_envs, int n_prims,
-                                 int spr, int i0, const float* host_params,
+                                 int spr, const float* host_params,
                                  void* stream) {
   TrackParams P;
   static_assert(sizeof(TrackParams) == 11 * sizeof(float), "layout");
@@ -209,6 +208,6 @@ extern "C" int neo_track_segment(const void* cmds, const void* state,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cmds), static_cast<const float*>(state),
       static_cast<const float*>(prims), static_cast<float*>(state_out),
-      static_cast<float*>(trace), n_envs, n_prims, spr, i0, P);
+      static_cast<float*>(trace), n_envs, n_prims, spr, P);
   return static_cast<int>(cudaGetLastError());
 }

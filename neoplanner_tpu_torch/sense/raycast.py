@@ -28,13 +28,10 @@ from neoplanner_tpu_torch.core.types import SHAPE_CYLINDER, BoxWorld
 _INF = 1e9
 
 
-def ray_dirs_camera(cam: CameraParams, row_stride: int = 1,
-                    device=None) -> torch.Tensor:
-    """(H, W, 3) unit ray directions in the body frame (x fwd, y left, z up);
-    row_stride > 1 keeps every stride-th row at the same vertical FOV."""
+def ray_dirs_camera(cam: CameraParams, device=None) -> torch.Tensor:
+    """(H, W, 3) unit ray directions in the body frame (x fwd, y left, z up)."""
     u = torch.arange(cam.width, device=device) + 0.5
-    v = torch.arange(row_stride // 2, cam.height, row_stride,
-                     device=device) + 0.5
+    v = torch.arange(cam.height, device=device) + 0.5
     x_opt = (u[None, :] - cam.width / 2) / cam.fx
     y_opt = (v[:, None] - cam.height / 2) / cam.fy
     ones = torch.ones((v.shape[0], cam.width), device=device)
@@ -83,11 +80,11 @@ def _ray_cylinder(o, d, c, h):
 
 
 def render_depth(world: BoxWorld, pos: torch.Tensor, quat: torch.Tensor,
-                 cam: CameraParams, row_stride: int = 1) -> torch.Tensor:
+                 cam: CameraParams) -> torch.Tensor:
     """Plain form: (B, H, W) z-depth images from cameras at pos (B, 3) with
     body attitudes quat (B, 4). Primitives are tested one at a time against
     every ray, keeping the running nearest hit."""
-    dirs_body = ray_dirs_camera(cam, row_stride, pos.device)     # (H, W, 3)
+    dirs_body = ray_dirs_camera(cam, pos.device)                 # (H, W, 3)
     H, W = dirs_body.shape[:2]
     B = pos.shape[0]
     dirs = frames.quat_rotate(quat[:, None, :],
@@ -125,38 +122,35 @@ def pack_prims(world: BoxWorld) -> torch.Tensor:
 
 
 def render_depth_auto(world: BoxWorld, pos: torch.Tensor, quat: torch.Tensor,
-                      cam: CameraParams, row_stride: int = 1) -> torch.Tensor:
+                      cam: CameraParams) -> torch.Tensor:
     """(B, H, W) z-depth: the CUDA kernel (B4) for CUDA tensors, the plain
     :func:`render_depth` for CPU tensors."""
     if not pos.is_cuda:
-        return render_depth(world, pos, quat, cam, row_stride)
-    rows = len(range(row_stride // 2, cam.height, row_stride))
-    depth = torch.empty((pos.shape[0], rows, cam.width), dtype=torch.float32,
-                        device=pos.device)
+        return render_depth(world, pos, quat, cam)
+    depth = torch.empty((pos.shape[0], cam.height, cam.width),
+                        dtype=torch.float32, device=pos.device)
     launch_render(pos.to(torch.float32).contiguous(),
                   quat.to(torch.float32).contiguous(), pack_prims(world),
-                  depth, cam, row_stride)
+                  depth, cam)
     return depth
 
 
-def launch_render(pos, quat, prims, depth, cam: CameraParams,
-                  row_stride: int = 1) -> None:
+def launch_render(pos, quat, prims, depth, cam: CameraParams) -> None:
     """Launch B4 on prepared tensors: pos (B, 3), quat (B, 4), prims
-    (B, K, 8) (:func:`pack_prims`); writes depth (B, rows, W)."""
+    (B, K, 8) (:func:`pack_prims`); writes depth (B, H, W)."""
     dev = pos.device
     B, K = prims.shape[:2]
-    rows = len(range(row_stride // 2, cam.height, row_stride))
     for t, name, shape in ((pos, "pos", (B, 3)), (quat, "quat", (B, 4)),
                            (prims, "prims", (B, K, 8)),
-                           (depth, "depth", (B, rows, cam.width))):
+                           (depth, "depth", (B, cam.height, cam.width))):
         _cuda.require(t, name, shape, torch.float32, dev)
     if B == 0:
         return
     lib = _cuda.load()
     params = _cuda.host_floats([cam.fx, cam.fy, cam.min_range,
-                                cam.max_range, cam.height])
+                                cam.max_range])
     err = lib.neo_render_depth(
         _cuda.ptr(pos), _cuda.ptr(quat), _cuda.ptr(prims), _cuda.ptr(depth),
-        B, K, cam.width, rows, row_stride, params, _cuda.stream_ptr(dev))
+        B, K, cam.width, cam.height, params, _cuda.stream_ptr(dev))
     _cuda.check(err, "render_depth")
     _cuda.launches["render_depth"] += 1

@@ -32,16 +32,16 @@ _SMEM_LIMIT = 48 * 1024
 
 
 def track_segment(state, cmds: torch.Tensor, pp: PlannerParams,
-                  mp: MissionParams, sp: SimParams, i0: int = 0):
+                  mp: MissionParams, sp: SimParams):
     """Track cmds (B, spr, 3, 2) [pos; vel; acc] setpoints from ``state`` (an
     env.EnvState). Returns (drone, reached (B,), steps (B,) int32,
     metrics (B, 3), metric_pos (B, 2), trace (B, spr, 5, 3))."""
     if not cmds.is_cuda:
-        return _track_plain(state, cmds, pp, mp, sp, i0)
-    return _track_cuda(state, cmds, pp, mp, sp, i0)
+        return _track_plain(state, cmds, pp, mp, sp)
+    return _track_cuda(state, cmds, pp, mp, sp)
 
 
-def _track_plain(state, cmds, pp, mp, sp, i0):
+def _track_plain(state, cmds, pp, mp, sp):
     B, spr = cmds.shape[:2]
     active = state.phase == missions.PHASE_MISSION
     moving = active | (state.phase == missions.PHASE_TAKEOFF)
@@ -70,7 +70,7 @@ def _track_plain(state, cmds, pp, mp, sp, i0):
         pos2 = drone.pos[:, :2]
         reached = reached | (active & (torch.linalg.vector_norm(
             pos2 - state.goal, dim=-1) < mp.target_reach_threshold))
-        tick = ((i + i0) % METRIC_EVERY == 0) & active & ~reached
+        tick = (i % METRIC_EVERY == 0) & active & ~reached
         d_dist = torch.linalg.vector_norm(pos2 - metric_pos, dim=-1)
         violate_vel = (drone.vel[:, :2] ** 2).sum(-1) - pp.v_max ** 2
         dis, _ = query.distance(state.scene, pos2[:, None])
@@ -101,21 +101,20 @@ def pack_state(state) -> torch.Tensor:
         dim=-1).to(f32).contiguous()
 
 
-def _track_cuda(state, cmds, pp, mp, sp, i0):
+def _track_cuda(state, cmds, pp, mp, sp):
     dev = cmds.device
     B, spr = cmds.shape[:2]
     out = torch.empty((B, 18), dtype=torch.float32, device=dev)
     trace = torch.empty((B, spr, 5, 3), dtype=torch.float32, device=dev)
     launch_tracker(cmds.to(torch.float32).contiguous(), pack_state(state),
-                   scene_map.pack_prims(state.scene), out, trace, pp, mp, sp,
-                   i0)
+                   scene_map.pack_prims(state.scene), out, trace, pp, mp, sp)
     drone = DroneState(pos=out[:, 0:3], vel=out[:, 3:6], quat=out[:, 7:11],
                        yaw=out[:, 6])
     return (drone, out[:, 16] > 0.5, out[:, 17].to(torch.int32),
             out[:, 13:16], out[:, 11:13], trace)
 
 
-def launch_tracker(cmds, st, prims, out, trace, pp, mp, sp, i0=0) -> None:
+def launch_tracker(cmds, st, prims, out, trace, pp, mp, sp) -> None:
     """Launch B3 on prepared tensors: cmds (B, spr, 3, 2), st (B, 22)
     (:func:`pack_state`), prims (B, K, 6); writes out (B, 18) [pos3 vel3
     yaw quat4 metric_pos2 metrics3 reached steps] and trace (B, spr, 5, 3)."""
@@ -140,6 +139,6 @@ def launch_tracker(cmds, st, prims, out, trace, pp, mp, sp, i0=0) -> None:
         mp.target_reach_threshold])
     err = lib.neo_track_segment(
         _cuda.ptr(cmds), _cuda.ptr(st), _cuda.ptr(prims), _cuda.ptr(out),
-        _cuda.ptr(trace), B, n_prims, spr, i0, params, _cuda.stream_ptr(dev))
+        _cuda.ptr(trace), B, n_prims, spr, params, _cuda.stream_ptr(dev))
     _cuda.check(err, "track_segment")
     _cuda.launches["track_segment"] += 1

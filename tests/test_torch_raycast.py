@@ -54,11 +54,10 @@ def _assert_depth_close(got, want):
 
 
 def test_ray_dirs_match():
-    for stride in (1, 4):
-        np.testing.assert_allclose(
-            raycast.ray_dirs_camera(CameraParams(), stride).numpy(),
-            np.asarray(jraycast.ray_dirs_camera(JCameraParams(), stride)),
-            rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        raycast.ray_dirs_camera(CameraParams()).numpy(),
+        np.asarray(jraycast.ray_dirs_camera(JCameraParams())),
+        rtol=1e-6, atol=1e-6)
 
 
 def test_quaternion_helpers_match():
@@ -89,14 +88,14 @@ def test_flatness_quaternion_matches():
     np.testing.assert_allclose(got.numpy(), quat, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("row_stride", [1, 4])
-def test_render_depth_matches(row_stride):
+@pytest.mark.parametrize("seed", [1, 4])
+def test_render_depth_matches(seed):
     n = 3
-    jw, tw, pos, quat, _, _ = _setup(n)
+    jw, tw, pos, quat, _, _ = _setup(n, seed)
     cam, jcam = CameraParams(), JCameraParams()
-    got = raycast.render_depth_auto(tw, _t(pos), _t(quat), cam, row_stride)
+    got = raycast.render_depth_auto(tw, _t(pos), _t(quat), cam)
     want = jax.vmap(lambda w, p, q: jraycast.render_depth(
-        w, p, q, jcam, row_stride))(jw, jnp.asarray(pos), jnp.asarray(quat))
+        w, p, q, jcam))(jw, jnp.asarray(pos), jnp.asarray(quat))
     assert got.shape == want.shape
     _assert_depth_close(got.numpy(), np.asarray(want))
     # the frames see something: obstacles or ground, not all max-range
@@ -106,7 +105,7 @@ def test_render_depth_matches(row_stride):
 def test_cpu_tensor_takes_plain_version():
     _, tw, pos, quat, _, _ = _setup(1)
     before = _cuda.launches["render_depth"]
-    raycast.render_depth_auto(tw, _t(pos), _t(quat), CameraParams(), 8)
+    raycast.render_depth_auto(tw, _t(pos), _t(quat), CameraParams())
     assert _cuda.launches["render_depth"] == before
 
 

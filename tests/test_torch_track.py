@@ -80,13 +80,13 @@ def _cmds(n, spr=60):
     return np.stack(out).astype(np.float32)               # (n, spr, 3, 2)
 
 
-def _run_both(js, cmds, i0=0):
+def _run_both(js, cmds):
     want = jax.vmap(lambda s, c: jenv._track_segment(
-        s, c, JPlannerParams(), JMissionParams(), JSimParams(), "scene",
-        i0=i0))(js, jnp.asarray(cmds))
+        s, c, JPlannerParams(), JMissionParams(), JSimParams(),
+        "scene"))(js, jnp.asarray(cmds))
     st = to_port_state(js, PlannerParams(), MapParams(**MAPP))
     got = track.track_segment(st, _t(cmds), PlannerParams(), MissionParams(),
-                              SimParams(), i0=i0)
+                              SimParams())
     return want, got
 
 
@@ -112,8 +112,10 @@ def test_tracking_segment_matches():
 
 
 def test_metric_offset_and_reached_freeze():
+    """The 10 Hz metric ticks on substeps 0, 6, ... and stops, with the
+    drone, once the goal is reached inside the segment."""
     js = _states(goal=(0.55, 0.0))
-    want, got = _run_both(js, _cmds(4), i0=30)
+    want, got = _run_both(js, _cmds(4))
     _assert_match(want, got)
     assert bool(np.asarray(want[1]).any()), "test should exercise reach"
 
@@ -172,9 +174,9 @@ def test_kernel_matches_plain(cuda_device):
     st = to_port_state(js, PlannerParams(), MapParams(**MAPP))
     cmds = _t(_cmds(4))
     args = (PlannerParams(), MissionParams(), SimParams())
-    want = track.track_segment(st, cmds, *args, i0=30)
+    want = track.track_segment(st, cmds, *args)
     got = track.track_segment(_to(st, cuda_device), cmds.to(cuda_device),
-                              *args, i0=30)
+                              *args)
     d = got[0]
     got = (DroneState(pos=d.pos.cpu(), vel=d.vel.cpu(), quat=d.quat.cpu(),
                       yaw=d.yaw.cpu()),) + tuple(a.cpu() for a in got[1:])
