@@ -32,7 +32,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "--threads", "4"]
 
 KERNELS = ("minco_banded_solve", "lbfgs_scene_solve", "track_segment",
-           "render_depth")
+           "render_depth", "lbfgs_grid_solve", "fuse_depth_dense",
+           "edt_trunc_lite", "track_segment_grid")
 launches = {name: 0 for name in KERNELS}
 build_seconds = None   # wall time of the nvcc call (None: loaded from cache)
 
@@ -51,6 +52,18 @@ _SIGNATURES = {
     # pos, quat, prims, depth, n_envs, n_prims, width, height,
     # host params [fx, fy, min_range, max_range] (float*), stream
     "neo_render_depth": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # x0, head, tail, win, worg, env_of, skip, x_out, f_out, it_out,
+    # n_problems, Hw, Ww, K, max_iters, max_ls, host params (float*), stream
+    "neo_lbfgs_grid_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _P, _P],
+    # logodds, tabs, sc, hit, out, n_envs, H, W, Wcam,
+    # host params (float*), stream
+    "neo_fuse_depth_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # logodds, out, n_envs, H, W, R, host params [thr, res, max_dist], stream
+    "neo_edt_trunc_lite": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # cmds, state, state_out, trace, ticks, n_envs, spr,
+    # host params (float*), stream
+    "neo_track_segment_grid": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -51,3 +51,19 @@ class BoxWorld(_Replace):
     half_sizes: torch.Tensor  # (B, K, 3); for cylinders [..., 0] is the radius
     active: torch.Tensor      # (B, K) bool
     shape: torch.Tensor       # (B, K) int32: SHAPE_BOX or SHAPE_CYLINDER
+
+
+@dataclass
+class ESDFMap(_Replace):
+    """The lite ESDF of the vision loop (neoplanner_tpu/core/types.py
+    ``ESDFMap`` built with lite=True): a truncated distance field stored in
+    bf16, one per env. The occupancy and gradient planes of the full profile
+    are not kept: every consumer reads distances only."""
+
+    esdf: torch.Tensor      # (B, H, W) bf16 distance to the nearest occupied cell [m]
+    origin: tuple           # (x, y) world coordinates of the grid corner [m]
+    resolution: float       # m per cell
+
+    def index(self, idx) -> "ESDFMap":
+        """The maps of the envs ``idx`` (an index tensor over B)."""
+        return ESDFMap(self.esdf[idx], self.origin, self.resolution)

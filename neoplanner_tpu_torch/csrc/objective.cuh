@@ -1,6 +1,11 @@
-// B2: the MINCO objective on the analytic scene SDF and its hand adjoint, as
-// __device__ code for one problem per thread. Inlined into B1
-// (lbfgs_scene.cu); there is no launch of its own.
+// B2: the MINCO objective and its hand adjoint, as __device__ code for one
+// problem per thread, over any distance query. Inlined into B1
+// (lbfgs_scene.cu, the scene SDF) and B6 (lbfgs_grid.cu, the bilinear ESDF
+// window taps); there is no launch of its own.
+//
+// A query is a type with
+//   template <bool GRAD> float dist(float px, float py, float* gx, float* gy)
+// returning the distance at a sample and, with GRAD, its gradient.
 //
 // Replaces the device functions of neoplanner_tpu/plan/costs_pallas.py:
 // `_system_entries` (:90), `_solve_entries` (:124, here
@@ -27,7 +32,7 @@ constexpr int kNW = kM - 1;               // intermediate waypoints
 constexpr int kNV = kDim * kNW + kM;      // decision variables (7)
 constexpr int kNS = 6 * kM;               // system size (18)
 
-struct SceneParams {
+struct SolveParams {
   float t_min, t_max, v_max, safe_dis, w_e, w_t, w_f, w_c, ftol, gtol, c1;
 };
 
@@ -77,14 +82,27 @@ __device__ __forceinline__ void build_system(const float (&T)[kM],
       put(kNS - 3 + k, kNS - 6 + j, falling(k, j) * p[j - k]);
 }
 
+// The scene SDF query: one env's primitives, a thread's slice of the
+// block's shared-memory table (see scene_min_dist).
+struct SceneQuery {
+  const float* pr;
+  int stride, n_prims;
+  template <bool GRAD>
+  __device__ __forceinline__ float dist(float px, float py, float* gx,
+                                        float* gy) const {
+    return scene_min_dist<GRAD>(pr, stride, n_prims, px, py, gx, gy);
+  }
+};
+
 // Weighted objective of decision vector x; with GRAD also its gradient g.
-// head/tail: [pos; vel; acc] x (x, y), row-major. pr/stride: this thread's
-// slice of the block's primitive table (see scene_min_dist).
-template <bool GRAD>
-__device__ __noinline__ float scene_objective(const float (&x)[kNV], const float (&head)[6],
-                                 const float (&tail)[6], const float* pr,
-                                 int stride, int n_prims, int K,
-                                 const SceneParams& P, float (&g)[kNV]) {
+// head/tail: [pos; vel; acc] x (x, y), row-major.
+template <bool GRAD, class Query>
+__device__ __noinline__ float objective(const float (&x)[kNV],
+                                        const float (&head)[6],
+                                        const float (&tail)[6],
+                                        const Query& query, int K,
+                                        const SolveParams& P,
+                                        float (&g)[kNV]) {
   float sig[kM], T[kM];
 #pragma unroll
   for (int m = 0; m < kM; ++m) {
@@ -195,8 +213,7 @@ __device__ __noinline__ float scene_objective(const float (&x)[kNV], const float
       const float hv2 = hv * hv;
       feas += w * hv * hv2;
       float gsx = 0.0f, gsy = 0.0f;
-      const float dis =
-          scene_min_dist<GRAD>(pr, stride, n_prims, px, py, &gsx, &gsy);
+      const float dis = query.template dist<GRAD>(px, py, &gsx, &gsy);
       const float hc = fmaxf(P.safe_dis - dis, 0.0f);
       const float hc2 = hc * hc;
       coll += w * hc * hc2;

@@ -1,9 +1,15 @@
-// B3: one tracking segment (all substeps) per env, one thread per env.
+// B3 and B10: one tracking segment (all substeps) per env, one thread per
+// env.
 //
-// Replaces neoplanner_tpu/sim/track_pallas.py `_make_track_kernel` (:94) with
-// with_dis=True, launched by `_track_batch` (:241) through `track_segment`
-// (:284). Python wrapper: sim/track.py `track_segment`; plain version: the
-// substep loop of the same module (sim/env._track_segment's scan).
+// Replaces neoplanner_tpu/sim/track_pallas.py `_make_track_kernel` (:94),
+// launched by `_track_batch` (:241): with_dis=True through `track_segment`
+// (:284) is B3 (C entry neo_track_segment), with_dis=False through
+// `track_segment_grid` (:322) is B10 (C entry neo_track_segment_grid). Python
+// wrappers: sim/track.py `track_segment` and `track_segment_grid`; plain
+// version: the substep loop of the same module (sim/env._track_segment's
+// scan). B10 runs without the distance query and writes the 10 Hz tick mask
+// instead; the wrapper adds the collision term from a nearest ESDF sample at
+// the tick positions (the map never feeds back into the dynamics).
 //
 // Per substep: the cascaded pos/vel controller with the acceleration clamp,
 // semi-implicit integration with drag, the rate-limited yaw toward the
@@ -15,10 +21,11 @@
 //
 // Bound on the H100: device memory. Per env the kernel reads 60 commands
 // (1,440 B), the state and the primitive table, writes a 3,600 B trace, and
-// does ~150 flops per substep plus 10 SDF queries. The TPU kernel's
+// does ~150 flops per substep plus (B3) 10 SDF queries; B10 reads no
+// primitives and writes a 240 B tick mask instead. The TPU kernel's
 // workarounds go: the desired yaw and the angle wrap use atan2f in-kernel
 // (Mosaic had no atan2, so the TPU form precomputed it outside), and the
-// reached/freeze logic is plain booleans. The env's primitives sit in the
+// reached/freeze logic is plain booleans. B3's env primitives sit in the
 // thread's slice of shared memory.
 #include <string.h>
 
@@ -98,19 +105,25 @@ __device__ __forceinline__ void quat_from_accel_yaw(float ax, float ay,
 // state in (22): pos3 vel3 yaw quat4 goal2 metric_pos2 metrics3 reached steps
 //                active moving
 // state out (18): pos3 vel3 yaw quat4 metric_pos2 metrics3 reached steps
+// WITH_DIS: prims (B, n_prims, 6) are read and ticks is unused; else prims
+// is unused and ticks (B, spr) receives 1 on the substeps that ticked.
+template <bool WITH_DIS>
 __global__ void __launch_bounds__(kBlock)
     track_segment_kernel(const float* __restrict__ cmds,
                          const float* __restrict__ st_in,
                          const float* __restrict__ prims,
                          float* __restrict__ st_out, float* __restrict__ trace,
-                         int n_envs, int n_prims, int spr, TrackParams P) {
+                         float* __restrict__ ticks, int n_envs, int n_prims,
+                         int spr, TrackParams P) {
   extern __shared__ float smem[];  // [n_prims * 6][blockDim.x]
   const int tid = threadIdx.x;
   const int e = blockIdx.x * blockDim.x + tid;
   if (e >= n_envs) return;
   const int stride = blockDim.x;
-  const float* src = prims + static_cast<long long>(e) * n_prims * 6;
-  for (int i = 0; i < n_prims * 6; ++i) smem[i * stride + tid] = src[i];
+  if (WITH_DIS) {
+    const float* src = prims + static_cast<long long>(e) * n_prims * 6;
+    for (int i = 0; i < n_prims * 6; ++i) smem[i * stride + tid] = src[i];
+  }
   const float* pr = smem + tid;
 
   const float* st = st_in + static_cast<long long>(e) * kStateIn;
@@ -159,18 +172,22 @@ __global__ void __launch_bounds__(kBlock)
     const float ex = px - gx, ey = py - gy;
     reached = reached || (active && sqrtf(ex * ex + ey * ey) < P.reach_thr);
 
-    if ((t % kMetricEvery == 0) && active && !reached) {
+    const bool tick = (t % kMetricEvery == 0) && active && !reached;
+    if (tick) {
       const float ddx = px - mpx, ddy = py - mpy;
       const float vviol = fmaxf(vx * vx + vy * vy - P.v_max * P.v_max, 0.0f);
-      const float dis = neo::scene_min_dist<false>(pr, stride, n_prims, px,
-                                                   py, nullptr, nullptr);
-      const float dviol = fmaxf(P.safe_dis - fmaxf(dis, 0.0f), 0.0f);
+      if (WITH_DIS) {
+        const float dis = neo::scene_min_dist<false>(pr, stride, n_prims, px,
+                                                     py, nullptr, nullptr);
+        const float dviol = fmaxf(P.safe_dis - fmaxf(dis, 0.0f), 0.0f);
+        m2 += dviol * dviol * dviol;
+      }
       m0 += sqrtf(ddx * ddx + ddy * ddy);
       m1 += vviol * vviol * vviol;
-      m2 += dviol * dviol * dviol;
       mpx = px;
       mpy = py;
     }
+    if (!WITH_DIS) ticks[static_cast<long long>(e) * spr + t] = tick ? 1.0f : 0.0f;
     if (active && !reached) steps += 1.0f;
 
     float* row = tr + t * 15;
@@ -204,10 +221,27 @@ extern "C" int neo_track_segment(const void* cmds, const void* state,
   const size_t smem = static_cast<size_t>(n_prims) * 6 * kBlock * sizeof(float);
   const dim3 block(kBlock);
   const dim3 grid((n_envs + kBlock - 1) / kBlock);
-  track_segment_kernel<<<grid, block, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  track_segment_kernel<true><<<grid, block, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cmds), static_cast<const float*>(state),
       static_cast<const float*>(prims), static_cast<float*>(state_out),
-      static_cast<float*>(trace), n_envs, n_prims, spr, P);
+      static_cast<float*>(trace), nullptr, n_envs, n_prims, spr, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int neo_track_segment_grid(const void* cmds, const void* state,
+                                      void* state_out, void* trace,
+                                      void* ticks, int n_envs, int spr,
+                                      const float* host_params,
+                                      void* stream) {
+  TrackParams P;
+  memcpy(&P, host_params, sizeof(P));
+  const dim3 block(kBlock);
+  const dim3 grid((n_envs + kBlock - 1) / kBlock);
+  track_segment_kernel<false><<<grid, block, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cmds), static_cast<const float*>(state),
+      nullptr, static_cast<float*>(state_out), static_cast<float*>(trace),
+      static_cast<float*>(ticks), n_envs, 0, spr, P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Trajectory-optimization cost terms on the analytic scene SDF.
+"""Trajectory-optimization cost terms.
 
 The port of neoplanner_tpu/plan/costs.py, 'relative' sampling only (the
 optimization default, samples at t = T·j/(K-1)):
@@ -7,9 +7,11 @@ optimization default, samples at t = T·j/(K-1)):
                feasibility ∫max(|v|²-v_max², 0)³,
                collision  ∫max(safe_dis - SDF(p), 0)³ ]
 
-Every function takes a leading problem axis N; the scene holds one row per
-problem. Gradients come from autograd through the banded solve's implicit
-adjoint (ops/minco.solve_banded).
+Every function takes a leading problem axis N; the map holds one row per
+problem: the analytic scene SDF (SceneMap), a lite grid ESDF (ESDFMap,
+sampled as pp.esdf_interp says) or the grid solver's windows (GridWindow).
+Gradients come from autograd through the banded solve's implicit adjoint
+(ops/minco.solve_banded).
 """
 
 from __future__ import annotations
@@ -17,8 +19,22 @@ from __future__ import annotations
 import torch
 
 from neoplanner_tpu_torch.config import PlannerParams
+from neoplanner_tpu_torch.core.types import ESDFMap
+from neoplanner_tpu_torch.mapping import esdf as esdf_map
 from neoplanner_tpu_torch.mapping import scene as scene_map
 from neoplanner_tpu_torch.ops import minco
+
+
+def map_distance(pmap, pos: torch.Tensor, pp: PlannerParams) -> torch.Tensor:
+    """Collision distance at points pos (N, ..., 2) of each problem's map
+    (costs.py:39-48, plus the grid solver's windows)."""
+    if isinstance(pmap, scene_map.SceneMap):
+        return scene_map.sample(pmap, pos)[0]
+    if isinstance(pmap, ESDFMap):
+        return esdf_map.sample(pmap, pos, mode=pp.esdf_interp)
+    if isinstance(pmap, esdf_map.GridWindow):
+        return esdf_map.sample_window(pmap, pos)
+    raise TypeError(f"not a map: {type(pmap).__name__}")
 
 
 def _cubic_hinge(x: torch.Tensor) -> torch.Tensor:
@@ -39,8 +55,8 @@ def piece_samples(ts: torch.Tensor, pp: PlannerParams):
     return t, w
 
 
-def sampled_costs(coeffs: torch.Tensor, ts: torch.Tensor,
-                  scene: scene_map.SceneMap, pp: PlannerParams):
+def sampled_costs(coeffs: torch.Tensor, ts: torch.Tensor, pmap,
+                  pp: PlannerParams):
     """(feasibility, collision) penalty integrals, each (N,)."""
     N, M = ts.shape
     t, w = piece_samples(ts, pp)                     # (N, M, K)
@@ -49,16 +65,16 @@ def sampled_costs(coeffs: torch.Tensor, ts: torch.Tensor,
     vel = torch.einsum("nmkj,nmjd->nmkd", minco.beta(t, 1), c)
     violate_vel = (vel * vel).sum(-1) - pp.v_max ** 2
     feas = (w * _cubic_hinge(violate_vel)).sum((1, 2))
-    dis, _ = scene_map.sample(scene, pos[..., :2])
+    dis = map_distance(pmap, pos[..., :2], pp)
     coll = (w * _cubic_hinge(pp.safe_dis - dis)).sum((1, 2))
     return feas, coll
 
 
-def traj_costs(head_state, tail_state, int_wpts, ts, scene, pp):
+def traj_costs(head_state, tail_state, int_wpts, ts, pmap, pp):
     """Unweighted costs (N, 4) [energy, time, feas, collision] and coeffs."""
     coeffs = minco.solve_coeffs(head_state, tail_state, int_wpts, ts)
     e = minco.energy(coeffs, ts)
-    feas, coll = sampled_costs(coeffs, ts, scene, pp)
+    feas, coll = sampled_costs(coeffs, ts, pmap, pp)
     return torch.stack([e, ts.sum(1), feas, coll], dim=1), coeffs
 
 
@@ -78,10 +94,10 @@ def unpack(x: torch.Tensor, pp: PlannerParams):
     return x[:, :nq].reshape(-1, pp.dims, pp.num_wpts), x[:, nq:]
 
 
-def objective(x, head_state, tail_state, scene, pp: PlannerParams):
+def objective(x, head_state, tail_state, pmap, pp: PlannerParams):
     """Weighted cost (N,) of packed decision vectors (expert_planner.py:539-558);
     durations live in tau space, T = T_min + (T_max-T_min)·σ(tau)."""
     q, tau = unpack(x, pp)
     ts = minco.tau_to_T(tau, pp.t_min, pp.t_max)
-    costs, _ = traj_costs(head_state, tail_state, q, ts, scene, pp)
+    costs, _ = traj_costs(head_state, tail_state, q, ts, pmap, pp)
     return costs @ weights(pp, x.device).to(costs.dtype)

@@ -1,20 +1,29 @@
 """Expert minimum-jerk planner pieces used by NEO: the seed bank, one batch
 of L-BFGS solves with acceptance, and the lazy warm-start bank.
 
-The port of neoplanner_tpu/plan/expert.py (``seed_bank`` :49, ``solve_one``
-:121, ``warm_start_plan`` :316, ``pad_boundary_state`` :389), batched: a
-problem axis P with ``env_of`` naming each problem's env replaces the JAX
-package's nested vmaps over envs and bank lanes. The retry noise is an
-argument (standard normals), so any generator can supply it.
+The port of neoplanner_tpu/plan/expert.py (``seed_bank`` :49,
+``make_plan_window`` :101, ``solve_one`` :121, ``warm_start_plan`` :316,
+``pad_boundary_state`` :389), batched: a problem axis P with ``env_of``
+naming each problem's env replaces the JAX package's nested vmaps over envs
+and bank lanes. The retry noise is an argument (standard normals), so any
+generator can supply it.
+
+On the analytic scene map the solve and the acceptance both use the scene
+SDF. On a sensed grid (an ESDFMap) the solve runs on one
+kernel_window_cells window per env (kernel B6), and acceptance re-evaluates
+the solution on the FULL map with nearest-cell distances (solve_one
+:165-191), so a window can never accept what the map rejects.
 """
 
 from __future__ import annotations
 
 import torch
 
+import dataclasses
+
 from neoplanner_tpu_torch.config import PlannerParams
-from neoplanner_tpu_torch.core.types import Trajectory
-from neoplanner_tpu_torch.mapping import scene as scene_map
+from neoplanner_tpu_torch.core.types import ESDFMap, Trajectory
+from neoplanner_tpu_torch.mapping import esdf as esdf_map
 from neoplanner_tpu_torch.ops import minco
 from neoplanner_tpu_torch.plan import costs, solve
 
@@ -68,47 +77,66 @@ def pad_boundary_state(state_2rows: torch.Tensor,
     return out
 
 
-def solve_one(scene: scene_map.SceneMap, head: torch.Tensor,
-              tail: torch.Tensor, int_wpts0: torch.Tensor, ts0: torch.Tensor,
-              env_of: torch.Tensor, pp: PlannerParams,
-              skip=None) -> Trajectory:
+def make_plan_window(emap: ESDFMap, head: torch.Tensor, tail: torch.Tensor,
+                     pp: PlannerParams) -> esdf_map.GridWindow:
+    """One kernel_window_cells window per env, centered between the plan's
+    start and target (B, 3, 2): the receding-horizon target lies at most
+    ~longitu_step_dis + escape away, so it covers every lane of the bank."""
+    center = (head[:, 0] + tail[:, 0]) / 2
+    return esdf_map.make_window(emap, center, pp.kernel_window_cells)
+
+
+def solve_one(pmap, head: torch.Tensor, tail: torch.Tensor,
+              int_wpts0: torch.Tensor, ts0: torch.Tensor,
+              env_of: torch.Tensor, pp: PlannerParams, skip=None,
+              window=None) -> Trajectory:
     """P L-BFGS solves from P initializations (plan_once,
     expert_planner.py:205-237), each accepted when its weighted collision
-    cost is within collision_cost_tol. A skipped problem returns its seed
-    unsolved with iters 0."""
+    cost is within collision_cost_tol. pmap is the scene map or, with its
+    per-env ``window`` (make_plan_window), the sensed grid. A skipped
+    problem returns its seed unsolved with iters 0."""
     x0 = costs.pack(int_wpts0, minco.T_to_tau(ts0, pp.t_min, pp.t_max), pp)
-    x, _, iters = solve.solve_scene(x0, head, tail, scene, env_of, pp,
-                                    skip=skip)
+    cost_pp = pp
+    if isinstance(pmap, ESDFMap):
+        x, _, iters = solve.solve_grid(x0, head, tail, window, env_of, pp,
+                                       skip=skip)
+        cost_pp = dataclasses.replace(pp, esdf_interp="nearest")
+    else:
+        x, _, iters = solve.solve_scene(x0, head, tail, pmap, env_of, pp,
+                                        skip=skip)
     q, tau = costs.unpack(x, pp)
     ts = minco.tau_to_T(tau, pp.t_min, pp.t_max)
     with torch.no_grad():
         cvec, coeffs = costs.traj_costs(head, tail, q, ts,
-                                        scene.index(env_of), pp)
+                                        pmap.index(env_of), cost_pp)
     ok = cvec[:, 3] * pp.w_collision <= pp.collision_cost_tol
     return Trajectory(int_wpts=q, ts=ts, coeffs=coeffs, costs=cvec, ok=ok,
                       iters=iters)
 
 
-def warm_start_plan(scene: scene_map.SceneMap, head: torch.Tensor,
-                    tail: torch.Tensor, int_wpts0: torch.Tensor,
-                    ts0: torch.Tensor, noise: torch.Tensor,
-                    pp: PlannerParams) -> Trajectory:
-    """Warm-started plan of B envs (expert_planner.py:186-203): the given
-    initialization first, then the noisy straight-line retries — solved
-    only for envs whose first lane was rejected (the lazy bank: two
-    launches, the retries with a skip mask). The first lane wins when it is
+def warm_start_plan(pmap, head: torch.Tensor, tail: torch.Tensor,
+                    int_wpts0: torch.Tensor, ts0: torch.Tensor,
+                    noise: torch.Tensor, pp: PlannerParams) -> Trajectory:
+    """Warm-started plan of B envs (expert_planner.py:186-203) on the scene
+    map or a sensed grid: the given initialization first, then the noisy
+    straight-line retries — solved only for envs whose first lane was
+    rejected (the lazy bank: two launches, the retries with a skip mask;
+    both share the grid's windows). The first lane wins when it is
     accepted, else the cheapest accepted retry, else the least colliding."""
     B = head.shape[0]
     dev = head.device
     envs = torch.arange(B, device=dev)
+    window = (make_plan_window(pmap, head, tail, pp)
+              if isinstance(pmap, ESDFMap) else None)
     retries = seed_bank(head[:, 0], tail[:, 0], noise, pp)[:, pp.batch_num:]
     R = retries.shape[1]
-    first = solve_one(scene, head, tail, int_wpts0, ts0, envs, pp)
+    first = solve_one(pmap, head, tail, int_wpts0, ts0, envs, pp,
+                      window=window)
     rest = solve_one(
-        scene, head.repeat_interleave(R, 0), tail.repeat_interleave(R, 0),
+        pmap, head.repeat_interleave(R, 0), tail.repeat_interleave(R, 0),
         retries.reshape((B * R,) + retries.shape[2:]),
         init_ts(pp, dev).expand(B * R, -1), envs.repeat_interleave(R), pp,
-        skip=first.ok.repeat_interleave(R))
+        skip=first.ok.repeat_interleave(R), window=window)
 
     def bank(a, b):
         return torch.cat([a[:, None], b.reshape((B, R) + b.shape[1:])], 1)

@@ -11,7 +11,7 @@ from neoplanner_tpu_torch.plan import expert, nn_init
 from neoplanner_tpu_torch.utils.profiling import stage
 
 
-def enhanced_plan(scene, net, depth: torch.Tensor, drone: DroneState,
+def enhanced_plan(pmap, net, depth: torch.Tensor, drone: DroneState,
                   des_pos_z: float, plan_init_state: torch.Tensor,
                   target_state: torch.Tensor, noise: torch.Tensor,
                   pp: PlannerParams, timer=None) -> Trajectory:
@@ -24,5 +24,5 @@ def enhanced_plan(scene, net, depth: torch.Tensor, drone: DroneState,
     with stage(timer, "plan"):
         head = expert.pad_boundary_state(plan_init_state, pp)
         tail = expert.pad_boundary_state(target_state, pp)
-        return expert.warm_start_plan(scene, head, tail, int_wpts0, ts0,
+        return expert.warm_start_plan(pmap, head, tail, int_wpts0, ts0,
                                       noise, pp)

@@ -1,16 +1,28 @@
-"""The closed loop on the scene SDF with NEO planning: reset, step, rollout.
+"""The closed loop with NEO planning: reset, step, rollout.
 
-The port of neoplanner_tpu/sim/env.py for its flagship configuration
-(bench.py:101-142): ground-truth sensing, the analytic scene SDF for every
-distance query (``plan_map='scene'``, the scene-lite state of reset
-:147-156), the NEO planner (``_replan`` :219-293), random missions and
-periodic replanning (``step_segment`` :452), and ``rollout`` (:720). The
-grid/vision paths, the other planners and mission modes are not ported.
+The port of neoplanner_tpu/sim/env.py for two configurations, both with the
+NEO planner (``_replan`` :219-293), random missions and periodic replanning
+(``step_segment`` :452), and ``rollout`` (:720):
 
-B envs advance together. Each segment: pick the local target, render the
-depth frame (kernel B4), run the PlannerNet, refine with the lazy L-BFGS
-bank (kernel B1, acceptance and coefficients through kernel B5), sample the
-new setpoints, then track them for steps_per_replan substeps (kernel B3).
+- the flagship (bench.py:101-142): ground-truth sensing and the analytic
+  scene SDF for every distance query (``sensing='gt', plan_map='scene'``,
+  the scene-lite state of reset :147-156: no per-env grids);
+- the vision loop (examples/profile_vision.py:33-71 with one fused frame
+  per segment): ``sensing='depth', plan_map='grid'``, the onboard mode in
+  which each drone builds its map from its own depth frames (reset
+  :157-166, ``fuse_frame`` :363, ``rebuild_esdf`` :408, ``sense_and_map``
+  :440, the depth branch of step_segment :509-515).
+
+The other planners, mission modes, multi-frame fusion and ``esdf_rate`` are
+not ported.
+
+B envs advance together. Each segment: render the depth frame (kernel B4);
+in the vision loop fuse it into the log-odds grid (kernel B8 v2) and
+rebuild the truncated ESDF (kernel B9); pick the local target, run the
+PlannerNet on the same frame, refine with the lazy L-BFGS bank (kernel B1 on
+the scene, B6 on per-env ESDF windows; acceptance and coefficients through
+kernel B5), sample the new setpoints, then track them for steps_per_replan
+substeps (kernel B3 on the scene, B10 with the grid metric).
 
 Random draws come from the state's ``torch.Generator``, one :class:`Draws`
 per segment; a caller may pass its own draws instead (the parity tests pass
@@ -28,9 +40,12 @@ import torch
 from neoplanner_tpu_torch.config import (CameraParams, MapParams,
                                          MissionParams, PlannerParams,
                                          SimParams)
-from neoplanner_tpu_torch.core.types import BoxWorld, DroneState, _Replace
+from neoplanner_tpu_torch.core.types import (BoxWorld, DroneState, ESDFMap,
+                                             _Replace)
+from neoplanner_tpu_torch.mapping import esdf as esdf_map
+from neoplanner_tpu_torch.mapping import fusion, occupancy
 from neoplanner_tpu_torch.mapping import scene as scene_map
-from neoplanner_tpu_torch.ops import minco
+from neoplanner_tpu_torch.ops import edt, minco
 from neoplanner_tpu_torch.plan import neo
 from neoplanner_tpu_torch.sense import raycast
 from neoplanner_tpu_torch.sim import dynamics, missions, track
@@ -64,6 +79,9 @@ class EnvState(_Replace):
     missions_ok: torch.Tensor    # (B,) int32
     metric_ok_sum: torch.Tensor  # (B,) weighted metric of the ok missions
     generator: torch.Generator
+    # the vision loop's sensed maps (None on the scene path)
+    emap: Optional[ESDFMap] = None          # lite truncated ESDF (B, H, W)
+    logodds: Optional[torch.Tensor] = None  # (B, H, W) fused occupancy
 
 
 @dataclass
@@ -102,17 +120,36 @@ def draw(gen: torch.Generator, B: int, pp: PlannerParams) -> Draws:
         goal_u=torch.rand((B,), generator=gen, device=dev))
 
 
+PATHS = (("gt", "scene"), ("depth", "grid"))
+
+
+def _check_path(sensing: str, plan_map: str) -> None:
+    if (sensing, plan_map) not in PATHS:
+        raise ValueError(f"unsupported sensing/plan_map {sensing}/{plan_map}"
+                         f"; the port runs {PATHS}")
+
+
 def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
           mapp: MapParams, generator: torch.Generator,
           goal: Optional[torch.Tensor] = None,
-          goal_u: Optional[torch.Tensor] = None) -> EnvState:
+          goal_u: Optional[torch.Tensor] = None, sensing: str = "gt",
+          plan_map: str = "scene") -> EnvState:
     """B envs hovering at (0, 0, hover_height) in the mission phase (the
     JAX reset's skip_takeoff=True; takeoff is not ported). Without a goal,
     each env samples a random goal (from goal_u, else from the generator),
-    as in random missions."""
+    as in random missions; goals are vetted against the ground-truth scene
+    in both sensing modes. sensing='depth' starts the map unknown: a zero
+    log-odds grid and its truncated lite ESDF (mapp.edt_truncation > 0)."""
+    _check_path(sensing, plan_map)
     B = world.centers.shape[0]
     dev = world.centers.device
     scene = scene_map.build(world, mapp)
+    emap = logodds = None
+    if sensing == "depth":
+        logodds = occupancy.logodds_init(mapp, B, dev)
+        emap = esdf_map.build(torch.zeros_like(logodds),
+                              (mapp.origin_x, mapp.origin_y),
+                              mapp.resolution, mapp.edt_truncation)
     flap = torch.zeros(B, dtype=torch.int32, device=dev)
     if goal is None:
         if goal_u is None:
@@ -143,19 +180,52 @@ def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
         carry_ts=torch.full((B, pp.num_pieces), pp.init_t, device=dev),
         has_carry=false(), plan_count=zeros_i(), iter_sum=zeros_i(),
         missions_done=zeros_i(), missions_ok=zeros_i(),
-        metric_ok_sum=torch.zeros(B, device=dev), generator=generator)
+        metric_ok_sum=torch.zeros(B, device=dev), generator=generator,
+        emap=emap, logodds=logodds)
 
 
-def _replan(state: EnvState, pp, mp, cam, net, draws: Draws, timer=None):
-    """NEO plan from the state one replan period ahead (buffer row spr)."""
+def fuse_frame(state: EnvState, mapp: MapParams, cam: CameraParams,
+               depth: torch.Tensor) -> EnvState:
+    """Fuse a full-resolution depth frame (B, h, w), taken from the current
+    pose, into the log-odds grids (the '2d_dense' fusion, kernel B8 v2) —
+    no ESDF rebuild."""
+    if mapp.fusion != "2d_dense":
+        raise ValueError(f"the port implements fusion='2d_dense' only "
+                         f"(got {mapp.fusion!r})")
+    logodds = fusion.insert_depth_2d_dense(state.logodds, depth,
+                                           state.drone.pos, state.drone.quat,
+                                           cam, mapp)
+    return state.replace(logodds=logodds)
+
+
+def rebuild_esdf(state: EnvState, mapp: MapParams) -> EnvState:
+    """Binarize the fused log-odds and rebuild the truncated lite ESDF in
+    one pass (kernel B9)."""
+    field = edt.rebuild_truncated_lite(state.logodds,
+                                       occupancy.occ_threshold(mapp),
+                                       mapp.resolution, mapp.edt_truncation)
+    return state.replace(emap=state.emap.replace(esdf=field))
+
+
+def sense_and_map(state: EnvState, mapp: MapParams, cam: CameraParams,
+                  depth: torch.Tensor, timer=None) -> EnvState:
+    """Fuse the frame and rebuild the ESDF (depth cam -> octomap_server ->
+    projected map -> ESDF in the reference)."""
+    with stage(timer, "fuse"):
+        state = fuse_frame(state, mapp, cam, depth)
+    with stage(timer, "esdf"):
+        return rebuild_esdf(state, mapp)
+
+
+def _replan(state: EnvState, pp, mp, net, depth: torch.Tensor, pmap,
+            draws: Draws, timer=None):
+    """NEO plan from the state one replan period ahead (buffer row spr) on
+    the planning map pmap, the net reading the depth frame."""
     ahead = state.buffer[:, mp.steps_per_replan]            # (B, 3, 2)
     target_state, near = missions.set_local_target(
-        state.scene, ahead[:, 0], state.goal, draws.target_noise,
+        pmap, ahead[:, 0], state.goal, draws.target_noise,
         state.fail_count, mp, pp)
-    with stage(timer, "render"):
-        depth = raycast.render_depth_auto(state.world, state.drone.pos,
-                                          state.drone.quat, cam)
-    traj = neo.enhanced_plan(state.scene, net, depth, state.drone,
+    traj = neo.enhanced_plan(pmap, net, depth, state.drone,
                              mp.des_pos_z, ahead[:, :2], target_state,
                              draws.bank_noise, pp, timer=timer)
     with stage(timer, "plan"):
@@ -166,20 +236,33 @@ def _replan(state: EnvState, pp, mp, cam, net, draws: Draws, timer=None):
 
 def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
                  sp: SimParams, cam: CameraParams, net,
-                 draws: Optional[Draws] = None, timer=None):
-    """One replan period for every env: (maybe) replan, then track
-    steps_per_replan setpoints; finished missions count and draw a new goal.
-    Returns (state, SegmentInfo). ``timer`` (a utils.profiling.StageTimer)
-    records the render, net, plan and track stages."""
+                 draws: Optional[Draws] = None, timer=None,
+                 sensing: str = "gt", plan_map: str = "scene",
+                 mapp: Optional[MapParams] = None):
+    """One replan period for every env: sense (in 'depth' mode: the frame
+    is rendered once at full resolution, fused into the map, and shared with
+    the net), (maybe) replan, then track steps_per_replan setpoints;
+    finished missions count and draw a new goal. Pass reset's sensing and
+    plan_map (and mapp in 'depth' mode). Returns (state, SegmentInfo).
+    ``timer`` (a utils.profiling.StageTimer) records the render, fuse, esdf,
+    net, plan and track stages."""
+    _check_path(sensing, plan_map)
     spr = mp.steps_per_replan
     B, nbuf = state.buffer.shape[:2]
     if draws is None:
         draws = draw(state.generator, B, pp)
 
+    with stage(timer, "render"):
+        depth = raycast.render_depth_auto(state.world, state.drone.pos,
+                                          state.drone.quat, cam)
+    if sensing == "depth":
+        state = sense_and_map(state, mapp, cam, depth, timer)
+    pmap = state.scene if plan_map == "scene" else state.emap
+
     do_replan = ((state.phase == missions.PHASE_MISSION) & ~state.reached
                  & ~state.failed & ~state.near_goal)
-    traj, new_cmd, near, plan_init = _replan(state, pp, mp, cam, net, draws,
-                                             timer)
+    traj, new_cmd, near, plan_init = _replan(state, pp, mp, net, depth, pmap,
+                                             draws, timer)
     plan_ok = traj.ok & do_replan
 
     track_cmds = state.buffer[:, :spr].contiguous()
@@ -202,9 +285,11 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
         carry_ts=torch.where(plan_ok[:, None], traj.ts, state.carry_ts),
         has_carry=state.has_carry | plan_ok)
 
+    tracker = (track.track_segment if plan_map == "scene"
+               else track.track_segment_grid)
     with stage(timer, "track"):
-        drone, reached, steps, metrics, metric_pos, trace = \
-            track.track_segment(state, track_cmds, pp, mp, sp)
+        drone, reached, steps, metrics, metric_pos, trace = tracker(
+            state, track_cmds, pp, mp, sp)
     info = SegmentInfo(planned=do_replan, ok=plan_ok, int_wpts=traj.int_wpts,
                        ts=traj.ts, iters=traj.iters, trace=trace)
 
@@ -233,9 +318,11 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
 
 
 def rollout(state: EnvState, num_segments: int, pp: PlannerParams,
-            mp: MissionParams, sp: SimParams, cam: CameraParams,
-            net) -> EnvState:
+            mp: MissionParams, sp: SimParams, cam: CameraParams, net,
+            sensing: str = "gt", plan_map: str = "scene",
+            mapp: Optional[MapParams] = None) -> EnvState:
     """num_segments replan periods."""
     for _ in range(num_segments):
-        state, _ = step_segment(state, pp, mp, sp, cam, net)
+        state, _ = step_segment(state, pp, mp, sp, cam, net, sensing=sensing,
+                                plan_map=plan_map, mapp=mapp)
     return state

@@ -25,10 +25,11 @@ PHASE_DONE = 3
 _ESCAPE_STEPS = 16  # static bound of the reference's escape while-loop
 
 
-def set_local_target(scene, pos2d: torch.Tensor, goal2d: torch.Tensor,
+def set_local_target(pmap, pos2d: torch.Tensor, goal2d: torch.Tensor,
                      noise: torch.Tensor, retry_seed: torch.Tensor,
                      mp: MissionParams, pp: PlannerParams):
-    """Receding-horizon local targets (traj_planner_node.py:450-488).
+    """Receding-horizon local targets (traj_planner_node.py:450-488) on the
+    planning map pmap (the scene SDF or the sensed grid ESDF).
 
     pos2d/goal2d (B, 2); noise (B, 2) standard normal, applied where
     retry_seed > 0. Returns (target_state (B, 2, 2) = [pos; vel], near (B,)).
@@ -43,7 +44,7 @@ def set_local_target(scene, pos2d: torch.Tensor, goal2d: torch.Tensor,
     flag = torch.zeros_like(dist, dtype=torch.int32)
     move = torch.full_like(dist, mp.lateral_step_length)
     for _ in range(_ESCAPE_STEPS):
-        blocked = query.has_collision(scene, lt[:, None], pp.safe_dis)[:, 0]
+        blocked = query.has_collision(pmap, lt[:, None], pp.safe_dis)[:, 0]
         direction = torch.where(flag == 0, 1.0, -1.0).to(lt.dtype)
         lt = torch.where(blocked[:, None], lt + (direction * move)[:, None]
                          * lat, lt)
@@ -80,7 +81,7 @@ def sample_clear_goal(u: torch.Tensor, flap: torch.Tensor, scene,
                         rs[:, None] * torch.sin(angs)[None, :]],
                        dim=-1).reshape(-1, 2).to(goal.dtype)
     cand = goal[:, None, :] + offs                              # (B, 72, 2)
-    dis, _ = query.distance(scene, cand)
+    dis = query.distance(scene, cand)
     ok = dis > clear_dis
     idx = torch.argmax(ok.to(torch.int8), dim=1)
     picked = cand[torch.arange(cand.shape[0], device=u.device), idx]

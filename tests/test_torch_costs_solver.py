@@ -36,6 +36,7 @@ from neoplanner_tpu_torch.config import MapParams, PlannerParams
 from neoplanner_tpu_torch.core.types import BoxWorld
 from neoplanner_tpu_torch.mapping import scene
 from neoplanner_tpu_torch.plan import costs, expert, solve
+from tests.test_torch_imports import one_torch_thread  # noqa: F401
 
 MAPP = dict(width=256, height=192, origin_x=-4.0, origin_y=-9.6)
 
@@ -105,7 +106,7 @@ def test_objective_value_and_gradient_match():
     sc = scene.build(tw, MapParams(**MAPP))
     env_of = torch.zeros(6, dtype=torch.long)
     fun = partial(costs.objective, head_state=_t(head), tail_state=_t(tail),
-                  scene=sc.index(env_of), pp=pp)
+                  pmap=sc.index(env_of), pp=pp)
     from neoplanner_tpu_torch.ops.lbfgs import value_and_grad
     f, g = value_and_grad(fun, _t(x0))
     jsc = jscene.build(_env(jw, 0), JMapParams(**MAPP))

@@ -12,11 +12,23 @@ artifacts/planner_net_smallconv.onnx: the port loads it with
 learn/weights.from_onnx, the JAX side gets the same initializers as flax
 variables (the inverse of from_flax's layout change).
 
-Tolerances: plans come out of 12-iteration L-BFGS solves whose last digits
-differ between the frameworks, so the setpoint buffer and the drone state
-are held to the solver's cost-basin tolerance, 5e-3 (as
-test_torch_costs_solver.py and tests/test_solve_pallas.py); plan flags,
-goals and mission counts must agree exactly.
+Tolerances. Plans come out of 12-iteration L-BFGS solves, and roundoff
+moves those solves: the frameworks' last digits differ, a few solves take
+another iterate path, and the spread grows with every iteration (the plain
+solver on the GPU and on the CPU spread the same way; PERF.md). An
+elementwise bound on the setpoint buffer or the drone state of that loop is
+therefore not justified: a 5e-3 bound on the buffer fails under such
+roundoff (one acceleration setpoint of 46,080 off by 5.08e-3 on a CPU run).
+So the loop is checked twice:
+- the 12-iteration loop: plan flags, goals, mission flags and counts exactly,
+  and each accepted plan held to the solver's cost basin: its JAX objective
+  within 5e-3 of the JAX plan's (as test_torch_costs_solver.py and
+  tests/test_solve_pallas.py);
+- its one-iteration twin (max_iters=1), where both sides take the same step
+  from the same gradient: flags and counts exactly, and the drone state, the
+  buffer and the metrics elementwise within 1e-4 (the single-iteration
+  tolerance of test_torch_costs_solver.py; the twin's measured spread over
+  the 3 segments is 2.2e-5).
 """
 
 import os
@@ -36,6 +48,9 @@ from neoplanner_tpu.config import PlannerParams as JPlannerParams
 from neoplanner_tpu.config import SimParams as JSimParams
 from neoplanner_tpu.config import WorldParams as JWorldParams
 from neoplanner_tpu.mapping import scene as jscene
+from neoplanner_tpu.ops import minco as jminco
+from neoplanner_tpu.plan import costs as jcosts
+from neoplanner_tpu.plan import expert as jexpert
 from neoplanner_tpu.sim import env as jenv
 from neoplanner_tpu.sim import missions as jmissions
 from neoplanner_tpu.world import scenegen as jscenegen
@@ -50,6 +65,7 @@ from neoplanner_tpu_torch.mapping import scene
 from neoplanner_tpu_torch.sim import env, missions
 from neoplanner_tpu_torch.world import scenegen
 from tests.test_torch_track import to_port_state
+from tests.test_torch_imports import one_torch_thread  # noqa: F401
 
 B = 8
 SEGMENTS = 3
@@ -96,9 +112,10 @@ def _jax_draws(keys, pp):
     return env.Draws(target_noise=_t(tn), bank_noise=_t(bn), goal_u=_t(gu))
 
 
-@pytest.fixture(scope="module")
-def runs():
-    jpp, pp = JPlannerParams(**PP), PlannerParams(**PP)
+def _run_loop(max_iters):
+    """SEGMENTS segments of the JAX loop and of the port from one reset."""
+    pp_kw = dict(PP, max_iters=max_iters)
+    jpp, pp = JPlannerParams(**pp_kw), PlannerParams(**pp_kw)
     jmp, jsp = JMissionParams(), JSimParams()
     jcam = JCameraParams(**CAM)
     jcfg = JNetParams(**NET)
@@ -129,42 +146,88 @@ def runs():
     out = []
     for _ in range(SEGMENTS):
         draws = _jax_draws(js.key, jpp)
+        scenes = js.scene
         js, jinfo = step(js)
         st, info = env.step_segment(st, pp, MissionParams(), SimParams(),
                                     CameraParams(**CAM), net, draws=draws)
-        out.append((js, jinfo, st, info))
+        out.append((js, jinfo, st, info, scenes))
     return out
 
 
-@pytest.mark.parametrize("seg", range(SEGMENTS))
-def test_segment_state_matches(runs, seg):
-    js, jinfo, st, info = runs[seg]
+@pytest.fixture(scope="module")
+def runs():
+    return _run_loop(PP["max_iters"])
+
+
+@pytest.fixture(scope="module")
+def runs_one_iter():
+    return _run_loop(1)
+
+
+def _check_flags(js, jinfo, st, info):
     np.testing.assert_array_equal(info.planned.numpy(),
                                   np.asarray(jinfo.planned))
     np.testing.assert_array_equal(info.ok.numpy(), np.asarray(jinfo.ok))
-    for f in ("pos", "vel", "quat"):
-        np.testing.assert_allclose(getattr(st.drone, f).numpy(),
-                                   np.asarray(getattr(js.drone, f)),
-                                   atol=5e-3)
-    np.testing.assert_allclose(st.buffer.numpy(), np.asarray(js.buffer),
-                               atol=5e-3)
     np.testing.assert_allclose(st.goal.numpy(), np.asarray(js.goal),
                                atol=1e-5)
     for f in ("near_goal", "reached", "failed", "fail_count", "steps",
               "flap", "plan_count", "missions_done", "missions_ok"):
         np.testing.assert_array_equal(getattr(st, f).numpy(),
                                       np.asarray(getattr(js, f)), err_msg=f)
+
+
+def plan_costs(scenes, jinfo, int_wpts, ts, jpp):
+    """The JAX objective of plans (B, D, M-1) / (B, M), each from the JAX
+    plan's boundary states (plan_init, target) on its env's map."""
+    def one(sc, init, target, q, t):
+        x = jcosts.pack(q, jminco.T_to_tau(t, jpp.t_min, jpp.t_max), jpp)
+        return jcosts.objective(x, jexpert.pad_boundary_state(init, jpp),
+                                jexpert.pad_boundary_state(target, jpp),
+                                sc, jpp)
+    return np.asarray(jax.vmap(one)(scenes, jinfo.plan_init, jinfo.target,
+                                    jnp.asarray(int_wpts), jnp.asarray(ts)))
+
+
+@pytest.mark.parametrize("seg", range(SEGMENTS))
+def test_segment_state_matches(runs, seg):
+    """The 12-iteration loop: exact flags and counts, accepted plans in the
+    solver's cost basin (5e-3)."""
+    js, jinfo, st, info, scenes = runs[seg]
+    _check_flags(js, jinfo, st, info)
+    jpp = JPlannerParams(**PP)
+    ok = np.asarray(jinfo.ok)
+    f_port = plan_costs(scenes, jinfo, info.int_wpts.numpy(),
+                        info.ts.numpy(), jpp)
+    f_jax = plan_costs(scenes, jinfo, jinfo.int_wpts, jinfo.ts, jpp)
+    np.testing.assert_allclose(f_port[ok], f_jax[ok], rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("seg", range(SEGMENTS))
+def test_segment_one_iteration_matches(runs_one_iter, seg):
+    """The one-iteration twin: exact flags and counts, and the drone state,
+    setpoint buffer and metrics elementwise within 1e-4."""
+    js, jinfo, st, info, _ = runs_one_iter[seg]
+    _check_flags(js, jinfo, st, info)
+    for f in ("pos", "vel", "quat"):
+        np.testing.assert_allclose(getattr(st.drone, f).numpy(),
+                                   np.asarray(getattr(js.drone, f)),
+                                   atol=1e-4, err_msg=f)
+    np.testing.assert_allclose(st.buffer.numpy(), np.asarray(js.buffer),
+                               atol=1e-4)
     np.testing.assert_allclose(st.metrics.numpy(), np.asarray(js.metrics),
-                               rtol=1e-3, atol=1e-3)
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(info.int_wpts.numpy(),
+                               np.asarray(jinfo.int_wpts), atol=1e-4)
 
 
-def test_loop_moves_plans_and_completes(runs):
+def test_loop_moves_plans_and_completes(runs, runs_one_iter):
     """Not a vacuous match: drones moved, replanned, and missions ended."""
-    _, _, st, _ = runs[-1]
-    assert float(np.abs(st.drone.pos[:, :2].numpy()).max()) > 0.5
-    assert int(st.plan_count.sum()) > B
-    assert all(bool(r[3].ok.any()) for r in runs)
-    assert int(st.missions_done.sum()) >= 1
+    for loop in (runs, runs_one_iter):
+        _, _, st, _, _ = loop[-1]
+        assert float(np.abs(st.drone.pos[:, :2].numpy()).max()) > 0.5
+        assert int(st.plan_count.sum()) > B
+        assert all(bool(r[3].ok.any()) for r in loop)
+        assert int(st.missions_done.sum()) >= 1
 
 
 def _scenes(n):

@@ -9,10 +9,24 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(ROOT, "neoplanner_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "neoplanner_tpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread per test process, for the module's tests
+    (every test_torch_* module imports this fixture). The suite runs several
+    worker processes on a few cores; PyTorch's default of one thread per
+    core in every worker oversubscribes the machine, and the port's tests
+    then run about three times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _sources():

@@ -17,6 +17,7 @@ import torch
 from neoplanner_tpu.ops import minco as jminco
 from neoplanner_tpu_torch import _cuda
 from neoplanner_tpu_torch.ops import minco
+from tests.test_torch_imports import one_torch_thread  # noqa: F401
 
 M, D = 3, 2
 

@@ -29,6 +29,7 @@ from neoplanner_tpu_torch.core.types import DroneState
 from neoplanner_tpu_torch.learn import weights
 from neoplanner_tpu_torch.models import planner_net
 from neoplanner_tpu_torch.plan import nn_init
+from tests.test_torch_imports import one_torch_thread  # noqa: F401
 
 ONNX = os.path.join(os.path.dirname(__file__), "..", "artifacts",
                     "planner_net_smallconv.onnx")

@@ -23,6 +23,7 @@ from neoplanner_tpu_torch.config import CameraParams
 from neoplanner_tpu_torch.core import frames
 from neoplanner_tpu_torch.core.types import BoxWorld
 from neoplanner_tpu_torch.sense import raycast
+from tests.test_torch_imports import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -28,6 +28,7 @@ from neoplanner_tpu_torch.config import (MapParams, MissionParams,
 from neoplanner_tpu_torch.core.types import BoxWorld, DroneState
 from neoplanner_tpu_torch.mapping import scene
 from neoplanner_tpu_torch.sim import env, track
+from tests.test_torch_imports import one_torch_thread  # noqa: F401
 
 MAPP = dict(width=256, height=192, origin_x=-4.0, origin_y=-9.6)
 
