@@ -33,8 +33,9 @@ Phases, one short line each:
    x = 20 so that every timed segment replans: one warm-up and 3 timed
    segments, per-stage times, launch counts above 0 for the path's kernels.
 
-The last lines are the kernels' JSON record, the card's name and power limit,
-and {"ok": true, "device": {...}}. Any failure exits non-zero before them.
+The last lines are every kernel's launches over both paths, the kernels'
+JSON record, the card's name and power limit, and
+{"ok": true, "device": {...}}. Any failure exits non-zero before them.
 The script needs one GPU and exits non-zero without a result when there is
 none or when the package is missing.
 """
@@ -731,6 +732,8 @@ def main() -> int:
         f"and {int((state_v.logodds < 0).sum()) / BV:.0f} free cells per env "
         f"(mean); total {time.perf_counter() - t_start:.1f} s")
 
+    say("kernels: " + ", ".join(f"{k} {record[k]['launches']}"
+                                for k in KERNELS))
     print(json.dumps({"kernels": [record[k] for k in KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
