@@ -56,6 +56,12 @@ BV = 512                      # envs on the vision path
 SEGMENTS = 3                  # timed segments after one warm-up
 PEAK_F32 = 67e12              # H100 SXM f32 (non-tensor) FLOP/s, data sheet
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s, data sheet
+# The least operations per cell of a truncated EDT of a binarized grid: the
+# threshold, a two-sweep pass 1 (a compare, a select and an add per sweep),
+# a linear-time lower-envelope pass 2 (~10), then sqrt, scale, clamp and
+# the bf16 store. O(1) per cell: the banded kernel's loop trips over +-R
+# are its own choice and are not counted.
+EDT_CELL_OPS = 20
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNELS = {
@@ -210,7 +216,7 @@ def main() -> int:
     mapp = MapParams(width=256, height=192, origin_x=-4.0, origin_y=-9.6)
     # the vision configuration (examples/profile_vision.py:33-71)
     mapp_v = dataclasses.replace(mapp, edt_truncation=2.0, fusion="2d_dense")
-    vision = dict(sensing="depth", plan_map="grid", mapp=mapp_v)
+    vision = dict(sensing="depth", plan_map="grid")
     wp = WorldParams(num_boxes=10)
     npc = NetParams(img_width=160, img_height=120, motion_input_size=24,
                     output_size=9, img_feature_size=24,
@@ -266,6 +272,38 @@ def main() -> int:
         cv, _ = costs.traj_costs(head, tail, q, minco.tau_to_T(
             tau, pp.t_min, pp.t_max), pmap, cost_pp)
         return cv[:, 3] * pp.w_collision <= pp.collision_cost_tol
+
+    def window_cells_read(window, xs, head, tail):
+        """Distinct window cells that the bilinear taps of one solve per
+        problem read at the iterates xs (each (P, 7); problem p on window p),
+        summed over problems: the least a solve that passes through those
+        iterates must load. Samples outside the map read FAR, not the
+        window."""
+        P, Hw, Ww = window.win.shape
+        taps = []
+        for x in xs:
+            q, tau = costs.unpack(x, pp)
+            ts = minco.tau_to_T(tau, pp.t_min, pp.t_max)
+            c = minco.solve_coeffs(head, tail, q, ts).reshape(
+                P, ts.shape[1], 6, -1)
+            t, _ = costs.piece_samples(ts, pp)
+            pos = torch.einsum("nmkj,nmjd->nmkd", minco.beta(t, 0),
+                               c)[..., :2].reshape(P, -1, 2)
+            o = window.worg[:, None]
+            u = torch.floor(torch.clamp((pos[..., 1] - o[..., 1]) / o[..., 2]
+                                        - 0.5, 0.0, Hw - 1.001)).long()
+            v = torch.floor(torch.clamp((pos[..., 0] - o[..., 0]) / o[..., 2]
+                                        - 0.5, 0.0, Ww - 1.001)).long()
+            in_map = ((pos[..., 0] >= o[..., 3]) & (pos[..., 1] >= o[..., 4])
+                      & (pos[..., 0] < o[..., 5]) & (pos[..., 1] < o[..., 6]))
+            for du in (0, 1):
+                for dv in (0, 1):
+                    taps.append(torch.where(in_map, (u + du) * Ww + v + dv,
+                                            -1))
+        cells = torch.sort(torch.cat(taps, 1), 1).values
+        new = torch.ones_like(cells, dtype=torch.bool)
+        new[:, 1:] = cells[:, 1:] != cells[:, :-1]
+        return int((new & (cells >= 0)).sum())
 
     def basin(name, ok_k, ok_p, f_k, f_p, iters, f1_ctrl, f_ctrl, n_c):
         """Hold a 24-iteration solve to its plain version's cost basin:
@@ -470,23 +508,20 @@ def main() -> int:
     net = planner_net.load(onnx, npc, dev)
     net_cpu = planner_net.load(onnx, npc, "cpu")
 
-    def small_loop(name, n, seed, gen_world, path):
+    def small_loop(name, n, seed, gen_world, map_params, path):
         """n envs, 2 segments, on the card and on the CPU from the same
-        worlds, goals and draws. Segment 1 plans every env while the drones
-        hover on the reset buffer; segment 2 flies those plans. Gate: the
-        plan flags of segment 1 agree on >= 90% of envs (and all plan), and
-        every drone's position after segment 2 is within 1e-3 m of the CPU
-        loop's."""
+        worlds, goals and draws; path holds reset's sensing and plan_map.
+        Segment 1 plans every env while the drones hover on the reset
+        buffer; segment 2 flies those plans. Gate: the plan flags of
+        segment 1 agree on >= 90% of envs (and all plan), and every drone's
+        position after segment 2 is within 1e-3 m of the CPU loop's."""
         gen_c = _cuda.make_generator(seed, "cpu")
         w_c = gen_world(gen_c, n)
         w_g = type(w_c)(*(getattr(w_c, f).to(dev) for f in
                           ("centers", "half_sizes", "active", "shape")))
-        reset_kw = {k: v for k, v in path.items() if k != "mapp"}
-        s_c = env.reset(w_c, pp, mp, path.get("mapp", mapp), gen_c,
-                        **reset_kw)
-        s_g = env.reset(w_g, pp, mp, path.get("mapp", mapp),
-                        _cuda.make_generator(seed), goal=s_c.goal.to(dev),
-                        **reset_kw)
+        s_c = env.reset(w_c, pp, mp, map_params, gen_c, **path)
+        s_g = env.reset(w_g, pp, mp, map_params, _cuda.make_generator(seed),
+                        goal=s_c.goal.to(dev), **path)
         s_g = s_g.replace(flap=s_c.flap.to(dev))
         for seg in range(2):
             d_c = env.draw(gen_c, n, pp)
@@ -494,9 +529,9 @@ def main() -> int:
                                                   d_c.bank_noise,
                                                   d_c.goal_u)))
             s_c, i_c = env.step_segment(s_c, pp, mp, sp, cam, net_cpu,
-                                        draws=d_c, **path)
+                                        draws=d_c)
             s_g, i_g = env.step_segment(s_g, pp, mp, sp, cam, net,
-                                        draws=d_g, **path)
+                                        draws=d_g)
             if seg == 0:
                 n_plan = int(i_c.planned.sum())
                 flags = float((i_g.ok.cpu() == i_c.ok).float().mean())
@@ -510,11 +545,12 @@ def main() -> int:
             raise AssertionError(f"the {name} loop on the card disagrees "
                                  f"with the plain path")
 
-    def run_path(name, path_kernels, n, state, path, n_seg=SEGMENTS):
-        """The path's loop: counts set to 0, one warm-up and n_seg timed
-        segments, counts read; returns (state, counts)."""
+    def run_path(name, path_kernels, n, state, n_seg=SEGMENTS):
+        """The loop of the path that reset chose for state: counts set to
+        0, one warm-up and n_seg timed segments, counts read; returns
+        (state, planned replans in the timed segments)."""
         _cuda.reset_launches()
-        state, info = env.step_segment(state, pp, mp, sp, cam, net, **path)
+        state, info = env.step_segment(state, pp, mp, sp, cam, net)
         warm = (int(info.planned.sum()), int(info.ok.sum()))
         planned, accepted_plans = 0, 0
         torch.cuda.synchronize()
@@ -522,7 +558,7 @@ def main() -> int:
         t0 = time.perf_counter()
         for _ in range(n_seg):
             state, info = env.step_segment(state, pp, mp, sp, cam, net,
-                                           timer=timer, **path)
+                                           timer=timer)
             planned = planned + info.planned.sum()
             accepted_plans = accepted_plans + info.ok.sum()
         torch.cuda.synchronize()
@@ -553,9 +589,9 @@ def main() -> int:
         return state, int(planned)
 
     small_loop("scene", 32, 5, lambda g, n: scenegen.generate_batch(g, n, wp),
-               {})
+               mapp, {})
     run_path("scene", SCENE_PATH, B,
-             env.reset(worlds, pp, mp, mapp, _cuda.make_generator(2)), {})
+             env.reset(worlds, pp, mp, mapp, _cuda.make_generator(2)))
 
     # ================= the vision path: its kernels at B = BV =============
     worlds_v = scenegen.generate_batch(_cuda.make_generator(10), BV, wp)
@@ -616,7 +652,6 @@ def main() -> int:
            BV * (2 * H * W * 4 + cam.width * (4 + 8) + 8 * 4), on="rel")
 
     # ---- B9: the truncated ESDF of the fused grids, and of random ones
-    R = edt.radius_cells(mapp_v.edt_truncation, mapp_v.resolution)
     lo_rand = torch.from_numpy(rng.uniform(-2.0, 2.0, (64, H, W))).float(
         ).to(dev)
     n_diff = 0
@@ -627,12 +662,6 @@ def main() -> int:
         want = edt.edt_truncated(grid > thr, mapp_v.resolution,
                                  mapp_v.edt_truncation).to(torch.bfloat16)
         n_diff += int((field != want).sum())
-    occ = lo > thr
-    g2 = torch.clamp(edt._row_distance_sq(occ), max=float((R + 1) ** 2))
-    steps1 = torch.where(occ, 0.0, torch.clamp(torch.sqrt(g2), max=R))
-    d2 = edt._pass2_banded(g2, R)
-    steps2 = torch.clamp(torch.ceil(torch.sqrt(d2)), max=R)
-    edt_ops = float((10 + 4 * steps1 + 4 * steps2).sum())
     field = torch.empty(lo.shape, dtype=torch.bfloat16, device=dev)
     report("edt_trunc_lite", (float(n_diff), float(n_diff)), 0.0,
            median_ms(torch, lambda: edt.launch_edt(
@@ -640,7 +669,7 @@ def main() -> int:
            median_ms(torch, lambda: edt.edt_truncated(
                lo > thr, mapp_v.resolution, mapp_v.edt_truncation).to(
                torch.bfloat16), 5),
-           edt_ops, BV * H * W * (4 + 2))
+           lo.numel() * EDT_CELL_OPS, lo.numel() * (4 + 2))
     say(f"edt_trunc_lite: {n_diff} cells differ over {BV + 64} grids "
         f"(tol 0: bit-exact)")
 
@@ -690,13 +719,16 @@ def main() -> int:
            median_ms(torch, lambda: plain_grid(pp), 3),
            solve_flops(pp.samples_per_piece, 25, iters_v),
            BV * (7 * 4 + 12 * 4 + 2 * 4 + 7 * 4 + 8)
-           + window.win.numel() * 4 + window.worg.numel() * 4, on="rel")
+           + window.worg.numel() * 4
+           + 4 * window_cells_read(window, (x0_v, sol_v[0]), head_v,
+                                 tail_v),
+           on="rel")
     lazy_bank("grid", emap, emap_cpu, head_v, tail_v, q0_v, ts0_v, it24_v,
               ok_kv)
 
     # ---- B10: one grid tracking segment of BV envs on the sensed maps
     st_v = env.reset(worlds_v, pp, mp, mapp_v, _cuda.make_generator(11),
-                     sensing="depth", plan_map="grid")
+                     **vision)
     st_v, cmds_v = track_inputs(BV, st_v.replace(emap=emap))
     stv_packed = track.pack_state(st_v)
     gout = torch.empty((BV, 18), device=dev)
@@ -719,12 +751,12 @@ def main() -> int:
 
     # ---- the vision loops
     small_loop("vision", 16, 6, lambda g, n: scenegen.generate_batch(g, n, wp),
-               vision)
+               mapp_v, vision)
     goals_v = torch.stack([torch.full((BV,), 20.0), torch.from_numpy(
         rng.uniform(-1.5, 1.5, BV)).float()], 1).to(dev)
     state_v = env.reset(worlds_v, pp, mp, mapp_v, _cuda.make_generator(12),
-                        goal=goals_v, sensing="depth", plan_map="grid")
-    state_v, planned_v = run_path("vision", VISION_PATH, BV, state_v, vision)
+                        goal=goals_v, **vision)
+    state_v, planned_v = run_path("vision", VISION_PATH, BV, state_v)
     if planned_v <= 0:
         raise AssertionError("the vision path's timed segments replanned "
                              "no env")

@@ -61,7 +61,7 @@ class ESDFMap(_Replace):
     are not kept: every consumer reads distances only."""
 
     esdf: torch.Tensor      # (B, H, W) bf16 distance to the nearest occupied cell [m]
-    origin: tuple           # (x, y) world coordinates of the grid corner [m]
+    origin: torch.Tensor    # (2,) f32 (x, y) world coordinates of the grid corner [m]
     resolution: float       # m per cell
 
     def index(self, idx) -> "ESDFMap":

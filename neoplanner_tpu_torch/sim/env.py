@@ -79,9 +79,11 @@ class EnvState(_Replace):
     missions_ok: torch.Tensor    # (B,) int32
     metric_ok_sum: torch.Tensor  # (B,) weighted metric of the ok missions
     generator: torch.Generator
-    # the vision loop's sensed maps (None on the scene path)
+    # the vision loop's sensed maps and the map parameters that fusion and
+    # the ESDF rebuild read (None on the scene path)
     emap: Optional[ESDFMap] = None          # lite truncated ESDF (B, H, W)
     logodds: Optional[torch.Tensor] = None  # (B, H, W) fused occupancy
+    mapp: Optional[MapParams] = None
 
 
 @dataclass
@@ -123,12 +125,6 @@ def draw(gen: torch.Generator, B: int, pp: PlannerParams) -> Draws:
 PATHS = (("gt", "scene"), ("depth", "grid"))
 
 
-def _check_path(sensing: str, plan_map: str) -> None:
-    if (sensing, plan_map) not in PATHS:
-        raise ValueError(f"unsupported sensing/plan_map {sensing}/{plan_map}"
-                         f"; the port runs {PATHS}")
-
-
 def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
           mapp: MapParams, generator: torch.Generator,
           goal: Optional[torch.Tensor] = None,
@@ -139,13 +135,20 @@ def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
     each env samples a random goal (from goal_u, else from the generator),
     as in random missions; goals are vetted against the ground-truth scene
     in both sensing modes. sensing='depth' starts the map unknown: a zero
-    log-odds grid and its truncated lite ESDF (mapp.edt_truncation > 0)."""
-    _check_path(sensing, plan_map)
+    log-odds grid and its truncated lite ESDF (mapp.edt_truncation > 0),
+    and the state keeps mapp for fusing and rebuilding; the state's maps
+    then choose the path that step_segment runs."""
+    if (sensing, plan_map) not in PATHS:
+        raise ValueError(f"unsupported sensing/plan_map {sensing}/{plan_map}"
+                         f"; the port runs {PATHS}")
     B = world.centers.shape[0]
     dev = world.centers.device
     scene = scene_map.build(world, mapp)
     emap = logodds = None
     if sensing == "depth":
+        if mapp.fusion != "2d_dense":
+            raise ValueError(f"the port implements fusion='2d_dense' only "
+                             f"(got {mapp.fusion!r})")
         logodds = occupancy.logodds_init(mapp, B, dev)
         emap = esdf_map.build(torch.zeros_like(logodds),
                               (mapp.origin_x, mapp.origin_y),
@@ -181,40 +184,39 @@ def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
         has_carry=false(), plan_count=zeros_i(), iter_sum=zeros_i(),
         missions_done=zeros_i(), missions_ok=zeros_i(),
         metric_ok_sum=torch.zeros(B, device=dev), generator=generator,
-        emap=emap, logodds=logodds)
+        emap=emap, logodds=logodds,
+        mapp=mapp if sensing == "depth" else None)
 
 
-def fuse_frame(state: EnvState, mapp: MapParams, cam: CameraParams,
+def fuse_frame(state: EnvState, cam: CameraParams,
                depth: torch.Tensor) -> EnvState:
     """Fuse a full-resolution depth frame (B, h, w), taken from the current
     pose, into the log-odds grids (the '2d_dense' fusion, kernel B8 v2) —
     no ESDF rebuild."""
-    if mapp.fusion != "2d_dense":
-        raise ValueError(f"the port implements fusion='2d_dense' only "
-                         f"(got {mapp.fusion!r})")
     logodds = fusion.insert_depth_2d_dense(state.logodds, depth,
                                            state.drone.pos, state.drone.quat,
-                                           cam, mapp)
+                                           cam, state.mapp)
     return state.replace(logodds=logodds)
 
 
-def rebuild_esdf(state: EnvState, mapp: MapParams) -> EnvState:
+def rebuild_esdf(state: EnvState) -> EnvState:
     """Binarize the fused log-odds and rebuild the truncated lite ESDF in
     one pass (kernel B9)."""
+    mapp = state.mapp
     field = edt.rebuild_truncated_lite(state.logodds,
                                        occupancy.occ_threshold(mapp),
                                        mapp.resolution, mapp.edt_truncation)
     return state.replace(emap=state.emap.replace(esdf=field))
 
 
-def sense_and_map(state: EnvState, mapp: MapParams, cam: CameraParams,
-                  depth: torch.Tensor, timer=None) -> EnvState:
+def sense_and_map(state: EnvState, cam: CameraParams, depth: torch.Tensor,
+                  timer=None) -> EnvState:
     """Fuse the frame and rebuild the ESDF (depth cam -> octomap_server ->
     projected map -> ESDF in the reference)."""
     with stage(timer, "fuse"):
-        state = fuse_frame(state, mapp, cam, depth)
+        state = fuse_frame(state, cam, depth)
     with stage(timer, "esdf"):
-        return rebuild_esdf(state, mapp)
+        return rebuild_esdf(state)
 
 
 def _replan(state: EnvState, pp, mp, net, depth: torch.Tensor, pmap,
@@ -236,17 +238,15 @@ def _replan(state: EnvState, pp, mp, net, depth: torch.Tensor, pmap,
 
 def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
                  sp: SimParams, cam: CameraParams, net,
-                 draws: Optional[Draws] = None, timer=None,
-                 sensing: str = "gt", plan_map: str = "scene",
-                 mapp: Optional[MapParams] = None):
-    """One replan period for every env: sense (in 'depth' mode: the frame
-    is rendered once at full resolution, fused into the map, and shared with
-    the net), (maybe) replan, then track steps_per_replan setpoints;
-    finished missions count and draw a new goal. Pass reset's sensing and
-    plan_map (and mapp in 'depth' mode). Returns (state, SegmentInfo).
+                 draws: Optional[Draws] = None, timer=None):
+    """One replan period for every env: sense (on the vision path, which
+    reset chose with sensing='depth': the frame is rendered once at full
+    resolution, fused into the map, and shared with the net), (maybe)
+    replan, then track steps_per_replan setpoints; finished missions count
+    and draw a new goal. Returns (state, SegmentInfo).
     ``timer`` (a utils.profiling.StageTimer) records the render, fuse, esdf,
     net, plan and track stages."""
-    _check_path(sensing, plan_map)
+    vision = state.emap is not None
     spr = mp.steps_per_replan
     B, nbuf = state.buffer.shape[:2]
     if draws is None:
@@ -255,9 +255,9 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
     with stage(timer, "render"):
         depth = raycast.render_depth_auto(state.world, state.drone.pos,
                                           state.drone.quat, cam)
-    if sensing == "depth":
-        state = sense_and_map(state, mapp, cam, depth, timer)
-    pmap = state.scene if plan_map == "scene" else state.emap
+    if vision:
+        state = sense_and_map(state, cam, depth, timer)
+    pmap = state.emap if vision else state.scene
 
     do_replan = ((state.phase == missions.PHASE_MISSION) & ~state.reached
                  & ~state.failed & ~state.near_goal)
@@ -285,8 +285,7 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
         carry_ts=torch.where(plan_ok[:, None], traj.ts, state.carry_ts),
         has_carry=state.has_carry | plan_ok)
 
-    tracker = (track.track_segment if plan_map == "scene"
-               else track.track_segment_grid)
+    tracker = track.track_segment_grid if vision else track.track_segment
     with stage(timer, "track"):
         drone, reached, steps, metrics, metric_pos, trace = tracker(
             state, track_cmds, pp, mp, sp)
@@ -318,11 +317,9 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
 
 
 def rollout(state: EnvState, num_segments: int, pp: PlannerParams,
-            mp: MissionParams, sp: SimParams, cam: CameraParams, net,
-            sensing: str = "gt", plan_map: str = "scene",
-            mapp: Optional[MapParams] = None) -> EnvState:
+            mp: MissionParams, sp: SimParams, cam: CameraParams,
+            net) -> EnvState:
     """num_segments replan periods."""
     for _ in range(num_segments):
-        state, _ = step_segment(state, pp, mp, sp, cam, net, sensing=sensing,
-                                plan_map=plan_map, mapp=mapp)
+        state, _ = step_segment(state, pp, mp, sp, cam, net)
     return state

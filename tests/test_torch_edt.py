@@ -86,17 +86,3 @@ def test_cpu_tensor_takes_plain_version():
     before = _cuda.launches["edt_trunc_lite"]
     edt.rebuild_truncated_lite(torch.zeros((1, 16, 32)), 0.5, 0.1, 0.5)
     assert _cuda.launches["edt_trunc_lite"] == before
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
-    mp = MapParams()
-    thr = occupancy.occ_threshold(mp)
-    for shape, md, sparse in (((4, 192, 256), 2.0, False),
-                              ((3, 48, 128), 0.7, True)):
-        lo = torch.from_numpy(_logodds(shape, seed=5, sparse=sparse))
-        want = edt.rebuild_truncated_lite(lo, thr, mp.resolution, md)
-        got = edt.rebuild_truncated_lite(lo.cuda(), thr, mp.resolution, md)
-        assert torch.equal(got.cpu(), want)

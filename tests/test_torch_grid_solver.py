@@ -231,21 +231,3 @@ def test_cpu_tensor_takes_plain_version(maps):
     before = _cuda.launches["lbfgs_grid_solve"]
     _solve_both(maps, max_iters=1, n=2)
     assert _cuda.launches["lbfgs_grid_solve"] == before
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain(maps):
-    """One iteration on 96-cell windows: kernel vs plain on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
-    _, tmap = maps
-    pp = PlannerParams(samples_per_piece=24, max_iters=1, max_ls=4)
-    x0, head, tail, env_of = _problems(JPlannerParams(), 8)
-    window = expert.make_plan_window(tmap, _t(head[:E]), _t(tail[:E]), pp)
-    want = solve.solve_grid(_t(x0), _t(head), _t(tail), window,
-                            torch.from_numpy(env_of), pp)
-    cuda_win = esdf.GridWindow(window.win.cuda(), window.worg.cuda())
-    got = solve.solve_grid(_t(x0).cuda(), _t(head).cuda(), _t(tail).cuda(),
-                           cuda_win, torch.from_numpy(env_of).cuda(), pp)
-    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
-                               rtol=1e-3)

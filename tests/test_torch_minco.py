@@ -5,7 +5,8 @@ The same inputs, made with numpy from a seed, go through the JAX function
 version. Both are f32; the Givens sequence is the same, so results agree to
 a few ulps of the 18x18 system's conditioning: 1e-5 relative on
 coefficients, 1e-4 on gradients (which pass through a second, transposed
-solve). The kernel-against-plain test needs a GPU and skips here.
+solve). The kernel is held against this plain version on the card in
+test_torch_kernels_cuda.py.
 """
 
 import numpy as np
@@ -129,24 +130,3 @@ def test_cpu_tensor_takes_plain_version():
     before = _cuda.launches["minco_banded_solve"]
     minco.solve_coeffs(_t(head), _t(tail), _t(wpts), _t(ts))
     assert _cuda.launches["minco_banded_solve"] == before
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("transposed", [False, True])
-def test_kernel_matches_plain(cuda_device, transposed):
-    head, tail, wpts, ts = _problems(1000, seed=5)
-    A, b = minco.build_system(_t(head), _t(tail), _t(wpts), _t(ts))
-    lo, up = (2, 4) if transposed else (4, 2)
-    if transposed:
-        A = A.transpose(1, 2).contiguous()
-    want = minco._givens_solve(A, b, lo, up)
-    got = minco.banded_solve(A.to(cuda_device), b.to(cuda_device), lo, up)
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
-                               atol=1e-4)

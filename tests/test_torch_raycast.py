@@ -108,23 +108,3 @@ def test_cpu_tensor_takes_plain_version():
     before = _cuda.launches["render_depth"]
     raycast.render_depth_auto(tw, _t(pos), _t(quat), CameraParams())
     assert _cuda.launches["render_depth"] == before
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain(cuda_device):
-    _, tw, pos, quat, _, _ = _setup(64)
-    cam = CameraParams()
-    want = raycast.render_depth(tw, _t(pos), _t(quat), cam)
-    dev = cuda_device
-    twd = BoxWorld(*(getattr(tw, f).to(dev) for f in
-                     ("centers", "half_sizes", "active", "shape")))
-    got = raycast.render_depth_auto(twd, _t(pos).to(dev), _t(quat).to(dev),
-                                    cam)
-    _assert_depth_close(got.cpu().numpy(), want.numpy())

@@ -11,7 +11,6 @@ the reached flags and step counts exactly.
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from neoplanner_tpu.config import MapParams as JMapParams
@@ -149,36 +148,3 @@ def test_cpu_tensor_takes_plain_version():
     before = _cuda.launches["track_segment"]
     _run_both(_states(n=2), _cmds(2))
     assert _cuda.launches["track_segment"] == before
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels run only there)")
-    return torch.device("cuda")
-
-
-def _to(st, dev):
-    moved = {}
-    for name, val in vars(st).items():
-        if isinstance(val, torch.Tensor):
-            moved[name] = val.to(dev)
-        elif hasattr(val, "replace"):
-            moved[name] = type(val)(**{k: v.to(dev)
-                                       for k, v in vars(val).items()})
-    return st.replace(**moved)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain(cuda_device):
-    js = _states(goal=(0.55, 0.0))
-    st = to_port_state(js, PlannerParams(), MapParams(**MAPP))
-    cmds = _t(_cmds(4))
-    args = (PlannerParams(), MissionParams(), SimParams())
-    want = track.track_segment(st, cmds, *args)
-    got = track.track_segment(_to(st, cuda_device), cmds.to(cuda_device),
-                              *args)
-    d = got[0]
-    got = (DroneState(pos=d.pos.cpu(), vel=d.vel.cpu(), quat=d.quat.cpu(),
-                      yaw=d.yaw.cpu()),) + tuple(a.cpu() for a in got[1:])
-    _assert_match(want, got)

@@ -161,8 +161,7 @@ def _run_loop(max_iters):
             draws = _jax_draws(js.key, jpp)
             js, jinfo = step(js)
             st, info = env.step_segment(st, pp, MissionParams(), SimParams(),
-                                        CameraParams(**CAM), net, draws=draws,
-                                        mapp=mapp, **VISION)
+                                        CameraParams(**CAM), net, draws=draws)
             out.append((js, jinfo, st, info))
     return out
 
@@ -340,11 +339,15 @@ def test_rollout_from_generator_on_cpu():
     net = planner_net.load(ONNX, NetParams(**NET), "cpu")
     st = env.reset(worlds, pp, MissionParams(), mapp, gen, **VISION)
     assert isinstance(st.emap, ESDFMap) and st.logodds.shape == (3, 192, 256)
+    assert st.mapp == mapp
     st = env.rollout(st, 2, pp, MissionParams(), SimParams(),
-                     CameraParams(**CAM), net, mapp=mapp, **VISION)
+                     CameraParams(**CAM), net)
     assert int(st.plan_count.min()) >= 1
     assert int((st.logodds != 0).sum()) > 0
     for t in (st.drone.pos, st.drone.quat, st.buffer, st.metrics):
         assert bool(torch.isfinite(t).all())
     scene_state = env.reset(worlds, pp, MissionParams(), mapp, gen)
     assert scene_state.emap is None and scene_state.logodds is None
+    assert scene_state.mapp is None
+    with pytest.raises(ValueError, match="unsupported sensing/plan_map"):
+        env.reset(worlds, pp, MissionParams(), mapp, gen, sensing="depth")
