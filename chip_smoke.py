@@ -30,8 +30,21 @@ Phases, one short line each:
 7. a small vision loop (B = 16, 2 segments) on the card against the CPU;
 8. the vision path: the same NEO loop with depth sensing, fusion, the
    truncated ESDF, grid planning and grid tracking at B = 512, goals at
-   x = 20 so that every timed segment replans: one warm-up and 3 timed
-   segments, per-stage times, launch counts above 0 for the path's kernels.
+   x = 20 so that every timed segment replans: one warm-up and 2 timed
+   segments, per-stage times, launch counts above 0 for the path's kernels;
+9. the sensor-rate path's kernels against their plain versions on the card
+   at B = 512 (examples/profile_vision.py's defaults: six fused frames per
+   segment, fusion frames at row stride 4): B8 v3 on five frames per env
+   rendered from poses along tracked segments onto grids fused for three
+   segments (differing cells printed, 0 expected), B4 at row stride 4 over
+   those 5 x 512 poses in one launch, B3 and B10 from substep 30;
+10. a small sensor-rate loop (B = 16, 2 segments) on the card against the
+   CPU, and its one-iteration twin elementwise;
+11. the sensor-rate path: profile_vision's configuration at B = 512
+   (fuse_frames=6, fusion_row_stride=4, esdf_interp="mxu"), goals at x = 20:
+   one warm-up and 3 timed segments, per-stage times, launches per segment
+   (render_depth 2, fuse_depth_dense 1, fuse_depth_multi 1, edt_trunc_lite
+   1, track_segment_grid 6).
 
 The last lines are every kernel's launches over both paths, the kernels'
 JSON record, the card's name and power limit, and
@@ -89,11 +102,22 @@ KERNELS = {
     "track_segment_grid": dict(
         source="neoplanner_tpu_torch/csrc/track.cu",
         replaces="neoplanner_tpu/sim/track_pallas.py:94"),
+    "fuse_depth_multi": dict(
+        source="neoplanner_tpu_torch/csrc/fusion_multi.cu",
+        replaces="neoplanner_tpu/mapping/occupancy_pallas.py:299"),
 }
 SCENE_PATH = ("lbfgs_scene_solve", "minco_banded_solve", "track_segment",
               "render_depth")
 VISION_PATH = ("render_depth", "fuse_depth_dense", "edt_trunc_lite",
                "lbfgs_grid_solve", "minco_banded_solve", "track_segment_grid")
+SENSOR_PATH = VISION_PATH + ("fuse_depth_multi",)
+FUSE_FRAMES = 6               # examples/profile_vision.py:36 (VIS_FUSE)
+# launches per segment of the sensor-rate loop: the replan-time frame and
+# the five mid-segment frames in one launch, one fusion each, one rebuild,
+# six tracking chunks
+SENSOR_PER_SEGMENT = dict(render_depth=2, fuse_depth_dense=1,
+                          fuse_depth_multi=1, edt_trunc_lite=1,
+                          track_segment_grid=FUSE_FRAMES)
 
 
 def say(msg: str) -> None:
@@ -508,33 +532,46 @@ def main() -> int:
     net = planner_net.load(onnx, npc, dev)
     net_cpu = planner_net.load(onnx, npc, "cpu")
 
-    def small_loop(name, n, seed, gen_world, map_params, path):
+    def twin_loops(n, seed, gen_world, map_params, path, pp_, seg_kw):
         """n envs, 2 segments, on the card and on the CPU from the same
-        worlds, goals and draws; path holds reset's sensing and plan_map.
-        Segment 1 plans every env while the drones hover on the reset
-        buffer; segment 2 flies those plans. Gate: the plan flags of
-        segment 1 agree on >= 90% of envs (and all plan), and every drone's
-        position after segment 2 is within 1e-3 m of the CPU loop's."""
+        worlds, goals and draws; returns (CPU state, card state, segment 1
+        planned count, segment 1 plan-flag agreement, per env whether the
+        plan flags agreed in both segments)."""
         gen_c = _cuda.make_generator(seed, "cpu")
         w_c = gen_world(gen_c, n)
         w_g = type(w_c)(*(getattr(w_c, f).to(dev) for f in
                           ("centers", "half_sizes", "active", "shape")))
-        s_c = env.reset(w_c, pp, mp, map_params, gen_c, **path)
-        s_g = env.reset(w_g, pp, mp, map_params, _cuda.make_generator(seed),
+        s_c = env.reset(w_c, pp_, mp, map_params, gen_c, **path)
+        s_g = env.reset(w_g, pp_, mp, map_params, _cuda.make_generator(seed),
                         goal=s_c.goal.to(dev), **path)
         s_g = s_g.replace(flap=s_c.flap.to(dev))
         for seg in range(2):
-            d_c = env.draw(gen_c, n, pp)
+            d_c = env.draw(gen_c, n, pp_)
             d_g = env.Draws(*(x.to(dev) for x in (d_c.target_noise,
                                                   d_c.bank_noise,
                                                   d_c.goal_u)))
-            s_c, i_c = env.step_segment(s_c, pp, mp, sp, cam, net_cpu,
-                                        draws=d_c)
-            s_g, i_g = env.step_segment(s_g, pp, mp, sp, cam, net,
-                                        draws=d_g)
+            s_c, i_c = env.step_segment(s_c, pp_, mp, sp, cam, net_cpu,
+                                        draws=d_c, **seg_kw)
+            s_g, i_g = env.step_segment(s_g, pp_, mp, sp, cam, net,
+                                        draws=d_g, **seg_kw)
+            agree = (i_g.ok.cpu() == i_c.ok) & (agree if seg else True)
             if seg == 0:
                 n_plan = int(i_c.planned.sum())
                 flags = float((i_g.ok.cpu() == i_c.ok).float().mean())
+        return s_c, s_g, n_plan, flags, agree
+
+    def small_loop(name, n, seed, gen_world, map_params, path, pp_=pp,
+                   twin=False, **seg_kw):
+        """Segment 1 plans every env while the drones hover on the reset
+        buffer; segment 2 flies those plans. Gate: the plan flags of
+        segment 1 agree on >= 90% of envs (and all plan), and every drone's
+        position after segment 2 is within 1e-3 m of the CPU loop's. With
+        twin, the same loop at one solver iteration is also held
+        elementwise: drone states, setpoint buffers and metrics within 1e-3
+        on the envs whose plan flags agree, and the log-odds grids within
+        one update quantum on at most 1e-4 of the updated cells."""
+        s_c, s_g, n_plan, flags, _ = twin_loops(n, seed, gen_world,
+                                                map_params, path, pp_, seg_kw)
         diff = (s_g.drone.pos.cpu() - s_c.drone.pos).abs().amax(1)
         say(f"small {name} loop B={n}: segment 1 planned {n_plan}, plan flags "
             f"agree {flags:.3f} (tol 0.9); after segment 2 drone pos diff "
@@ -544,21 +581,52 @@ def main() -> int:
         if n_plan != n or flags < 0.9 or float(diff.max()) > 1e-3:
             raise AssertionError(f"the {name} loop on the card disagrees "
                                  f"with the plain path")
+        if not twin:
+            return
+        s_c, s_g, _, flags1, same = twin_loops(
+            n, seed, gen_world, map_params, path,
+            dataclasses.replace(pp_, max_iters=1), seg_kw)
+        if int(same.sum()) < 0.9 * n:
+            raise AssertionError(f"the {name} one-iteration twin's plan "
+                                 f"flags agree on {int(same.sum())} of {n}")
+        worst = max(float((getattr(s_g, k).cpu() - getattr(s_c, k)).abs()
+                          .flatten(1).amax(1)[same].max())
+                    for k in ("buffer", "metrics"))
+        worst = max(worst, *(float((getattr(s_g.drone, k).cpu()
+                                    - getattr(s_c.drone, k)).abs().amax(1)
+                                   [same].max())
+                             for k in ("pos", "vel", "quat")))
+        d_lo = (s_g.logodds.cpu() - s_c.logodds).abs()
+        off = d_lo > 0
+        quantum = float((d_lo[off][:, None] - l_quanta.abs()[None]).abs()
+                        .amin(1).max()) if off.any() else 0.0
+        n_upd = int((s_c.logodds != 0).sum())
+        say(f"small {name} twin (1 iteration): plan flags agree {flags1:.3f}"
+            f" (tol 0.9); state, buffer, metrics max diff {worst:.3g} (tol "
+            f"1e-3); log-odds {int(off.sum())} of {n_upd} updated cells "
+            f"differ (tol 1e-4 of them, each by one quantum)")
+        if flags1 < 0.9 or worst > 1e-3 or quantum > 1e-5 \
+                or int(off.sum()) > 1e-4 * n_upd:
+            raise AssertionError(f"the {name} one-iteration twin on the card "
+                                 f"disagrees with the plain path")
 
-    def run_path(name, path_kernels, n, state, n_seg=SEGMENTS):
-        """The loop of the path that reset chose for state: counts set to
-        0, one warm-up and n_seg timed segments, counts read; returns
-        (state, planned replans in the timed segments)."""
+    def run_path(name, path_kernels, n, state, n_seg=SEGMENTS, pp_=pp,
+                 per_segment=None, **seg_kw):
+        """The loop of the path that reset chose for state, stepped with
+        seg_kw: counts set to 0, one warm-up and n_seg timed segments,
+        counts read (and, for the kernels in per_segment, held to exactly
+        that many launches per segment); returns (state, planned replans
+        in the timed segments)."""
         _cuda.reset_launches()
-        state, info = env.step_segment(state, pp, mp, sp, cam, net)
+        state, info = env.step_segment(state, pp_, mp, sp, cam, net, **seg_kw)
         warm = (int(info.planned.sum()), int(info.ok.sum()))
         planned, accepted_plans = 0, 0
         torch.cuda.synchronize()
         timer = StageTimer()
         t0 = time.perf_counter()
         for _ in range(n_seg):
-            state, info = env.step_segment(state, pp, mp, sp, cam, net,
-                                           timer=timer)
+            state, info = env.step_segment(state, pp_, mp, sp, cam, net,
+                                           timer=timer, **seg_kw)
             planned = planned + info.planned.sum()
             accepted_plans = accepted_plans + info.ok.sum()
         torch.cuda.synchronize()
@@ -575,10 +643,16 @@ def main() -> int:
         say(f"{name} stages ms/segment: " + ", ".join(
             f"{k} {v / n_seg:.2f}" for k, v in stages.items()))
         say(f"{name} kernels: " + ", ".join(
-            f"{k} {counts[k]}" for k in path_kernels))
+            f"{k} {counts[k]} ({counts[k] / (n_seg + 1):g}/segment)"
+            for k in path_kernels))
         for k in path_kernels:
             if counts[k] <= 0:
                 raise AssertionError(f"the {name} path never launched {k}")
+            if per_segment and k in per_segment \
+                    and counts[k] != per_segment[k] * (n_seg + 1):
+                raise AssertionError(f"the {name} path launched {k} "
+                                     f"{counts[k]} times, expected "
+                                     f"{per_segment[k]} per segment")
             record[k]["launches"] += counts[k]
         finite = all(bool(torch.isfinite(t).all()) for t in (
             state.drone.pos, state.drone.vel, state.drone.quat, state.buffer,
@@ -749,20 +823,156 @@ def main() -> int:
                st_v, cmds_v, pp, mp, sp), 5),
            BV * 60 * 200, BV * (60 * 6 + 22 + 18 + 60 * 15 + 60) * 4)
 
-    # ---- the vision loops
+    # ---- the vision loops (one fused frame per segment)
     small_loop("vision", 16, 6, lambda g, n: scenegen.generate_batch(g, n, wp),
                mapp_v, vision)
     goals_v = torch.stack([torch.full((BV,), 20.0), torch.from_numpy(
         rng.uniform(-1.5, 1.5, BV)).float()], 1).to(dev)
     state_v = env.reset(worlds_v, pp, mp, mapp_v, _cuda.make_generator(12),
                         goal=goals_v, **vision)
-    state_v, planned_v = run_path("vision", VISION_PATH, BV, state_v)
+    state_v, planned_v = run_path("vision", VISION_PATH, BV, state_v,
+                                  n_seg=2)
     if planned_v <= 0:
         raise AssertionError("the vision path's timed segments replanned "
                              "no env")
-    say(f"vision map: {int((state_v.logodds > thr).sum()) / BV:.0f} occupied "
-        f"and {int((state_v.logodds < 0).sum()) / BV:.0f} free cells per env "
-        f"(mean); total {time.perf_counter() - t_start:.1f} s")
+
+    # ================= the sensor-rate path (profile_vision's defaults) ====
+    pp_s = dataclasses.replace(pp, esdf_interp="mxu")
+    mapp_s = dataclasses.replace(mapp_v, fusion_row_stride=4)
+    sensor = dict(fuse_frames=FUSE_FRAMES)
+    F5, RS = FUSE_FRAMES - 1, mapp_s.fusion_row_stride
+
+    # grids fused for three sensor-rate segments, then five poses per env
+    # along the next segment's tracked chunks
+    st_s = env.reset(worlds_v, pp_s, mp, mapp_s, _cuda.make_generator(13),
+                     goal=goals_v, **vision)
+    for _ in range(3):
+        st_s, _ = env.step_segment(st_s, pp_s, mp, sp, cam, net, **sensor)
+    chunk = mp.steps_per_replan // FUSE_FRAMES
+    s_c, pos5, quat5 = st_s, [], []
+    for c in range(F5):
+        drone, reached, steps, metrics, metric_pos, _ = \
+            track.track_segment_grid(s_c, st_s.buffer[:, c * chunk:(c + 1)
+                                                      * chunk], pp_s, mp, sp,
+                                     i0=c * chunk)
+        s_c = s_c.replace(drone=drone, reached=reached, steps=steps,
+                          metrics=metrics, metric_pos=metric_pos)
+        pos5.append(drone.pos)
+        quat5.append(drone.quat)
+    pos5 = torch.stack(pos5, 1).contiguous()
+    quat5 = torch.stack(quat5, 1).contiguous()
+
+    # ---- B4 at row stride 4: the 5 x BV poses in one launch
+    depth5 = raycast.render_depth_auto(worlds_v, pos5, quat5, cam,
+                                       row_stride=RS)
+    want = raycast.render_depth(worlds_v, pos5, quat5, cam, row_stride=RS)
+    frac_off = float(((depth5 - want).abs() > 1e-3).float().mean())
+    ms_s = median_ms(torch, lambda: raycast.render_depth_auto(
+        worlds_v, pos5, quat5, cam, row_stride=RS), 20)
+    say(f"render_depth row stride {RS}, {BV} x {F5} poses: shape "
+        f"{tuple(depth5.shape)}, {frac_off:.2e} of pixels off by > 1e-3 m "
+        f"(tol 1e-3), max abs {float((depth5 - want).abs().max()):.3g}; "
+        f"{ms_s:.3f} ms")
+    if frac_off > 1e-3:
+        raise AssertionError("render_depth at row stride 4 disagrees with "
+                             "its plain version")
+
+    # ---- B8 v3: the five frames onto the fused grids, one clip per frame
+    lo_s = st_s.logodds.contiguous()
+    tabs5, sc5, hit5 = fusion._multi_inputs(depth5, pos5, quat5, cam, mapp_s,
+                                            RS)
+    out5 = torch.empty_like(lo_s)
+    fusion.launch_fuse_multi(lo_s, tabs5, sc5, hit5, out5, cam, mapp_s)
+    want = fusion._fuse_multi_plain(lo_s, tabs5, sc5, hit5, cam, mapp_s)
+    d = (out5 - want).abs()
+    off = d > 0
+    n_upd = int((want != lo_s).sum())
+    l_min = torch.tensor(occupancy._l(mapp_s.clamp_min))
+    n_at_min = int((want == l_min.to(dev)).sum())
+    say(f"fuse_depth_multi: {int(off.sum())} of {n_upd} updated cells differ "
+        f"(0 expected; tol 1e-4 of them, each by one quantum); {n_at_min} "
+        f"cells at the lower clamp bound")
+    if off.any():
+        q = (d[off].cpu()[:, None] - l_quanta.abs()[None]).abs().amin(1)
+        if float(q.max()) > 1e-5 or int(off.sum()) > 1e-4 * n_upd:
+            idx = torch.nonzero(off.flatten())[:8, 0]
+            say("fuse_depth_multi: cells (flat index, before, kernel, plain): "
+                + "; ".join(f"{int(i)} {float(lo_s.flatten()[i]):.6g} "
+                            f"{float(out5.flatten()[i]):.6g} "
+                            f"{float(want.flatten()[i]):.6g}" for i in idx))
+            raise AssertionError("fuse_depth_multi disagrees with its plain "
+                                 "version")
+    if n_at_min == 0:
+        raise AssertionError("the B8 v3 check never reached a clamp bound")
+    w = cam.width
+    report("fuse_depth_multi", (float(d.max()), int(off.sum()) / max(n_upd,
+                                                                     1)),
+           1e-4,
+           median_ms(torch, lambda: fusion.launch_fuse_multi(
+               lo_s, tabs5, sc5, hit5, out5, cam, mapp_s), 20),
+           median_ms(torch, lambda: fusion._fuse_multi_plain(
+               lo_s, tabs5, sc5, hit5, cam, mapp_s), 5),
+           BV * F5 * H * W * 25,
+           BV * (2 * H * W * 4 + F5 * (w * (4 + 4) + 8 * 4)), on="rel")
+    # the yardstick inside the port: the same frames as F5 B8 v2 launches
+    envs = torch.arange(BV, device=dev)[:, None] * (H * W)
+    v2_in = [(tabs5[:, f].contiguous(), sc5[:, f].contiguous(),
+              torch.where(hit5[:, f] >= 0, hit5[:, f].long() + envs, -1))
+             for f in range(F5)]
+
+    def chained_v2():
+        for t, c, h in v2_in:
+            fusion.launch_fuse(lo_s, t, c, h, out_k, cam, mapp_s)
+
+    say(f"fuse_depth_multi: {F5} frames in one launch; the same frames as "
+        f"{F5} B8 v2 launches: {median_ms(torch, chained_v2, 10):.3f} ms")
+
+    # ---- B3 and B10 from substep 30
+    cmds30 = cmds[:, 30:].contiguous()
+    tout30 = torch.empty((B, 18), device=dev)
+    trace30 = torch.empty((B, 30, 5, 3), device=dev)
+    track.launch_tracker(cmds30, st_packed, prims6, tout30, trace30, pp, mp,
+                         sp, i0=30)
+    wd, wreach, wsteps, wmet, wmpos, wtrace = track._track_plain(
+        st, cmds30, pp, mp, sp, i0=30)
+    want = torch.cat([wd.pos, wd.vel, wd.yaw[:, None], wd.quat, wmpos, wmet,
+                      wreach[:, None].float(), wsteps[:, None].float()], 1)
+    err3 = max(err_line(tout30, want), err_line(trace30, wtrace))
+    cmds_v30 = cmds_v[:, 30:].contiguous()
+    gout30 = torch.empty((BV, 18), device=dev)
+    gtrace30 = torch.empty((BV, 30, 5, 3), device=dev)
+    gticks30 = torch.empty((BV, 30), device=dev)
+    track.launch_tracker_grid(cmds_v30, stv_packed, gout30, gtrace30,
+                              gticks30, pp, mp, sp, i0=30)
+    wd, wreach, wsteps, wmet, wmpos, wtrace, wticks = \
+        track._track_grid_plain(st_v, cmds_v30, pp, mp, sp, i0=30)
+    want = torch.cat([wd.pos, wd.vel, wd.yaw[:, None], wd.quat, wmpos, wmet,
+                      wreach[:, None].float(), wsteps[:, None].float()], 1)
+    err10 = max(err_line(gout30, want), err_line(gtrace30, wtrace),
+                err_line(gticks30, wticks))
+    say(f"track_segment i0=30: max abs {err3[0]:.3g}; track_segment_grid "
+        f"i0=30: max abs {err10[0]:.3g}, ticks {int(wticks.sum())} (tol "
+        f"1e-3)")
+    if err3[0] > 1e-3 or err10[0] > 1e-3 or int(wticks.sum()) == 0:
+        raise AssertionError("a tracker from substep 30 disagrees with its "
+                             "plain version")
+
+    # ---- the sensor-rate loops
+    small_loop("sensor-rate", 16, 7,
+               lambda g, n: scenegen.generate_batch(g, n, wp), mapp_s,
+               vision, pp_=pp_s, twin=True, **sensor)
+    state_s = env.reset(worlds_v, pp_s, mp, mapp_s, _cuda.make_generator(14),
+                        goal=goals_v, **vision)
+    state_s, planned_s = run_path("sensor-rate", SENSOR_PATH, BV, state_s,
+                                  pp_=pp_s, per_segment=SENSOR_PER_SEGMENT,
+                                  **sensor)
+    if planned_s <= 0:
+        raise AssertionError("the sensor-rate path's timed segments "
+                             "replanned no env")
+    say(f"sensor-rate map: {int((state_s.logodds > thr).sum()) / BV:.0f} "
+        f"occupied and {int((state_s.logodds < 0).sum()) / BV:.0f} free "
+        f"cells per env (mean); vision path's {int((state_v.logodds < 0).sum()) / BV:.0f} "
+        f"free; total {time.perf_counter() - t_start:.1f} s")
 
     say("kernels: " + ", ".join(f"{k} {record[k]['launches']}"
                                 for k in KERNELS))

@@ -33,7 +33,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("minco_banded_solve", "lbfgs_scene_solve", "track_segment",
            "render_depth", "lbfgs_grid_solve", "fuse_depth_dense",
-           "edt_trunc_lite", "track_segment_grid")
+           "edt_trunc_lite", "track_segment_grid", "fuse_depth_multi")
 launches = {name: 0 for name in KERNELS}
 build_seconds = None   # wall time of the nvcc call (None: loaded from cache)
 
@@ -46,12 +46,13 @@ _SIGNATURES = {
     # n_problems, n_prims, K, max_iters, max_ls, host params (float*), stream
     "neo_lbfgs_scene_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P, _P],
-    # cmds, state, prims, state_out, trace, n_envs, n_prims, spr,
+    # cmds, state, prims, state_out, trace, n_envs, n_prims, spr, i0,
     # host params (float*), stream
-    "neo_track_segment": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # pos, quat, prims, depth, n_envs, n_prims, width, height,
-    # host params [fx, fy, min_range, max_range] (float*), stream
-    "neo_render_depth": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "neo_track_segment": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # pos, quat, prims, depth, n_poses, frames_per_env, n_prims, width,
+    # out_rows, row_stride,
+    # host params [fx, fy, min_range, max_range, height] (float*), stream
+    "neo_render_depth": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # x0, head, tail, win, worg, env_of, skip, x_out, f_out, it_out,
     # n_problems, Hw, Ww, K, max_iters, max_ls, host params (float*), stream
     "neo_lbfgs_grid_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -59,11 +60,14 @@ _SIGNATURES = {
     # logodds, tabs, sc, hit, out, n_envs, H, W, Wcam,
     # host params (float*), stream
     "neo_fuse_depth_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # logodds, tabs, sc, hit, out, n_envs, n_frames, H, W, Wcam,
+    # host params (float*), stream
+    "neo_fuse_depth_multi": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # logodds, out, n_envs, H, W, R, host params [thr, res, max_dist], stream
     "neo_edt_trunc_lite": [_P, _P, _I, _I, _I, _I, _P, _P],
-    # cmds, state, state_out, trace, ticks, n_envs, spr,
+    # cmds, state, state_out, trace, ticks, n_envs, spr, i0,
     # host params (float*), stream
-    "neo_track_segment_grid": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "neo_track_segment_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib = None

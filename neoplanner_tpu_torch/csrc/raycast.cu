@@ -1,5 +1,5 @@
 // B4: z-depth image of each env's scene from its drone pose, one thread per
-// pixel, one block per tile of one env's pixels.
+// pixel, one block per tile of one pose's pixels.
 //
 // Replaces neoplanner_tpu/sense/raycast_pallas.py `_make_kernel` (:72) with
 // `_pack_prims` (:179) and `_base_dirs` (:249), launched by `_trace_batch`
@@ -11,7 +11,11 @@
 // quaternion, takes the nearest hit over the env's live boxes (slab test) and
 // capped vertical cylinders (side and both caps) and the ground plane, and
 // writes z = t * (ray . body x); a miss or a hit out of [min_range,
-// max_range] reads max_range.
+// max_range] reads max_range. A row stride s > 1 renders rows s/2, s/2 + s,
+// ... of the image at the full vertical field of view (the cheap frames of
+// sensor-rate fusion). The launch takes F poses per env: pose p traces env
+// p / F's primitives, so the sensor-rate loop renders every env's F
+// mid-segment frames in one launch without copying the scene F times.
 //
 // Bound on the H100: operations. A 160x120 frame against 24 primitives is
 // ~19,200 x 24 x ~30 flops against 76.8 KB written. The TPU kernel's
@@ -30,7 +34,7 @@ constexpr float kInf = 1e9f;
 constexpr int kPrimFields = 8;  // cx cy cz hx hy hz is_cyl active
 
 struct CamParams {
-  float fx, fy, min_range, max_range;
+  float fx, fy, min_range, max_range, cam_height;
 };
 
 __device__ __forceinline__ void quat_rotate(const float (&q)[4],
@@ -52,23 +56,25 @@ __global__ void __launch_bounds__(kBlock)
     render_depth_kernel(const float* __restrict__ pos,
                         const float* __restrict__ quat,
                         const float* __restrict__ prims,
-                        float* __restrict__ depth, int n_prims, int width,
-                        int height, CamParams C) {
-  extern __shared__ float sp[];  // [n_prims * 8] of this env
-  const int e = blockIdx.y;
-  const float* src = prims + static_cast<long long>(e) * n_prims * kPrimFields;
+                        float* __restrict__ depth, int frames_per_env,
+                        int n_prims, int width, int out_rows, int row_stride,
+                        CamParams C) {
+  extern __shared__ float sp[];  // [n_prims * 8] of this pose's env
+  const int e = blockIdx.y;      // pose
+  const float* src = prims + static_cast<long long>(e / frames_per_env) *
+                                 n_prims * kPrimFields;
   for (int i = threadIdx.x; i < n_prims * kPrimFields; i += blockDim.x)
     sp[i] = src[i];
   __syncthreads();
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= height * width) return;
+  if (pix >= out_rows * width) return;
   const int row = pix / width, col = pix - row * width;
 
   // body-frame unit ray of this pixel (raycast.ray_dirs_camera)
   const float u = static_cast<float>(col) + 0.5f;
-  const float v = static_cast<float>(row) + 0.5f;
+  const float v = static_cast<float>(row_stride / 2 + row * row_stride) + 0.5f;
   const float x_opt = (u - static_cast<float>(width) / 2.0f) / C.fx;
-  const float y_opt = (v - static_cast<float>(height) / 2.0f) / C.fy;
+  const float y_opt = (v - C.cam_height / 2.0f) / C.fy;
   const float b[3] = {1.0f, -x_opt, -y_opt};
   const float bn = sqrtf(b[0] * b[0] + b[1] * b[1] + b[2] * b[2]);
   const float db[3] = {b[0] / bn, b[1] / bn, b[2] / bn};
@@ -128,27 +134,30 @@ __global__ void __launch_bounds__(kBlock)
   quat_rotate(q, xb_in, xb);
   const float z = t * (d[0] * xb[0] + d[1] * xb[1] + d[2] * xb[2]);
   const bool valid = t < kInf && z >= C.min_range && z <= C.max_range;
-  depth[static_cast<long long>(e) * height * width + pix] =
+  depth[static_cast<long long>(e) * out_rows * width + pix] =
       valid ? z : C.max_range;
 }
 
 }  // namespace
 
+// pos (n_poses, 3), quat (n_poses, 4): pose p = env p / frames_per_env's
+// frame p % frames_per_env; prims (n_poses / frames_per_env, n_prims, 8);
+// depth (n_poses, out_rows, width)
 extern "C" int neo_render_depth(const void* pos, const void* quat,
-                                const void* prims, void* depth, int n_envs,
-                                int n_prims, int width, int height,
-                                const float* host_params,
-                                void* stream) {
+                                const void* prims, void* depth, int n_poses,
+                                int frames_per_env, int n_prims, int width,
+                                int out_rows, int row_stride,
+                                const float* host_params, void* stream) {
   CamParams C;
-  static_assert(sizeof(CamParams) == 4 * sizeof(float), "layout");
+  static_assert(sizeof(CamParams) == 5 * sizeof(float), "layout");
   memcpy(&C, host_params, sizeof(C));
   const size_t smem = static_cast<size_t>(n_prims) * kPrimFields * sizeof(float);
   const dim3 block(kBlock);
-  const dim3 grid((height * width + kBlock - 1) / kBlock, n_envs);
+  const dim3 grid((out_rows * width + kBlock - 1) / kBlock, n_poses);
   render_depth_kernel<<<grid, block, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<const float*>(quat),
-      static_cast<const float*>(prims), static_cast<float*>(depth), n_prims,
-      width, height, C);
+      static_cast<const float*>(prims), static_cast<float*>(depth),
+      frames_per_env, n_prims, width, out_rows, row_stride, C);
   return static_cast<int>(cudaGetLastError());
 }

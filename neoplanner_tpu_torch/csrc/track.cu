@@ -16,7 +16,9 @@
 // commanded velocity's heading, the differential-flatness attitude (the
 // Shepperd candidates picked by the first largest pivot), the goal latch,
 // the freeze outside the mission phase, and on every 6th substep the 10 Hz
-// weighted metric with the scene SDF at the drone's position. The trace
+// weighted metric with the scene SDF at the drone's position. The launch
+// takes the segment's first substep i0 and ticks where (t + i0) % 6 == 0,
+// so a segment tracked in chunks keeps one segment's metric cadence. The trace
 // rows [pos, vel, pos_des, vel_des, acc_des] are written out per substep.
 //
 // Bound on the H100: device memory. Per env the kernel reads 60 commands
@@ -114,7 +116,7 @@ __global__ void __launch_bounds__(kBlock)
                          const float* __restrict__ prims,
                          float* __restrict__ st_out, float* __restrict__ trace,
                          float* __restrict__ ticks, int n_envs, int n_prims,
-                         int spr, TrackParams P) {
+                         int spr, int i0, TrackParams P) {
   extern __shared__ float smem[];  // [n_prims * 6][blockDim.x]
   const int tid = threadIdx.x;
   const int e = blockIdx.x * blockDim.x + tid;
@@ -172,7 +174,7 @@ __global__ void __launch_bounds__(kBlock)
     const float ex = px - gx, ey = py - gy;
     reached = reached || (active && sqrtf(ex * ex + ey * ey) < P.reach_thr);
 
-    const bool tick = (t % kMetricEvery == 0) && active && !reached;
+    const bool tick = ((t + i0) % kMetricEvery == 0) && active && !reached;
     if (tick) {
       const float ddx = px - mpx, ddy = py - mpy;
       const float vviol = fmaxf(vx * vx + vy * vy - P.v_max * P.v_max, 0.0f);
@@ -213,7 +215,7 @@ __global__ void __launch_bounds__(kBlock)
 extern "C" int neo_track_segment(const void* cmds, const void* state,
                                  const void* prims, void* state_out,
                                  void* trace, int n_envs, int n_prims,
-                                 int spr, const float* host_params,
+                                 int spr, int i0, const float* host_params,
                                  void* stream) {
   TrackParams P;
   static_assert(sizeof(TrackParams) == 11 * sizeof(float), "layout");
@@ -225,14 +227,14 @@ extern "C" int neo_track_segment(const void* cmds, const void* state,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cmds), static_cast<const float*>(state),
       static_cast<const float*>(prims), static_cast<float*>(state_out),
-      static_cast<float*>(trace), nullptr, n_envs, n_prims, spr, P);
+      static_cast<float*>(trace), nullptr, n_envs, n_prims, spr, i0, P);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int neo_track_segment_grid(const void* cmds, const void* state,
                                       void* state_out, void* trace,
                                       void* ticks, int n_envs, int spr,
-                                      const float* host_params,
+                                      int i0, const float* host_params,
                                       void* stream) {
   TrackParams P;
   memcpy(&P, host_params, sizeof(P));
@@ -242,6 +244,6 @@ extern "C" int neo_track_segment_grid(const void* cmds, const void* state,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cmds), static_cast<const float*>(state),
       nullptr, static_cast<float*>(state_out), static_cast<float*>(trace),
-      static_cast<float*>(ticks), n_envs, 0, spr, P);
+      static_cast<float*>(ticks), n_envs, 0, spr, i0, P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 The port of neoplanner_tpu/mapping/esdf.py in its lite profile (a bf16
 truncated distance field per env, no occupancy or gradient planes):
 ``build`` (:29) with max_dist, ``_cell_index`` (:66), ``sample_nearest``
-(:85, distance only), ``sample_bilinear`` (:112) and ``make_window`` (:193),
+(:85, distance only), ``sample_bilinear`` (:112), ``sample`` (:222, "mxu"
+sampling as bilinear) and ``make_window`` (:193),
 batched over envs (``has_collision`` :234 is mapping/query.has_collision). :class:`GridWindow` and
 :func:`sample_window` are the per-env ESDF windows of the grid solver and
 the tap semantics of its kernel (plan/solve_pallas_grid.py ``sample``
@@ -106,9 +107,14 @@ def sample_bilinear(emap: ESDFMap, pos: torch.Tensor) -> torch.Tensor:
 
 
 def sample(emap: ESDFMap, pos: torch.Tensor, mode: str = "bilinear"):
+    """Distance at pos by pp.esdf_interp: "nearest", "bilinear", or "mxu".
+    The reference's "mxu" (esdf.py ``sample_bilinear_mxu`` :148) is the
+    bilinear interpolation phrased as one-hot matrix products in bf16,
+    because the TPU has no gather; here the same taps are indexed loads in
+    f32 (:func:`sample_bilinear`), within the reference's bf16 error of it."""
     if mode == "nearest":
         return sample_nearest(emap, pos)
-    if mode == "bilinear":
+    if mode in ("bilinear", "mxu"):
         return sample_bilinear(emap, pos)
     raise ValueError(f"unsupported esdf interpolation mode: {mode}")
 

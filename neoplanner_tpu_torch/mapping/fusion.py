@@ -1,5 +1,5 @@
-"""Dense polar depth fusion of one frame per env: kernel B8 v2 and its plain
-version.
+"""Dense polar depth fusion: one frame per env (kernel B8 v2) and F frames
+per env in one pass (kernel B8 v3), each with its plain version.
 
 :func:`insert_depth_2d_dense` is the port of
 neoplanner_tpu/mapping/occupancy_pallas.py ``insert_depth_2d_dense`` (:478)
@@ -11,11 +11,22 @@ l_hit to the cell that holds it, then the grid is clipped again. For CUDA
 tensors the carve and the hits run in ``csrc/fusion.cu``; for CPU tensors
 :func:`_fuse_plain` runs the same arithmetic in PyTorch.
 
+:func:`insert_depth_2d_dense_multi` is the port of
+``insert_depth_2d_dense_multi`` (:512, ``_fuse_flat_multi`` :532): the
+sensor-rate loop's F mid-segment frames, applied in order with ONE clip per
+frame over carve and hits together, cell = clip((cell + carve_f) + k_f *
+l_hit) with k_f the number of frame f's columns whose hit falls in the
+cell. That is not F chained v2 updates (v2 clips after the carve and again
+after the hits), so neither the kernel nor :func:`_fuse_multi_plain` is a
+loop over v2. For CUDA tensors it runs in ``csrc/fusion_multi.cu``.
+
 Replaces: occupancy_pallas.py ``_make_kernel_v2`` (:176) via
-``_fuse_call_v2`` (:263). Bound on the H100: device memory (the grid is
-read and written once, ~25 flops per cell). Design: one thread per cell of
-the whole grid, the carve table in shared memory; the hits are one atomic
-clip-add per column in a second launch.
+``_fuse_call_v2`` (:263), and ``_make_kernel_v3`` (:299) via
+``_fuse_call_v3`` (:419). Bound on the H100: device memory (the grid is
+read and written once per call, ~25 flops per cell and frame). Design, v2:
+one thread per cell of the whole grid, the carve table in shared memory;
+the hits are one atomic clip-add per column in a second launch. v3: see
+``csrc/fusion_multi.cu``.
 """
 
 from __future__ import annotations
@@ -27,11 +38,14 @@ from neoplanner_tpu_torch.config import CameraParams, MapParams
 from neoplanner_tpu_torch.core import frames
 from neoplanner_tpu_torch.mapping import occupancy
 
+_MULTI_MAX_WIDTH = 2048   # B8 v3 holds at least one grid row per block
+
 
 def _check_v2(mp: MapParams) -> None:
-    """The port has the reference's v2 dense fusion only, which covers the
-    whole sensor reach on any map with W % 128 == 0 and H % 8 == 0: raise
-    where the reference would take its v1 windowed kernel instead."""
+    """The port has the reference's v2/v3 dense fusions only, which cover
+    the whole sensor reach on any map with W % 128 == 0 and H % 8 == 0:
+    raise where the reference would take its v1 windowed kernel (one frame)
+    or fuse frame by frame on it (several frames) instead."""
     if not (mp.width % 128 == 0 and mp.height % 8 == 0):
         raise ValueError(
             f"dense fusion needs a map with width % 128 == 0 and height % 8 "
@@ -39,11 +53,14 @@ def _check_v2(mp: MapParams) -> None:
             f"windowed kernel for other maps is not ported")
 
 
-def _inputs(depth, pos, quat, cam: CameraParams, mp: MapParams):
-    """Per-env carve table (B, w), kernel scalars sc (B, 8) and the flat
-    grid index of each column's hit cell (B, w) int64 (-1: none)."""
-    B = depth.shape[0]
-    r_hit, r_carve, u_dir = occupancy.polar_columns(depth, pos, quat, cam, mp)
+def _frame_inputs(depth, pos, quat, cam: CameraParams, mp: MapParams,
+                  row_stride: int):
+    """Per frame (N frames, each with its own pose): carve table (N, w),
+    kernel scalars sc (N, 8) and the cell index row * W + col of each
+    column's hit in its env's grid (N, w) int64 (-1: no hit or out of
+    map)."""
+    r_hit, r_carve, u_dir = occupancy.polar_columns(depth, pos, quat, cam, mp,
+                                                    row_stride)
     fwd = frames.quat_rotate(quat, quat.new_tensor([1.0, 0.0, 0.0]))
     psi = torch.atan2(fwd[:, 1], fwd[:, 0])
     zeros = torch.zeros_like(psi)
@@ -54,11 +71,34 @@ def _inputs(depth, pos, quat, cam: CameraParams, mp: MapParams):
     hx = pos[:, 0:1] + r_hit * u_dir[..., 0]
     hy = pos[:, 1:2] + r_hit * u_dir[..., 1]
     hrow, hcol, hinb = occupancy._cell_idx(hx, hy, mp)
-    envs = torch.arange(B, device=depth.device)[:, None]
-    flat = (envs * mp.height + hrow) * mp.width + hcol
-    hit = torch.where(hinb & (r_hit < occupancy.BIG), flat,
-                      torch.full_like(flat, -1))
-    return r_carve.contiguous(), sc.contiguous(), hit.contiguous()
+    cell = hrow * mp.width + hcol
+    cell = torch.where(hinb & (r_hit < occupancy.BIG), cell,
+                       torch.full_like(cell, -1))
+    return r_carve, sc, cell
+
+
+def _inputs(depth, pos, quat, cam: CameraParams, mp: MapParams,
+            row_stride: int = 1):
+    """B8 v2's inputs for one frame per env: carve table (B, w), scalars
+    sc (B, 8) and the flat grid index of each column's hit cell (B, w)
+    int64 (-1: none)."""
+    tabs, sc, cell = _frame_inputs(depth, pos, quat, cam, mp, row_stride)
+    envs = torch.arange(depth.shape[0], device=depth.device)[:, None]
+    hit = torch.where(cell >= 0, envs * (mp.height * mp.width) + cell, cell)
+    return tabs.contiguous(), sc.contiguous(), hit.contiguous()
+
+
+def _multi_inputs(depths, pos, quat, cam: CameraParams, mp: MapParams,
+                  row_stride: int):
+    """B8 v3's inputs for F frames per env: tabs (B, F, w), sc (B, F, 8)
+    float32 and each column's hit cell in its env's grid (B, F, w) int32."""
+    B, F = depths.shape[:2]
+    tabs, sc, cell = _frame_inputs(depths.reshape((B * F,) + depths.shape[2:]),
+                                   pos.reshape(B * F, 3),
+                                   quat.reshape(B * F, 4), cam, mp, row_stride)
+    return (tabs.reshape(B, F, -1).contiguous(),
+            sc.reshape(B, F, 8).contiguous(),
+            cell.reshape(B, F, -1).to(torch.int32).contiguous())
 
 
 def _params(cam: CameraParams, mp: MapParams):
@@ -67,13 +107,20 @@ def _params(cam: CameraParams, mp: MapParams):
             occupancy._l(mp.clamp_min), occupancy._l(mp.clamp_max))
 
 
+def _param_tensors(cam: CameraParams, mp: MapParams, dev):
+    return tuple(torch.tensor(v, dtype=torch.float32, device=dev)
+                 for v in _params(cam, mp))
+
+
 def insert_depth_2d_dense(logodds: torch.Tensor, depth: torch.Tensor,
                           pos: torch.Tensor, quat: torch.Tensor,
-                          cam: CameraParams, mp: MapParams) -> torch.Tensor:
-    """Fuse one frame per env: logodds (B, H, W), depth (B, h, w) full
-    resolution, pos (B, 3), quat (B, 4). Returns the new (B, H, W) grid."""
+                          cam: CameraParams, mp: MapParams,
+                          row_stride: int = 1) -> torch.Tensor:
+    """Fuse one frame per env: logodds (B, H, W), depth (B, h, w) rendered
+    at row_stride, pos (B, 3), quat (B, 4). Returns the new (B, H, W)
+    grid."""
     _check_v2(mp)
-    tabs, sc, hit = _inputs(depth, pos, quat, cam, mp)
+    tabs, sc, hit = _inputs(depth, pos, quat, cam, mp, row_stride)
     if not logodds.is_cuda:
         return _fuse_plain(logodds, tabs, sc, hit, cam, mp)
     out = torch.empty_like(logodds)
@@ -81,13 +128,13 @@ def insert_depth_2d_dense(logodds: torch.Tensor, depth: torch.Tensor,
     return out
 
 
-def _fuse_plain(logodds, tabs, sc, hit, cam: CameraParams, mp: MapParams):
-    """The carve and the hits in PyTorch, in the kernel's operation order."""
-    B, H, W = logodds.shape
-    dev = logodds.device
-    fx, res, half_w, l_hit, l_miss, l_min, l_max = (
-        torch.tensor(v, dtype=torch.float32, device=dev)
-        for v in _params(cam, mp))
+def _carve_update(shape, tabs, sc, cam: CameraParams, mp: MapParams):
+    """(B, H, W) carve update of one frame per env: l_miss on the cells
+    that the frame's carve table frees, 0 elsewhere, in the kernels'
+    operation order."""
+    B, H, W = shape
+    dev = tabs.device
+    fx, res, half_w, _, l_miss, _, _ = _param_tensors(cam, mp, dev)
     colf = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
     rowf = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
     s = sc[:, :, None, None]
@@ -103,7 +150,15 @@ def _fuse_plain(logodds, tabs, sc, hit, cam: CameraParams, mp: MapParams):
     uidx = torch.where(valid, uf, torch.zeros_like(uf)).long()
     rcarve = torch.gather(tabs[:, None, :].expand(B, H, -1), 2, uidx)
     carve = valid & (r_cell > 0.0) & (r_cell < rcarve - res)
-    out = torch.clamp(logodds + torch.where(carve, l_miss, 0.0), l_min, l_max)
+    return torch.where(carve, l_miss, 0.0)
+
+
+def _fuse_plain(logodds, tabs, sc, hit, cam: CameraParams, mp: MapParams):
+    """B8 v2's plain version: the carve and the hits in PyTorch, in the
+    kernel's operation order."""
+    _, _, _, l_hit, _, l_min, l_max = _param_tensors(cam, mp, logodds.device)
+    out = torch.clamp(logodds + _carve_update(logodds.shape, tabs, sc, cam,
+                                              mp), l_min, l_max)
     # hits: a cell hit k times gets k adds of l_hit in sequence, as the
     # reference's scatter and the kernel's atomic adds give it (a summed
     # k * l_hit would round differently)
@@ -113,6 +168,68 @@ def _fuse_plain(logodds, tabs, sc, hit, cam: CameraParams, mp: MapParams):
         sel = cells[counts > k]
         flat[sel] = flat[sel] + l_hit
     return torch.clamp(out, l_min, l_max)
+
+
+def insert_depth_2d_dense_multi(logodds: torch.Tensor, depths: torch.Tensor,
+                                pos: torch.Tensor, quat: torch.Tensor,
+                                cam: CameraParams, mp: MapParams,
+                                row_stride: int = 1) -> torch.Tensor:
+    """Fuse F frames per env in order, one clip per frame: logodds
+    (B, H, W), depths (B, F, h, w) rendered at row_stride, pos (B, F, 3),
+    quat (B, F, 4). Returns the new (B, H, W) grid."""
+    _check_v2(mp)
+    tabs, sc, hit = _multi_inputs(depths, pos, quat, cam, mp, row_stride)
+    if not logodds.is_cuda:
+        return _fuse_multi_plain(logodds, tabs, sc, hit, cam, mp)
+    out = torch.empty_like(logodds)
+    launch_fuse_multi(logodds.contiguous(), tabs, sc, hit, out, cam, mp)
+    return out
+
+
+def _fuse_multi_plain(logodds, tabs, sc, hit, cam: CameraParams,
+                      mp: MapParams):
+    """B8 v3's plain version: per frame, the carve update and the per-cell
+    hit count k, then clip((cell + carve) + k * l_hit) once."""
+    B, H, W = logodds.shape
+    _, _, _, l_hit, _, l_min, l_max = _param_tensors(cam, mp, logodds.device)
+    out = logodds
+    for f in range(tabs.shape[1]):
+        upd = _carve_update(logodds.shape, tabs[:, f], sc[:, f], cam, mp)
+        h = hit[:, f].long()
+        counts = torch.zeros((B, H * W), dtype=torch.int32,
+                             device=logodds.device)
+        counts.scatter_add_(1, h.clamp(min=0), (h >= 0).to(torch.int32))
+        hits = counts.reshape(B, H, W).to(torch.float32) * l_hit
+        out = torch.clamp((out + upd) + hits, l_min, l_max)
+    return out
+
+
+def launch_fuse_multi(logodds, tabs, sc, hit, out, cam: CameraParams,
+                      mp: MapParams) -> None:
+    """Launch B8 v3 on prepared tensors: logodds (B, H, W), tabs (B, F, w),
+    sc (B, F, 8) float32, hit (B, F, w) int32 (:func:`_multi_inputs`);
+    writes out."""
+    dev = logodds.device
+    B, H, W = logodds.shape
+    F, w = tabs.shape[1], cam.width
+    for t, name, shape in ((logodds, "logodds", (B, H, W)),
+                           (out, "out", (B, H, W)),
+                           (tabs, "tabs", (B, F, w)),
+                           (sc, "sc", (B, F, 8))):
+        _cuda.require(t, name, shape, torch.float32, dev)
+    _cuda.require(hit, "hit", (B, F, w), torch.int32, dev)
+    if W > _MULTI_MAX_WIDTH:
+        raise ValueError(f"multi-frame fusion takes maps up to "
+                         f"{_MULTI_MAX_WIDTH} cells wide (got {W})")
+    if B == 0:
+        return
+    lib = _cuda.load()
+    err = lib.neo_fuse_depth_multi(
+        _cuda.ptr(logodds), _cuda.ptr(tabs), _cuda.ptr(sc), _cuda.ptr(hit),
+        _cuda.ptr(out), B, F, H, W, w, _cuda.host_floats(_params(cam, mp)),
+        _cuda.stream_ptr(dev))
+    _cuda.check(err, "fuse_depth_multi")
+    _cuda.launches["fuse_depth_multi"] += 1
 
 
 def launch_fuse(logodds, tabs, sc, hit, out, cam: CameraParams,

@@ -5,8 +5,8 @@ The port of neoplanner_tpu/mapping/occupancy.py (``logodds_init`` :31,
 ``_l`` :35, ``_cell_idx`` :39, ``polar_columns`` :87, and the threshold
 of ``to_occupancy`` :198, which the fused ESDF rebuild applies), batched
 over envs. Log-odds parameters are octomap's defaults (hit
-0.7, miss 0.4, clamp [0.12, 0.97]). The fusion itself (kernel B8 v2) is in
-mapping/fusion.py.
+0.7, miss 0.4, clamp [0.12, 0.97]). The fusion itself (kernels B8 v2 and
+B8 v3) is in mapping/fusion.py.
 """
 
 from __future__ import annotations
@@ -40,9 +40,11 @@ def _cell_idx(x: torch.Tensor, y: torch.Tensor, mp: MapParams):
 
 
 def polar_columns(depth: torch.Tensor, pos: torch.Tensor, quat: torch.Tensor,
-                  cam: CameraParams, mp: MapParams):
+                  cam: CameraParams, mp: MapParams, row_stride: int = 1):
     """Collapse depth frames (B, h, w) to the projected plane, per image
-    column: (r_hit (B, w), r_carve (B, w), u_dir (B, w, 2)).
+    column: (r_hit (B, w), r_carve (B, w), u_dir (B, w, 2)). row_stride is
+    the stride the frames were rendered at (raycast.ray_dirs_camera); the
+    column reductions run over those rows.
 
     r_hit is the nearest in-slice hit range, r_carve how far the column's
     rays traverse the z-slice [z_min, z_max] before the nearest obstacle,
@@ -50,7 +52,8 @@ def polar_columns(depth: torch.Tensor, pos: torch.Tensor, quat: torch.Tensor,
     world z component of each ray is formed (dz = R(q)[2, :] . d_body, the
     dz-only form): the rays are unit, so the horizontal magnitude is
     sqrt(1 - dz^2)."""
-    dirs_body = raycast.ray_dirs_camera(cam, depth.device)        # (h, w, 3)
+    dirs_body = raycast.ray_dirs_camera(cam, row_stride,
+                                        depth.device)      # (h, w, 3)
     zrow = frames.quat_rotate_inv(
         quat, quat.new_tensor([0.0, 0.0, 1.0]))                  # (B, 3)
     t_end = depth / torch.clamp(dirs_body[..., 0], min=1e-6)

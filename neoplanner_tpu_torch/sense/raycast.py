@@ -1,12 +1,18 @@
 """Analytic depth camera over primitive scenes: kernel B4 and its plain form.
 
-The port of neoplanner_tpu/sense/raycast.py (``ray_dirs_camera``,
-``render_depth``, ``render_depth_auto`` :173-182). The camera looks along
-body +x in the optical convention and returns z-depth (range times the
+The port of neoplanner_tpu/sense/raycast.py (``ray_dirs_camera`` :27,
+``render_depth`` :157, ``render_depth_auto`` :173-182). The camera looks
+along body +x in the optical convention and returns z-depth (range times the
 ray's body-x component), max_range where nothing is hit in range.
+``row_stride`` > 1 keeps every stride-th image row (rows s//2, s//2 + s,
+...) at the same vertical field of view: the cheap frames of sensor-rate
+fusion, whose consumers reduce each column to one range.
 
 :func:`render_depth_auto` launches ``csrc/raycast.cu`` for CUDA tensors and
-runs :func:`render_depth`, the plain version, for CPU tensors.
+runs :func:`render_depth`, the plain version, for CPU tensors. Both take one
+pose per env (pos (B, 3)) or F poses per env (pos (B, F, 3)): the sensor-rate
+loop renders every mid-segment frame of every env in one launch, each pose
+against its own env's primitives.
 
 Replaces: neoplanner_tpu/sense/raycast_pallas.py ``_make_kernel`` (:72) with
 ``_pack_prims`` (:179) and ``_base_dirs`` (:249). Bound on the H100:
@@ -28,10 +34,13 @@ from neoplanner_tpu_torch.core.types import SHAPE_CYLINDER, BoxWorld
 _INF = 1e9
 
 
-def ray_dirs_camera(cam: CameraParams, device=None) -> torch.Tensor:
-    """(H, W, 3) unit ray directions in the body frame (x fwd, y left, z up)."""
+def ray_dirs_camera(cam: CameraParams, row_stride: int = 1,
+                    device=None) -> torch.Tensor:
+    """(h, W, 3) unit ray directions in the body frame (x fwd, y left, z up),
+    h = len(range(row_stride // 2, H, row_stride)) rows at the full FOV."""
     u = torch.arange(cam.width, device=device) + 0.5
-    v = torch.arange(cam.height, device=device) + 0.5
+    v = torch.arange(row_stride // 2, cam.height, row_stride,
+                     device=device) + 0.5
     x_opt = (u[None, :] - cam.width / 2) / cam.fx
     y_opt = (v[:, None] - cam.height / 2) / cam.fy
     ones = torch.ones((v.shape[0], cam.width), device=device)
@@ -79,17 +88,27 @@ def _ray_cylinder(o, d, c, h):
     return t
 
 
+def out_rows(cam: CameraParams, row_stride: int) -> int:
+    """Rows of a frame rendered at row_stride."""
+    return len(range(row_stride // 2, cam.height, row_stride))
+
+
 def render_depth(world: BoxWorld, pos: torch.Tensor, quat: torch.Tensor,
-                 cam: CameraParams) -> torch.Tensor:
-    """Plain form: (B, H, W) z-depth images from cameras at pos (B, 3) with
-    body attitudes quat (B, 4). Primitives are tested one at a time against
-    every ray, keeping the running nearest hit."""
-    dirs_body = ray_dirs_camera(cam, pos.device)                 # (H, W, 3)
+                 cam: CameraParams, row_stride: int = 1) -> torch.Tensor:
+    """Plain form: (B, h, W) z-depth images from cameras at pos (B, 3) with
+    body attitudes quat (B, 4), or (B, F, h, W) from pos (B, F, 3), quat
+    (B, F, 4), every pose of env b against world b. Primitives are tested
+    one at a time against every ray, keeping the running nearest hit."""
+    multi = pos.dim() == 3
+    if not multi:
+        pos, quat = pos[:, None], quat[:, None]
+    dirs_body = ray_dirs_camera(cam, row_stride, pos.device)     # (h, W, 3)
     H, W = dirs_body.shape[:2]
-    B = pos.shape[0]
-    dirs = frames.quat_rotate(quat[:, None, :],
-                              dirs_body.reshape(1, -1, 3))       # (B, R, 3)
-    o = pos[:, None, :]
+    B, F = pos.shape[:2]
+    dirs = frames.quat_rotate(quat[:, :, None, :],
+                              dirs_body.reshape(1, 1, -1, 3)
+                              ).reshape(B, F * H * W, 3)         # (B, R, 3)
+    o = pos[:, :, None, :].expand(B, F, H * W, 3).reshape(B, F * H * W, 3)
     t = torch.full(dirs.shape[:2], _INF, device=pos.device)
     for k in range(world.centers.shape[1]):
         c = world.centers[:, k:k + 1]
@@ -106,10 +125,12 @@ def render_depth(world: BoxWorld, pos: torch.Tensor, quat: torch.Tensor,
         down, dz, torch.full_like(dz, -1.0)), torch.full_like(dz, _INF))
     t = torch.minimum(t, t_ground)
     x_body = frames.quat_rotate(quat, quat.new_tensor([1.0, 0.0, 0.0]))
-    z = t * (dirs * x_body[:, None, :]).sum(-1)
+    x_body = x_body[:, :, None, :].expand(B, F, H * W, 3).reshape(
+        B, F * H * W, 3)
+    z = t * (dirs * x_body).sum(-1)
     valid = (t < _INF) & (z >= cam.min_range) & (z <= cam.max_range)
     z = torch.where(valid, z, torch.full_like(z, cam.max_range))
-    return z.reshape(B, H, W)
+    return z.reshape((B, F, H, W) if multi else (B, H, W))
 
 
 def pack_prims(world: BoxWorld) -> torch.Tensor:
@@ -122,35 +143,47 @@ def pack_prims(world: BoxWorld) -> torch.Tensor:
 
 
 def render_depth_auto(world: BoxWorld, pos: torch.Tensor, quat: torch.Tensor,
-                      cam: CameraParams) -> torch.Tensor:
-    """(B, H, W) z-depth: the CUDA kernel (B4) for CUDA tensors, the plain
-    :func:`render_depth` for CPU tensors."""
+                      cam: CameraParams, row_stride: int = 1) -> torch.Tensor:
+    """(B, h, W) or (B, F, h, W) z-depth (see :func:`render_depth`): the
+    CUDA kernel (B4) for CUDA tensors, the plain :func:`render_depth` for
+    CPU tensors."""
     if not pos.is_cuda:
-        return render_depth(world, pos, quat, cam)
-    depth = torch.empty((pos.shape[0], cam.height, cam.width),
+        return render_depth(world, pos, quat, cam, row_stride)
+    depth = torch.empty(pos.shape[:-1] + (out_rows(cam, row_stride),
+                                          cam.width),
                         dtype=torch.float32, device=pos.device)
     launch_render(pos.to(torch.float32).contiguous(),
                   quat.to(torch.float32).contiguous(), pack_prims(world),
-                  depth, cam)
+                  depth, cam, row_stride)
     return depth
 
 
-def launch_render(pos, quat, prims, depth, cam: CameraParams) -> None:
-    """Launch B4 on prepared tensors: pos (B, 3), quat (B, 4), prims
-    (B, K, 8) (:func:`pack_prims`); writes depth (B, H, W)."""
+def launch_render(pos, quat, prims, depth, cam: CameraParams,
+                  row_stride: int = 1) -> None:
+    """Launch B4 on prepared tensors: pos (B, 3) or (B, F, 3), quat (B, 4)
+    or (B, F, 4), prims (B, K, 8) (:func:`pack_prims`); writes depth
+    (B, h, W) or (B, F, h, W), h = :func:`out_rows`."""
     dev = pos.device
     B, K = prims.shape[:2]
-    for t, name, shape in ((pos, "pos", (B, 3)), (quat, "quat", (B, 4)),
+    lead = tuple(pos.shape[:-1])
+    if lead[0] != B or len(lead) > 2:
+        raise ValueError(f"pos: shape {tuple(pos.shape)}, expected ({B}, 3) "
+                         f"or ({B}, F, 3)")
+    n_frames = lead[1] if len(lead) == 2 else 1
+    rows = out_rows(cam, row_stride)
+    for t, name, shape in ((pos, "pos", lead + (3,)),
+                           (quat, "quat", lead + (4,)),
                            (prims, "prims", (B, K, 8)),
-                           (depth, "depth", (B, cam.height, cam.width))):
+                           (depth, "depth", lead + (rows, cam.width))):
         _cuda.require(t, name, shape, torch.float32, dev)
-    if B == 0:
+    if B * n_frames == 0:
         return
     lib = _cuda.load()
     params = _cuda.host_floats([cam.fx, cam.fy, cam.min_range,
-                                cam.max_range])
+                                cam.max_range, cam.height])
     err = lib.neo_render_depth(
         _cuda.ptr(pos), _cuda.ptr(quat), _cuda.ptr(prims), _cuda.ptr(depth),
-        B, K, cam.width, cam.height, params, _cuda.stream_ptr(dev))
+        B * n_frames, n_frames, K, cam.width, rows, row_stride, params,
+        _cuda.stream_ptr(dev))
     _cuda.check(err, "render_depth")
     _cuda.launches["render_depth"] += 1

@@ -7,14 +7,14 @@ NEO planner (``_replan`` :219-293), random missions and periodic replanning
 - the flagship (bench.py:101-142): ground-truth sensing and the analytic
   scene SDF for every distance query (``sensing='gt', plan_map='scene'``,
   the scene-lite state of reset :147-156: no per-env grids);
-- the vision loop (examples/profile_vision.py:33-71 with one fused frame
-  per segment): ``sensing='depth', plan_map='grid'``, the onboard mode in
-  which each drone builds its map from its own depth frames (reset
-  :157-166, ``fuse_frame`` :363, ``rebuild_esdf`` :408, ``sense_and_map``
-  :440, the depth branch of step_segment :509-515).
+- the vision loop (examples/profile_vision.py:33-71):
+  ``sensing='depth', plan_map='grid'``, the onboard mode in which each
+  drone builds its map from its own depth frames (reset :157-166,
+  ``fuse_frame`` :363, ``rebuild_esdf`` :408, ``sense_and_map`` :440, the
+  depth branch of step_segment :509-515), with ``fuse_frames`` frames fused
+  per segment (the sensor-rate loop, step_segment :567-633).
 
-The other planners, mission modes, multi-frame fusion and ``esdf_rate`` are
-not ported.
+The other planners and mission modes are not ported.
 
 B envs advance together. Each segment: render the depth frame (kernel B4);
 in the vision loop fuse it into the log-odds grid (kernel B8 v2) and
@@ -22,7 +22,12 @@ rebuild the truncated ESDF (kernel B9); pick the local target, run the
 PlannerNet on the same frame, refine with the lazy L-BFGS bank (kernel B1 on
 the scene, B6 on per-env ESDF windows; acceptance and coefficients through
 kernel B5), sample the new setpoints, then track them for steps_per_replan
-substeps (kernel B3 on the scene, B10 with the grid metric).
+substeps (kernel B3 on the scene, B10 with the grid metric). With
+``fuse_frames`` F > 1 the tracking runs in F chunks and F - 1 more frames,
+rendered at ``mapp.fusion_row_stride`` from the poses after the first F - 1
+chunks, are fused: all in one B4 launch and one B8 v3 launch after the last
+chunk when the ESDF rebuilds once per segment (``esdf_rate`` 1), else frame
+by frame after each chunk (B4, B8 v2 and every F // esdf_rate chunks B9).
 
 Random draws come from the state's ``torch.Generator``, one :class:`Draws`
 per segment; a caller may pass its own draws instead (the parity tests pass
@@ -189,13 +194,35 @@ def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
 
 
 def fuse_frame(state: EnvState, cam: CameraParams,
-               depth: torch.Tensor) -> EnvState:
-    """Fuse a full-resolution depth frame (B, h, w), taken from the current
-    pose, into the log-odds grids (the '2d_dense' fusion, kernel B8 v2) —
-    no ESDF rebuild."""
+               depth: Optional[torch.Tensor] = None,
+               depth_stride: int = 1) -> EnvState:
+    """Fuse a depth frame (B, h, w) taken from the current pose, rendered at
+    depth_stride, into the log-odds grids (the '2d_dense' fusion, kernel
+    B8 v2) — no ESDF rebuild. Without a frame, render one at
+    mapp.fusion_row_stride first (kernel B4)."""
+    if depth is None:
+        depth_stride = state.mapp.fusion_row_stride
+        depth = raycast.render_depth_auto(state.world, state.drone.pos,
+                                          state.drone.quat, cam,
+                                          row_stride=depth_stride)
     logodds = fusion.insert_depth_2d_dense(state.logodds, depth,
                                            state.drone.pos, state.drone.quat,
-                                           cam, state.mapp)
+                                           cam, state.mapp,
+                                           row_stride=depth_stride)
+    return state.replace(logodds=logodds)
+
+
+def fuse_frames_multi(state: EnvState, cam: CameraParams, pos: torch.Tensor,
+                      quat: torch.Tensor) -> EnvState:
+    """Render F frames per env at mapp.fusion_row_stride from the poses pos
+    (B, F, 3), quat (B, F, 4) in one launch (kernel B4) and fuse them in
+    order into the log-odds grids in one pass (kernel B8 v3)."""
+    rs = state.mapp.fusion_row_stride
+    depths = raycast.render_depth_auto(state.world, pos, quat, cam,
+                                       row_stride=rs)
+    logodds = fusion.insert_depth_2d_dense_multi(state.logodds, depths, pos,
+                                                 quat, cam, state.mapp,
+                                                 row_stride=rs)
     return state.replace(logodds=logodds)
 
 
@@ -236,19 +263,51 @@ def _replan(state: EnvState, pp, mp, net, depth: torch.Tensor, pmap,
     return traj, new_cmd, near, ahead[:, :2]
 
 
+def _chunks(vision: bool, spr: int, fuse_frames: int,
+            goal_stream: Optional[torch.Tensor], esdf_rate: int) -> int:
+    """Tracking chunks of a segment, with the reference's checks
+    (step_segment :574-585)."""
+    n_chunks = fuse_frames if vision else 1
+    if goal_stream is not None:
+        c = goal_stream.shape[1]
+        if n_chunks > 1 and c != n_chunks:
+            raise ValueError(f"goal_stream length {c} must equal "
+                             f"fuse_frames={n_chunks}")
+        n_chunks = max(n_chunks, c)
+    if esdf_rate > 1 and n_chunks <= 1:
+        raise ValueError("esdf_rate > 1 requires fuse_frames chunking "
+                         "(sensing='depth', fuse_frames > 1)")
+    if n_chunks > 1 and spr % n_chunks != 0:
+        raise ValueError(f"{n_chunks} chunks must divide "
+                         f"steps_per_replan={spr}")
+    return n_chunks
+
+
 def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
                  sp: SimParams, cam: CameraParams, net,
-                 draws: Optional[Draws] = None, timer=None):
+                 draws: Optional[Draws] = None, timer=None,
+                 fuse_frames: int = 1,
+                 goal_stream: Optional[torch.Tensor] = None,
+                 esdf_rate: int = 1):
     """One replan period for every env: sense (on the vision path, which
     reset chose with sensing='depth': the frame is rendered once at full
     resolution, fused into the map, and shared with the net), (maybe)
     replan, then track steps_per_replan setpoints; finished missions count
     and draw a new goal. Returns (state, SegmentInfo).
-    ``timer`` (a utils.profiling.StageTimer) records the render, fuse, esdf,
-    net, plan and track stages."""
+
+    fuse_frames F > 1 (vision path) tracks the segment in F chunks and
+    fuses F - 1 more frames from the poses after the first F - 1 chunks,
+    rendered at mapp.fusion_row_stride: after the last chunk, all at once,
+    when esdf_rate is 1; else each after its chunk, with an ESDF rebuild
+    every F // esdf_rate chunks. goal_stream (B, C, 2) replaces each env's
+    goal at the start of each of C tracking chunks (C = F when both are
+    given). ``timer`` (a utils.profiling.StageTimer) records the render,
+    fuse, esdf, net, plan and track stages, and fuse_multi for the batched
+    frames."""
     vision = state.emap is not None
     spr = mp.steps_per_replan
     B, nbuf = state.buffer.shape[:2]
+    n_chunks = _chunks(vision, spr, fuse_frames, goal_stream, esdf_rate)
     if draws is None:
         draws = draw(state.generator, B, pp)
 
@@ -286,9 +345,41 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
         has_carry=state.has_carry | plan_ok)
 
     tracker = track.track_segment_grid if vision else track.track_segment
-    with stage(timer, "track"):
-        drone, reached, steps, metrics, metric_pos, trace = tracker(
-            state, track_cmds, pp, mp, sp)
+    # Mid-segment frames have no consumer before the segment ends when the
+    # ESDF rebuilds once per segment: the tracking follows the command
+    # buffer. So the frames' poses are collected and every frame is fused in
+    # one pass after the last chunk (the reference's batch_fuse, :596-601).
+    fusing = vision and fuse_frames > 1
+    batch_fuse = fusing and esdf_rate == 1
+    chunk = spr // n_chunks
+    traces, fuse_pos, fuse_quat = [], [], []
+    for c in range(n_chunks):
+        if goal_stream is not None:
+            state = state.replace(goal=goal_stream[:, c])
+        with stage(timer, "track"):
+            drone, reached, steps, metrics, metric_pos, trace = tracker(
+                state, track_cmds[:, c * chunk:(c + 1) * chunk], pp, mp, sp,
+                i0=c * chunk)
+        state = state.replace(drone=drone, reached=reached, steps=steps,
+                              metrics=metrics, metric_pos=metric_pos)
+        traces.append(trace)
+        if fusing and c < fuse_frames - 1:
+            if batch_fuse:
+                fuse_pos.append(drone.pos)
+                fuse_quat.append(drone.quat)
+                continue
+            with stage(timer, "fuse"):
+                state = fuse_frame(state, cam)
+            if esdf_rate > 1 and (c + 1) % max(fuse_frames // esdf_rate,
+                                               1) == 0:
+                with stage(timer, "esdf"):
+                    state = rebuild_esdf(state)
+    if fuse_pos:
+        with stage(timer, "fuse_multi"):
+            state = fuse_frames_multi(state, cam,
+                                      torch.stack(fuse_pos, 1).contiguous(),
+                                      torch.stack(fuse_quat, 1).contiguous())
+    trace = torch.cat(traces, 1)
     info = SegmentInfo(planned=do_replan, ok=plan_ok, int_wpts=traj.int_wpts,
                        ts=traj.ts, iters=traj.iters, trace=trace)
 
@@ -318,8 +409,10 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
 
 def rollout(state: EnvState, num_segments: int, pp: PlannerParams,
             mp: MissionParams, sp: SimParams, cam: CameraParams,
-            net) -> EnvState:
-    """num_segments replan periods."""
+            net, fuse_frames: int = 1) -> EnvState:
+    """num_segments replan periods, each fusing fuse_frames frames on the
+    vision path."""
     for _ in range(num_segments):
-        state, _ = step_segment(state, pp, mp, sp, cam, net)
+        state, _ = step_segment(state, pp, mp, sp, cam, net,
+                                fuse_frames=fuse_frames)
     return state

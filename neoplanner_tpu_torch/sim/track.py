@@ -4,7 +4,9 @@ versions.
 :func:`track_segment` runs the segment's substeps (the cascaded controller
 and dynamics, the goal latch, the freeze outside the mission phase, the
 10 Hz weighted metric on the scene SDF and the per-substep trace) for every
-env. For CUDA tensors it launches ``csrc/track.cu`` (one thread per env,
+env. ``i0`` is the segment's first substep: the metric ticks where
+(t + i0) % 6 == 0, so a segment tracked in chunks (the sensor-rate loop)
+keeps the cadence of one unchunked segment. For CUDA tensors it launches ``csrc/track.cu`` (one thread per env,
 looping over the substeps); for CPU tensors it runs :func:`_track_plain`,
 the substep loop of neoplanner_tpu/sim/env.py ``_track_segment`` (:295).
 :func:`track_segment_grid` is the same loop for the sensed-grid metric: the
@@ -40,27 +42,28 @@ _SMEM_LIMIT = 48 * 1024
 
 
 def track_segment(state, cmds: torch.Tensor, pp: PlannerParams,
-                  mp: MissionParams, sp: SimParams):
+                  mp: MissionParams, sp: SimParams, i0: int = 0):
     """Track cmds (B, spr, 3, 2) [pos; vel; acc] setpoints from ``state`` (an
-    env.EnvState). Returns (drone, reached (B,), steps (B,) int32,
-    metrics (B, 3), metric_pos (B, 2), trace (B, spr, 5, 3))."""
+    env.EnvState), the first being substep i0 of the segment. Returns
+    (drone, reached (B,), steps (B,) int32, metrics (B, 3), metric_pos
+    (B, 2), trace (B, spr, 5, 3))."""
     if not cmds.is_cuda:
-        return _track_plain(state, cmds, pp, mp, sp)
-    return _track_cuda(state, cmds, pp, mp, sp)
+        return _track_plain(state, cmds, pp, mp, sp, i0)
+    return _track_cuda(state, cmds, pp, mp, sp, i0)
 
 
-def _track_plain(state, cmds, pp, mp, sp):
+def _track_plain(state, cmds, pp, mp, sp, i0=0):
     """B3's plain version."""
-    return _substeps(state, cmds, pp, mp, sp, True)[:6]
+    return _substeps(state, cmds, pp, mp, sp, True, i0)[:6]
 
 
-def _track_grid_plain(state, cmds, pp, mp, sp):
+def _track_grid_plain(state, cmds, pp, mp, sp, i0=0):
     """B10's plain version: the metric without the collision term, and the
     tick mask (B, spr) as a seventh output."""
-    return _substeps(state, cmds, pp, mp, sp, False)
+    return _substeps(state, cmds, pp, mp, sp, False, i0)
 
 
-def _substeps(state, cmds, pp, mp, sp, with_dis: bool):
+def _substeps(state, cmds, pp, mp, sp, with_dis: bool, i0: int):
     B, spr = cmds.shape[:2]
     active = state.phase == missions.PHASE_MISSION
     moving = active | (state.phase == missions.PHASE_TAKEOFF)
@@ -89,7 +92,7 @@ def _substeps(state, cmds, pp, mp, sp, with_dis: bool):
         pos2 = drone.pos[:, :2]
         reached = reached | (active & (torch.linalg.vector_norm(
             pos2 - state.goal, dim=-1) < mp.target_reach_threshold))
-        tick = (i % METRIC_EVERY == 0) & active & ~reached
+        tick = ((i + i0) % METRIC_EVERY == 0) & active & ~reached
         d_dist = torch.linalg.vector_norm(pos2 - metric_pos, dim=-1)
         violate_vel = (drone.vel[:, :2] ** 2).sum(-1) - pp.v_max ** 2
         if with_dis:
@@ -126,23 +129,25 @@ def pack_state(state) -> torch.Tensor:
         dim=-1).to(f32).contiguous()
 
 
-def _track_cuda(state, cmds, pp, mp, sp):
+def _track_cuda(state, cmds, pp, mp, sp, i0):
     dev = cmds.device
     B, spr = cmds.shape[:2]
     out = torch.empty((B, 18), dtype=torch.float32, device=dev)
     trace = torch.empty((B, spr, 5, 3), dtype=torch.float32, device=dev)
     launch_tracker(cmds.to(torch.float32).contiguous(), pack_state(state),
-                   scene_map.pack_prims(state.scene), out, trace, pp, mp, sp)
+                   scene_map.pack_prims(state.scene), out, trace, pp, mp, sp,
+                   i0)
     drone = DroneState(pos=out[:, 0:3], vel=out[:, 3:6], quat=out[:, 7:11],
                        yaw=out[:, 6])
     return (drone, out[:, 16] > 0.5, out[:, 17].to(torch.int32),
             out[:, 13:16], out[:, 11:13], trace)
 
 
-def launch_tracker(cmds, st, prims, out, trace, pp, mp, sp) -> None:
+def launch_tracker(cmds, st, prims, out, trace, pp, mp, sp, i0=0) -> None:
     """Launch B3 on prepared tensors: cmds (B, spr, 3, 2), st (B, 22)
-    (:func:`pack_state`), prims (B, K, 6); writes out (B, 18) [pos3 vel3
-    yaw quat4 metric_pos2 metrics3 reached steps] and trace (B, spr, 5, 3)."""
+    (:func:`pack_state`), prims (B, K, 6), the first substep i0; writes out
+    (B, 18) [pos3 vel3 yaw quat4 metric_pos2 metrics3 reached steps] and
+    trace (B, spr, 5, 3)."""
     dev = cmds.device
     B, spr = cmds.shape[:2]
     n_prims = prims.shape[1]
@@ -160,24 +165,26 @@ def launch_tracker(cmds, st, prims, out, trace, pp, mp, sp) -> None:
     lib = _cuda.load()
     err = lib.neo_track_segment(
         _cuda.ptr(cmds), _cuda.ptr(st), _cuda.ptr(prims), _cuda.ptr(out),
-        _cuda.ptr(trace), B, n_prims, spr, _params(pp, mp, sp),
+        _cuda.ptr(trace), B, n_prims, spr, i0, _params(pp, mp, sp),
         _cuda.stream_ptr(dev))
     _cuda.check(err, "track_segment")
     _cuda.launches["track_segment"] += 1
 
 
 def track_segment_grid(state, cmds: torch.Tensor, pp: PlannerParams,
-                       mp: MissionParams, sp: SimParams):
+                       mp: MissionParams, sp: SimParams, i0: int = 0):
     """track_segment with the collision metric on each env's sensed grid
-    (state.emap, nearest cell). Same outputs as :func:`track_segment`."""
+    (state.emap, nearest cell). Same arguments and outputs as
+    :func:`track_segment`."""
     if not cmds.is_cuda:
         drone, reached, steps, metrics, metric_pos, trace, ticks = \
-            _track_grid_plain(state, cmds, pp, mp, sp)
+            _track_grid_plain(state, cmds, pp, mp, sp, i0)
     else:
         drone, reached, steps, metrics, metric_pos, trace, ticks = \
-            _track_grid_cuda(state, cmds, pp, mp, sp)
+            _track_grid_cuda(state, cmds, pp, mp, sp, i0)
     # the collision term at the statically known tick substeps
-    t_ticks = list(range(0, cmds.shape[1], METRIC_EVERY))
+    t_ticks = [t for t in range(cmds.shape[1])
+               if (t + i0) % METRIC_EVERY == 0]
     pos = trace[:, t_ticks, 0, :2]                            # (B, T, 2)
     dis = esdf_map.sample_nearest(state.emap, pos)
     dviol = torch.clamp(pp.safe_dis - torch.clamp(dis, min=0.0), min=0.0)
@@ -187,14 +194,14 @@ def track_segment_grid(state, cmds: torch.Tensor, pp: PlannerParams,
     return drone, reached, steps, metrics, metric_pos, trace
 
 
-def _track_grid_cuda(state, cmds, pp, mp, sp):
+def _track_grid_cuda(state, cmds, pp, mp, sp, i0):
     dev = cmds.device
     B, spr = cmds.shape[:2]
     out = torch.empty((B, 18), dtype=torch.float32, device=dev)
     trace = torch.empty((B, spr, 5, 3), dtype=torch.float32, device=dev)
     ticks = torch.empty((B, spr), dtype=torch.float32, device=dev)
     launch_tracker_grid(cmds.to(torch.float32).contiguous(),
-                        pack_state(state), out, trace, ticks, pp, mp, sp)
+                        pack_state(state), out, trace, ticks, pp, mp, sp, i0)
     drone = DroneState(pos=out[:, 0:3], vel=out[:, 3:6], quat=out[:, 7:11],
                        yaw=out[:, 6])
     return (drone, out[:, 16] > 0.5, out[:, 17].to(torch.int32),
@@ -208,10 +215,11 @@ def _params(pp, mp, sp):
         mp.target_reach_threshold])
 
 
-def launch_tracker_grid(cmds, st, out, trace, ticks, pp, mp, sp) -> None:
+def launch_tracker_grid(cmds, st, out, trace, ticks, pp, mp, sp,
+                        i0=0) -> None:
     """Launch B10 on prepared tensors: cmds (B, spr, 3, 2), st (B, 22)
-    (:func:`pack_state`); writes out (B, 18) (as :func:`launch_tracker`),
-    trace (B, spr, 5, 3) and ticks (B, spr)."""
+    (:func:`pack_state`), the first substep i0; writes out (B, 18) (as
+    :func:`launch_tracker`), trace (B, spr, 5, 3) and ticks (B, spr)."""
     dev = cmds.device
     B, spr = cmds.shape[:2]
     for t, name, shape in ((cmds, "cmds", (B, spr, 3, 2)),
@@ -224,6 +232,7 @@ def launch_tracker_grid(cmds, st, out, trace, ticks, pp, mp, sp) -> None:
     lib = _cuda.load()
     err = lib.neo_track_segment_grid(
         _cuda.ptr(cmds), _cuda.ptr(st), _cuda.ptr(out), _cuda.ptr(trace),
-        _cuda.ptr(ticks), B, spr, _params(pp, mp, sp), _cuda.stream_ptr(dev))
+        _cuda.ptr(ticks), B, spr, i0, _params(pp, mp, sp),
+        _cuda.stream_ptr(dev))
     _cuda.check(err, "track_segment_grid")
     _cuda.launches["track_segment_grid"] += 1

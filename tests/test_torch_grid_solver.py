@@ -150,6 +150,35 @@ def test_full_map_samplers_match(maps):
                                            jnp.asarray(pts[e]), 0.7)))
 
 
+def test_mxu_sampling_matches_reference(maps):
+    """esdf_interp='mxu': the reference's one-hot bf16 matrix-product
+    bilinear sampling; the port's indexed-load bilinear taps agree within
+    the tolerance of tests/test_esdf.py::test_mxu_sampling_matches_bilinear
+    (values 2e-2 m, autodiff gradients 0.3), FAR outside the map on
+    both."""
+    jmaps, tmap = maps
+    rng = np.random.default_rng(4)
+    pts = rng.uniform([-4.5, -10.0], [22.0, 10.0], (E, 300, 2)).astype(
+        np.float32)
+    p = _t(pts).requires_grad_(True)
+    got = esdf.sample(tmap, p, mode="mxu")
+    (g,) = torch.autograd.grad(torch.where(got < esdf.FAR, got, 0.0).sum(),
+                               p)
+    for e in range(E):
+        em = _env(jmaps, e)
+
+        def total(q, em=em):
+            d, _ = jesdf.sample(em, q, mode="mxu")
+            return jnp.where(d < jesdf.FAR, d, 0.0).sum()
+
+        jd, _ = jesdf.sample(em, jnp.asarray(pts[e]), mode="mxu")
+        jg = jax.grad(total)(jnp.asarray(pts[e]))
+        np.testing.assert_allclose(got[e].detach().numpy(), np.asarray(jd),
+                                   atol=2e-2)
+        np.testing.assert_allclose(g[e].numpy(), np.asarray(jg), atol=0.3)
+    assert bool((got == esdf.FAR).any()) and bool((got < 2.0).any())
+
+
 def _full_window(tmap, head, tail, pp):
     """The solver's windows; at kernel_window_cells=256 each is the map."""
     return expert.make_plan_window(tmap, _t(head[:E]), _t(tail[:E]), pp)

@@ -171,6 +171,22 @@ def test_render_kernel_matches_plain(cuda_device):
     assert float((diff > 1e-4).float().mean()) <= 1e-3
 
 
+def test_render_kernel_strided_poses_match_plain(cuda_device):
+    """Row stride 4 and three poses per env in one launch, each pose
+    against its own env's scene: the same pixel rule as above."""
+    worlds = _worlds(16)
+    pos, quat = _poses(48, seed=4)
+    pos, quat = pos.reshape(16, 3, 3), quat.reshape(16, 3, 4)
+    cam = CameraParams()
+    want = raycast.render_depth(worlds, pos, quat, cam, row_stride=4)
+    got = raycast.render_depth_auto(_to(worlds, cuda_device),
+                                    pos.to(cuda_device), quat.to(cuda_device),
+                                    cam, row_stride=4)
+    assert got.shape == want.shape == (16, 3, 30, cam.width)
+    diff = (got.cpu() - want).abs()
+    assert float((diff > 1e-4).float().mean()) <= 1e-3
+
+
 # ---- B3 and B10: tracking
 
 
@@ -206,6 +222,24 @@ def test_track_grid_kernel_matches_plain(cuda_device):
     got = track.track_segment_grid(_to(st, cuda_device), cmds.to(cuda_device),
                                    pp, mp, sp)
     _assert_track_match(want, got)
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_track_kernels_from_substep_30_match_plain(cuda_device, grid):
+    """B3 and B10 on the second half of a segment (i0 = 30), as the
+    sensor-rate loop's chunks call them: the tolerances above."""
+    pp, mp, sp = PlannerParams(), MissionParams(), SimParams()
+    kw = dict(sensing="depth", plan_map="grid") if grid else {}
+    mapp = MapParams(**MAPP, edt_truncation=2.0, fusion="2d_dense")
+    st = env.reset(_worlds(4, seed=8), pp, mp, mapp,
+                   _cuda.make_generator(1, "cpu"),
+                   goal=torch.tensor([[0.3, 0.0]]).expand(4, 2), **kw)
+    cmds = _cmds(4)[:, :30]
+    fn = track.track_segment_grid if grid else track.track_segment
+    want = fn(st, cmds, pp, mp, sp, i0=30)
+    got = fn(_to(st, cuda_device), cmds.to(cuda_device), pp, mp, sp, i0=30)
+    _assert_track_match(want, got)
+    assert bool(want[1].any()) and float(want[3][:, 0].min()) > 0.0
 
 
 # ---- B1 (+B2): L-BFGS on the scene SDF
@@ -263,6 +297,41 @@ def test_fusion_kernel_matches_plain(cuda_device):
         lo_g = fusion.insert_depth_2d_dense(
             lo_g, depth.to(cuda_device), pos.to(cuda_device),
             quat.to(cuda_device), cam, mp)
+    diff = (lo_g.cpu() - lo).abs()
+    off = diff > 0
+    assert int(off.sum()) <= 1e-4 * int((lo != 0).sum())
+    if off.any():
+        step = (diff[off][:, None] - quanta[None]).abs().amin(1)
+        assert float(step.max()) <= 1e-5
+
+
+# ---- B8 v3: multi-frame dense depth fusion
+
+
+def test_multi_fusion_kernel_matches_plain(cuda_device):
+    """Three segments of three frames each, rendered at row stride 4 and
+    fused with one call per segment, so the clamp bounds engage: the rule
+    of the v2 test above (the same carve arithmetic; hit counts exact)."""
+    cam = CameraParams()
+    mp = MapParams(width=128, height=192, origin_x=-2.0, origin_y=-9.6,
+                   fusion="2d_dense")
+    worlds = _worlds(2)
+    worlds = worlds.replace(centers=worlds.centers - torch.tensor(
+        [3.0, 0.0, 0.0]))
+    lo = occupancy.logodds_init(mp, 2)
+    lo_g = lo.to(cuda_device)
+    quanta = torch.tensor([occupancy._l(mp.prob_miss),
+                           occupancy._l(mp.prob_hit)]).abs()
+    for seed in (4, 5, 6):
+        pos, quat = _poses(6, seed, x=(0.0, 1.5))
+        pos, quat = pos.reshape(2, 3, 3), quat.reshape(2, 3, 4)
+        depth = raycast.render_depth(worlds, pos, quat, cam, row_stride=4)
+        lo = fusion.insert_depth_2d_dense_multi(lo, depth, pos, quat, cam, mp,
+                                                row_stride=4)
+        lo_g = fusion.insert_depth_2d_dense_multi(
+            lo_g, depth.to(cuda_device), pos.to(cuda_device),
+            quat.to(cuda_device), cam, mp, row_stride=4)
+    assert int((lo == occupancy._l(mp.clamp_min)).sum()) > 0
     diff = (lo_g.cpu() - lo).abs()
     off = diff > 0
     assert int(off.sum()) <= 1e-4 * int((lo != 0).sum())

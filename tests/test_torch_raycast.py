@@ -3,7 +3,9 @@
 The JAX renderer runs on the CPU in its XLA form (render_depth), which
 tests/test_sense.py holds against the Pallas kernel. Same f32 formulas on
 both sides: depths agree to 1e-4 m, except where a ray grazes a primitive's
-edge and roundoff flips hit against miss — at most 0.1% of the pixels.
+edge and roundoff flips hit against miss — at most 0.1% of the pixels;
+ray directions to 1e-6, at row strides 1 and 4. Several poses per env in
+one call give each pose's own single-pose frame exactly.
 """
 
 import numpy as np
@@ -59,6 +61,44 @@ def test_ray_dirs_match():
         raycast.ray_dirs_camera(CameraParams()).numpy(),
         np.asarray(jraycast.ray_dirs_camera(JCameraParams())),
         rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("row_stride", [1, 4])
+def test_strided_ray_dirs_match(row_stride):
+    got = raycast.ray_dirs_camera(CameraParams(), row_stride)
+    want = np.asarray(jraycast.ray_dirs_camera(JCameraParams(), row_stride))
+    assert got.shape == want.shape
+    assert got.shape[0] == raycast.out_rows(CameraParams(), row_stride)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_render_depth_strided_matches():
+    """A row stride of 4 (the sensor-rate fusion frames: 30 x 160)."""
+    jw, tw, pos, quat, _, _ = _setup(3, 5)
+    cam, jcam = CameraParams(), JCameraParams()
+    got = raycast.render_depth_auto(tw, _t(pos), _t(quat), cam, row_stride=4)
+    want = jax.vmap(lambda w, p, q: jraycast.render_depth(
+        w, p, q, jcam, row_stride=4))(jw, jnp.asarray(pos), jnp.asarray(quat))
+    assert got.shape == want.shape == (3, 30, cam.width)
+    _assert_depth_close(got.numpy(), np.asarray(want))
+    assert float((got < cam.max_range).float().mean()) > 0.05
+
+
+def test_render_several_poses_per_env():
+    """pos (B, F, 3): pose f of env b against env b's scene, as F
+    single-pose calls."""
+    _, tw, pos, quat, _, _ = _setup(2, 6)
+    rng = np.random.default_rng(6)
+    pos_f = _t(pos[:, None] + rng.uniform(-0.5, 0.5, (2, 3, 3)).astype(
+        np.float32))
+    quat_f = _t(quat)[:, None].expand(2, 3, 4).contiguous()
+    cam = CameraParams()
+    got = raycast.render_depth_auto(tw, pos_f, quat_f, cam, row_stride=4)
+    assert got.shape == (2, 3, 30, cam.width)
+    for f in range(3):
+        want = raycast.render_depth(tw, pos_f[:, f], quat_f[:, f], cam,
+                                    row_stride=4)
+        np.testing.assert_array_equal(got[:, f].numpy(), want.numpy())
 
 
 def test_quaternion_helpers_match():

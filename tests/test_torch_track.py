@@ -5,12 +5,15 @@ holds against the Pallas tracker.
 Both sides run the same per-substep f32 arithmetic (controller, drag,
 semi-implicit integration, flatness attitude, 10 Hz metric), so states,
 metrics and trace agree to 1e-5 (metrics 1e-4 relative, sums of cubes), and
-the reached flags and step counts exactly.
+the reached flags and step counts exactly. A segment started at substep
+i0 (the chunks of the sensor-rate loop) is held the same way, and six
+chunks of 10 substeps give exactly the unchunked segment.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from neoplanner_tpu.config import MapParams as JMapParams
@@ -80,13 +83,13 @@ def _cmds(n, spr=60):
     return np.stack(out).astype(np.float32)               # (n, spr, 3, 2)
 
 
-def _run_both(js, cmds):
+def _run_both(js, cmds, i0=0):
     want = jax.vmap(lambda s, c: jenv._track_segment(
         s, c, JPlannerParams(), JMissionParams(), JSimParams(),
-        "scene"))(js, jnp.asarray(cmds))
+        "scene", i0=i0))(js, jnp.asarray(cmds))
     st = to_port_state(js, PlannerParams(), MapParams(**MAPP))
     got = track.track_segment(st, _t(cmds), PlannerParams(), MissionParams(),
-                              SimParams())
+                              SimParams(), i0=i0)
     return want, got
 
 
@@ -118,6 +121,39 @@ def test_metric_offset_and_reached_freeze():
     want, got = _run_both(js, _cmds(4))
     _assert_match(want, got)
     assert bool(np.asarray(want[1]).any()), "test should exercise reach"
+
+
+@pytest.mark.parametrize("i0", [30, 3])
+def test_segment_from_substep_i0_matches(i0):
+    """Tracking from substep i0: the metric ticks where (t + i0) % 6 == 0
+    (off the chunk's first substep when i0 = 3), on both sides."""
+    want, got = _run_both(_states(goal=(0.3, 0.0)), _cmds(4)[:, :30], i0)
+    _assert_match(want, got)
+    assert bool(np.asarray(want[1]).any()), "test should exercise reach"
+    assert float(np.asarray(want[3])[:, 0].min()) > 0.0
+
+
+def test_six_chunks_equal_one_segment():
+    """Six chunks of 10 substeps, each from its offset and the previous
+    chunk's state, end exactly where one 60-substep segment ends."""
+    js = _states()
+    cmds = _cmds(4)
+    st = to_port_state(js, PlannerParams(), MapParams(**MAPP))
+    args = (PlannerParams(), MissionParams(), SimParams())
+    whole = track.track_segment(st, _t(cmds), *args)
+    traces = []
+    for c in range(6):
+        drone, reached, steps, metrics, metric_pos, trace = \
+            track.track_segment(st, _t(cmds[:, 10 * c:10 * c + 10]), *args,
+                                i0=10 * c)
+        st = st.replace(drone=drone, reached=reached, steps=steps,
+                        metrics=metrics, metric_pos=metric_pos)
+        traces.append(trace)
+    for g, w in ((st.drone.pos, whole[0].pos), (st.drone.quat, whole[0].quat),
+                 (st.metrics, whole[3]), (st.metric_pos, whole[4]),
+                 (st.steps, whole[2]), (torch.cat(traces, 1), whole[5])):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert float(whole[3][:, 0].min()) > 0.0
 
 
 def test_non_mission_phase_holds():

@@ -136,20 +136,23 @@ def _reset_jax(jpp, jmp, jmapp):
         k, w, g, jpp, jmp, jmapp, **VISION))(keys, worlds, jnp.asarray(goals))
 
 
-def _run_loop(max_iters):
-    """SEGMENTS segments of the JAX vision loop and of the port."""
+def _run_loop(max_iters, mapp_kw=MAPP, segments=SEGMENTS, goal_streams=None,
+              **seg_kw):
+    """segments segments of the JAX vision loop and of the port, both
+    given seg_kw (fuse_frames, esdf_rate) and, per segment, the goal
+    stream goal_streams[s] (B, C, 2) when given."""
     jpp = JPlannerParams(**dict(PP, max_iters=max_iters))
     pp = PlannerParams(**dict(PP, max_iters=max_iters),
                        kernel_window_cells=256)
-    jmp, jsp, jmapp = JMissionParams(), JSimParams(), JMapParams(**MAPP)
-    mapp = MapParams(**MAPP)
+    jmp, jsp, jmapp = JMissionParams(), JSimParams(), JMapParams(**mapp_kw)
+    mapp = MapParams(**mapp_kw)
     sd = weights.from_onnx(ONNX)
     js = _reset_jax(jpp, jmp, jmapp)
-    step = jax.jit(jax.vmap(partial(
-        jenv.step_segment, pp=jpp, mp=jmp, sp=jsp, mission_mode="random",
-        mapp=jmapp, cam=JCameraParams(**CAM), planner="neo",
-        net_vars=_flax_variables(sd), np_cfg=JNetParams(**NET),
-        fuse_frames=1, **VISION)))
+    seg = partial(jenv.step_segment, pp=jpp, mp=jmp, sp=jsp,
+                  mission_mode="random", mapp=jmapp, cam=JCameraParams(**CAM),
+                  planner="neo", net_vars=_flax_variables(sd),
+                  np_cfg=JNetParams(**NET), **seg_kw, **VISION)
+    step = jax.jit(jax.vmap(lambda s, g: seg(s, goal_stream=g)))
     net = planner_net.PlannerNet(NetParams(**NET))
     net.load_state_dict(sd)
     net.eval()
@@ -157,11 +160,15 @@ def _run_loop(max_iters):
     out = []
     with pytest.MonkeyPatch.context() as patch:
         patch.setattr(jexpert, "costs_mod", _nearest_acceptance())
-        for _ in range(SEGMENTS):
+        for s in range(segments):
             draws = _jax_draws(js.key, jpp)
-            js, jinfo = step(js)
-            st, info = env.step_segment(st, pp, MissionParams(), SimParams(),
-                                        CameraParams(**CAM), net, draws=draws)
+            g = None if goal_streams is None else goal_streams[s]
+            js, jinfo = step(js, None if g is None else jnp.asarray(g))
+            st, info = env.step_segment(
+                st, pp, MissionParams(), SimParams(), CameraParams(**CAM),
+                net, draws=draws,
+                goal_stream=None if g is None else torch.from_numpy(g),
+                **seg_kw)
             out.append((js, jinfo, st, info))
     return out
 
@@ -206,7 +213,10 @@ def test_segment_state_matches(runs, seg):
 def test_segment_one_iteration_matches(runs_one_iter, seg):
     """The one-iteration twin: exact flags, state within 1e-4, maps as the
     module docstring says."""
-    js, jinfo, st, info = runs_one_iter[seg]
+    check_twin(*runs_one_iter[seg], MapParams(**MAPP))
+
+
+def check_twin(js, jinfo, st, info, mp):
     _check_flags(js, jinfo, st, info)
     for f in ("pos", "vel", "quat"):
         np.testing.assert_allclose(getattr(st.drone, f).numpy(),
@@ -216,7 +226,6 @@ def test_segment_one_iteration_matches(runs_one_iter, seg):
                                atol=1e-4)
     np.testing.assert_allclose(st.metrics.numpy(), np.asarray(js.metrics),
                                rtol=1e-4, atol=1e-4)
-    mp = MapParams(**MAPP)
     got, want = st.logodds.numpy(), np.asarray(js.logodds)
     off = got != want
     quanta = np.abs(np.float32([occupancy._l(mp.prob_miss),
