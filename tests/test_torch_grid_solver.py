@@ -16,7 +16,9 @@ themselves are copies, exact); objective values 1e-5 relative and
 gradients 1e-4 of their scale (autograd on both sides, reassociated); one
 L-BFGS iteration 1e-4 (both take the same step from the same gradient);
 max_iters iterations the same cost basin, 5e-3 (roundoff moves where a
-solve stops), as test_torch_costs_solver.py.
+solve stops), as test_torch_costs_solver.py; esdf_interp="mxu" sampling
+against the reference's bf16 matrix-product form, 2e-2 m in value and 0.3
+in autodiff gradient (tests/test_esdf.py's rule for that form).
 """
 
 from functools import partial
