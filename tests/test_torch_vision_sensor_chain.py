@@ -1,15 +1,11 @@
-"""The sensor-rate vision loop's other branches against the JAX package,
-each as a one-iteration twin of 2 segments at B=8 with fuse_frames=3 and
-frames fused at row stride 4 (test_torch_vision_sensor_rate.py holds the
-batched branch):
-
-- esdf_rate=3: the per-frame chain. Each of the first two tracking chunks
-  ends with a frame rendered and fused on its own (kernel B8 v2's plain
-  version, the v2 TPU kernel in interpret mode on the JAX side) and an ESDF
-  rebuild, so the grid metric and the next chunk read a sensor-rate field.
-- a goal stream: each env's goal replaced at the start of every chunk (the
-  goal topic of the reference's tracker), with the batched fusion. The
-  stream brings half the envs' goals within reach in the last chunk.
+"""The sensor-rate vision loop's per-frame chain against the JAX package:
+esdf_rate=3, as a one-iteration twin of 2 segments at B=8 with
+fuse_frames=3 and frames fused at row stride 4. Each of the first two
+tracking chunks ends with a frame rendered and fused on its own (kernel B8
+v2's plain version, the v2 TPU kernel in interpret mode on the JAX side)
+and an ESDF rebuild, so the grid metric and the next chunk read a
+sensor-rate field. (test_torch_vision_sensor_rate.py holds the batched
+branch, test_torch_vision_goal_stream.py the goal stream.)
 
 Both sides get the JAX draws; the tolerances are the one-iteration twin's
 of test_torch_vision_env.py (exact flags and counts, state, buffer and
@@ -17,30 +13,14 @@ metrics within 1e-4, log-odds within one update quantum on at most 1e-3 of
 the updated cells, the ESDF equal where the occupancies agree).
 """
 
-import numpy as np
 import pytest
 
 from neoplanner_tpu_torch.config import MapParams
 from tests.test_torch_imports import one_torch_thread  # noqa: F401
-from tests.test_torch_vision_env import B, MAPP, _run_loop, check_twin
+from tests.test_torch_vision_env import MAPP, _run_loop, check_twin
 
 SEGMENTS = 2
 MAPP_SR = dict(MAPP, fusion_row_stride=4)
-
-
-def _goal_streams():
-    """(B, 3, 2) per segment: envs 0-3 keep flying to x = 20 on a swaying
-    line; envs 4-7 get goals that come toward the start, within reach in
-    the last chunk."""
-    out = []
-    for s in range(SEGMENTS):
-        c = np.arange(3)[None, :]
-        x = np.where(np.arange(B)[:, None] < 4, 20.0,
-                     np.array([[0.6, 0.4, 0.1]]))
-        y = np.broadcast_to(0.3 * c - 0.3 + 0.1 * s, (B, 3))
-        y = np.where(np.arange(B)[:, None] < 4, y, 0.05)
-        out.append(np.stack([x, y], -1).astype(np.float32))
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -48,26 +28,6 @@ def chain_runs():
     return _run_loop(1, MAPP_SR, SEGMENTS, fuse_frames=3, esdf_rate=3)
 
 
-@pytest.fixture(scope="module")
-def stream_runs():
-    return _run_loop(1, MAPP_SR, SEGMENTS, goal_streams=_goal_streams(),
-                     fuse_frames=3)
-
-
 @pytest.mark.parametrize("seg", range(SEGMENTS))
 def test_per_frame_chain_matches(chain_runs, seg):
     check_twin(*chain_runs[seg], MapParams(**MAPP_SR))
-
-
-@pytest.mark.parametrize("seg", range(SEGMENTS))
-def test_goal_stream_matches(stream_runs, seg):
-    check_twin(*stream_runs[seg], MapParams(**MAPP_SR))
-
-
-def test_goal_stream_moves_goals_and_ends_missions(stream_runs):
-    """Not a vacuous match: the envs still flying to x = 20 hold the last
-    chunk's streamed goal, and streamed goals within reach end missions."""
-    _, _, st, _ = stream_runs[-1]
-    last = _goal_streams()[-1][:, -1]
-    np.testing.assert_allclose(st.goal.numpy()[:4], last[:4], atol=1e-6)
-    assert int(st.missions_done[4:].sum()) >= 1
