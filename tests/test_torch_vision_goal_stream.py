@@ -8,15 +8,26 @@ chunk.
 Both sides get the JAX draws; the tolerances are the one-iteration twin's
 of test_torch_vision_env.py (exact flags and counts, state, buffer and
 metrics within 1e-4, log-odds within one update quantum on at most 1e-3 of
-the updated cells, the ESDF equal where the occupancies agree).
+the updated cells, the ESDF equal where the occupancies agree). The port's
+own rollout with fuse_frames and the chunking errors are checked on the
+CPU without the JAX package.
 """
 
 import numpy as np
 import pytest
+import torch
 
-from neoplanner_tpu_torch.config import MapParams
+from neoplanner_tpu_torch import _cuda
+from neoplanner_tpu_torch.config import (CameraParams, MapParams,
+                                         MissionParams, NetParams,
+                                         PlannerParams, SimParams,
+                                         WorldParams)
+from neoplanner_tpu_torch.models import planner_net
+from neoplanner_tpu_torch.sim import env
+from neoplanner_tpu_torch.world import scenegen
 from tests.test_torch_imports import one_torch_thread  # noqa: F401
-from tests.test_torch_vision_env import B, MAPP, _run_loop, check_twin
+from tests.test_torch_vision_env import (B, CAM, MAPP, NET, ONNX, VISION,
+                                         _run_loop, check_twin)
 
 SEGMENTS = 2
 MAPP_SR = dict(MAPP, fusion_row_stride=4)
@@ -55,3 +66,31 @@ def test_goal_stream_moves_goals_and_ends_missions(stream_runs):
     last = _goal_streams()[-1][:, -1]
     np.testing.assert_allclose(st.goal.numpy()[:4], last[:4], atol=1e-6)
     assert int(st.missions_done[4:].sum()) >= 1
+
+
+def test_rollout_and_chunking_errors_on_cpu():
+    """rollout(fuse_frames=...) on the port's own entry points, and the
+    reference's errors (sim/env.py step_segment :574-585) before any work:
+    a goal stream of another length than fuse_frames, esdf_rate without
+    chunks, chunks that do not divide the segment."""
+    pp = PlannerParams(max_iters=2, samples_per_piece=6, retry_num=2,
+                       extra_lateral_scales=(), max_ls=2)
+    mp, sp, cam = MissionParams(), SimParams(), CameraParams(**CAM)
+    gen = _cuda.make_generator(0, "cpu")
+    worlds = scenegen.generate_batch(gen, 2, WorldParams(num_boxes=10))
+    net = planner_net.load(ONNX, NetParams(**NET), "cpu")
+    st = env.reset(worlds, pp, mp, MapParams(**MAPP_SR), gen, **VISION)
+    one = env.rollout(st, 1, pp, mp, sp, cam, net)
+    three = env.rollout(st, 1, pp, mp, sp, cam, net, fuse_frames=3)
+    # the hovering drones' two more frames carve and hit the same cells
+    # again
+    assert int((three.logodds < one.logodds).sum()) > 1000
+    assert int((three.logodds > one.logodds).sum()) > 10
+    assert bool(torch.isfinite(three.drone.pos).all())
+    cases = ((dict(fuse_frames=3, goal_stream=torch.zeros(2, 2, 2)),
+              "goal_stream length 2 must equal fuse_frames=3"),
+             (dict(esdf_rate=2), "esdf_rate > 1 requires fuse_frames"),
+             (dict(fuse_frames=7), "7 chunks must divide"))
+    for kw, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            env.step_segment(st, pp, mp, sp, cam, net, **kw)
