@@ -44,10 +44,31 @@ Phases, one short line each:
    (fuse_frames=6, fusion_row_stride=4, esdf_interp="mxu"), goals at x = 20:
    one warm-up and 3 timed segments, per-stage times, launches per segment
    (render_depth 2, fuse_depth_dense 1, fuse_depth_multi 1, edt_trunc_lite
-   1, track_segment_grid 6).
+   1, track_segment_grid 6);
+12. the reference's default map (MapParams(): 448 x 256 cells, the '2d'
+   fusion, the exact ESDF), B = 512: B9 exact against its plain version on
+   the ground-truth grids of 512 worlds and on grids fused by the '2d'
+   fusion (differing cells printed, 0 expected);
+13. B9 banded on the same grids at edt_truncation = 2.0 (0 expected);
+14. B8 v1 on the default map with a 4 m camera (114-cell windows, every
+   8th drone by the map's corner) and on a 120 x 96 map with the 6 m
+   camera, three frames each (differing cells and their quanta printed);
+15. small loops on the default map (B = 16, 2 segments) on the card
+   against the CPU: gt+grid (sensing='gt', plan_map='grid', the exact map
+   built at the reset) and depth+grid with the '2d_dense' fusion and the
+   4 m camera (B8 v1 and B9 exact every segment);
+16. the gt+grid path at B = 512 (examples/demo.py's MapParams() and
+   CameraParams(160, 120), the planner of the vision paths, goals at
+   x = 20): the reset, one warm-up and 2 timed segments, per-stage times,
+   live replans, launches (edt_exact 1 at the reset, 0 per segment);
+17. the default depth path: the same on MapParams() with depth sensing
+   (the '2d' fusion, the exact lite ESDF rebuilt every segment: edt_exact
+   1 at the reset and 1 per segment).
 
-The last lines are every kernel's launches over both paths, the kernels'
-JSON record, the card's name and power limit, and
+The vision paths' counts include their reset, which builds the truncated
+lite map of an unknown grid through B9 banded. The last lines are every
+kernel's launches over the paths, the kernels' JSON record, the card's name
+and power limit, and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
 The script needs one GPU and exits non-zero without a result when there is
 none or when the package is missing.
@@ -105,12 +126,27 @@ KERNELS = {
     "fuse_depth_multi": dict(
         source="neoplanner_tpu_torch/csrc/fusion_multi.cu",
         replaces="neoplanner_tpu/mapping/occupancy_pallas.py:299"),
+    "edt_exact": dict(
+        source="neoplanner_tpu_torch/csrc/edt_exact.cu",
+        replaces="neoplanner_tpu/ops/edt_pallas.py:32"),
+    "edt_banded": dict(
+        source="neoplanner_tpu_torch/csrc/edt_trunc.cu",
+        replaces="neoplanner_tpu/ops/edt_pallas.py:56"),
+    "fuse_depth_window": dict(
+        source="neoplanner_tpu_torch/csrc/fusion_window.cu",
+        replaces="neoplanner_tpu/mapping/occupancy_pallas.py:51"),
 }
 SCENE_PATH = ("lbfgs_scene_solve", "minco_banded_solve", "track_segment",
               "render_depth")
+# the vision paths' reset builds the truncated lite map of an unknown grid
+# through B9 banded (esdf.build, as the reference's reset)
 VISION_PATH = ("render_depth", "fuse_depth_dense", "edt_trunc_lite",
-               "lbfgs_grid_solve", "minco_banded_solve", "track_segment_grid")
+               "lbfgs_grid_solve", "minco_banded_solve", "track_segment_grid",
+               "edt_banded")
 SENSOR_PATH = VISION_PATH + ("fuse_depth_multi",)
+# the gt+grid and the default depth path (whose '2d' fusion has no kernel)
+DEFAULT_MAP_PATH = ("render_depth", "edt_exact", "lbfgs_grid_solve",
+                    "minco_banded_solve", "track_segment_grid")
 FUSE_FRAMES = 6               # examples/profile_vision.py:36 (VIS_FUSE)
 # launches per segment of the sensor-rate loop: the replan-time frame and
 # the five mid-segment frames in one launch, one fusion each, one rebuild,
@@ -219,7 +255,7 @@ def main() -> int:
     from neoplanner_tpu_torch.sense import raycast
     from neoplanner_tpu_torch.sim import env, track
     from neoplanner_tpu_torch.utils.profiling import StageTimer
-    from neoplanner_tpu_torch.world import scenegen
+    from neoplanner_tpu_torch.world import scenegen, voxelize
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -253,6 +289,7 @@ def main() -> int:
     sc = scene.build(worlds, mapp)
     n_active = sc.active.sum(1).cpu().numpy()
     record = {}
+    launch_totals = {k: 0 for k in KERNELS}   # over the paths' runs
 
     def report(name, err, tol, ms, plain_ms, flops, nbytes, library_ms=None,
                on="abs"):
@@ -532,7 +569,7 @@ def main() -> int:
     net = planner_net.load(onnx, npc, dev)
     net_cpu = planner_net.load(onnx, npc, "cpu")
 
-    def twin_loops(n, seed, gen_world, map_params, path, pp_, seg_kw):
+    def twin_loops(n, seed, gen_world, map_params, path, pp_, seg_kw, cam_):
         """n envs, 2 segments, on the card and on the CPU from the same
         worlds, goals and draws; returns (CPU state, card state, segment 1
         planned count, segment 1 plan-flag agreement, per env whether the
@@ -550,9 +587,9 @@ def main() -> int:
             d_g = env.Draws(*(x.to(dev) for x in (d_c.target_noise,
                                                   d_c.bank_noise,
                                                   d_c.goal_u)))
-            s_c, i_c = env.step_segment(s_c, pp_, mp, sp, cam, net_cpu,
+            s_c, i_c = env.step_segment(s_c, pp_, mp, sp, cam_, net_cpu,
                                         draws=d_c, **seg_kw)
-            s_g, i_g = env.step_segment(s_g, pp_, mp, sp, cam, net,
+            s_g, i_g = env.step_segment(s_g, pp_, mp, sp, cam_, net,
                                         draws=d_g, **seg_kw)
             agree = (i_g.ok.cpu() == i_c.ok) & (agree if seg else True)
             if seg == 0:
@@ -561,7 +598,7 @@ def main() -> int:
         return s_c, s_g, n_plan, flags, agree
 
     def small_loop(name, n, seed, gen_world, map_params, path, pp_=pp,
-                   twin=False, **seg_kw):
+                   twin=False, cam_=cam, path_kernels=(), **seg_kw):
         """Segment 1 plans every env while the drones hover on the reset
         buffer; segment 2 flies those plans. Gate: the plan flags of
         segment 1 agree on >= 90% of envs (and all plan), and every drone's
@@ -570,8 +607,11 @@ def main() -> int:
         elementwise: drone states, setpoint buffers and metrics within 1e-3
         on the envs whose plan flags agree, and the log-odds grids within
         one update quantum on at most 1e-4 of the updated cells."""
+        _cuda.reset_launches()
         s_c, s_g, n_plan, flags, _ = twin_loops(n, seed, gen_world,
-                                                map_params, path, pp_, seg_kw)
+                                                map_params, path, pp_, seg_kw,
+                                                cam_)
+        counts = dict(_cuda.launches)
         diff = (s_g.drone.pos.cpu() - s_c.drone.pos).abs().amax(1)
         say(f"small {name} loop B={n}: segment 1 planned {n_plan}, plan flags "
             f"agree {flags:.3f} (tol 0.9); after segment 2 drone pos diff "
@@ -581,11 +621,20 @@ def main() -> int:
         if n_plan != n or flags < 0.9 or float(diff.max()) > 1e-3:
             raise AssertionError(f"the {name} loop on the card disagrees "
                                  f"with the plain path")
+        if path_kernels:
+            say(f"small {name} loop kernels on the card (reset and 2 "
+                f"segments): " + ", ".join(f"{k} {counts[k]}"
+                                           for k in path_kernels))
+        for k in path_kernels:
+            if counts[k] <= 0:
+                raise AssertionError(f"the small {name} loop never launched "
+                                     f"{k}")
+            launch_totals[k] += counts[k]
         if not twin:
             return
         s_c, s_g, _, flags1, same = twin_loops(
             n, seed, gen_world, map_params, path,
-            dataclasses.replace(pp_, max_iters=1), seg_kw)
+            dataclasses.replace(pp_, max_iters=1), seg_kw, cam_)
         if int(same.sum()) < 0.9 * n:
             raise AssertionError(f"the {name} one-iteration twin's plan "
                                  f"flags agree on {int(same.sum())} of {n}")
@@ -610,14 +659,16 @@ def main() -> int:
             raise AssertionError(f"the {name} one-iteration twin on the card "
                                  f"disagrees with the plain path")
 
-    def run_path(name, path_kernels, n, state, n_seg=SEGMENTS, pp_=pp,
-                 per_segment=None, **seg_kw):
-        """The loop of the path that reset chose for state, stepped with
-        seg_kw: counts set to 0, one warm-up and n_seg timed segments,
-        counts read (and, for the kernels in per_segment, held to exactly
-        that many launches per segment); returns (state, planned replans
-        in the timed segments)."""
+    def run_path(name, path_kernels, n, make_state, n_seg=SEGMENTS, pp_=pp,
+                 per_segment=None, at_reset=None, **seg_kw):
+        """The loop of the path that reset chose: counts set to 0, the
+        state made by make_state() (the reset), one warm-up and n_seg timed
+        segments stepped with seg_kw, counts read. For the kernels in
+        per_segment and at_reset the counts are held to exactly that many
+        launches per segment plus that many at the reset; returns (state,
+        planned replans in the timed segments)."""
         _cuda.reset_launches()
+        state = make_state()
         state, info = env.step_segment(state, pp_, mp, sp, cam, net, **seg_kw)
         warm = (int(info.planned.sum()), int(info.ok.sum()))
         planned, accepted_plans = 0, 0
@@ -633,6 +684,7 @@ def main() -> int:
         secs = time.perf_counter() - t0
         counts = dict(_cuda.launches)
         stages = timer.ms()
+        per_segment, at_reset = per_segment or {}, at_reset or {}
         say(f"{name} loop B={n}: "
             f"{n * mp.steps_per_replan * n_seg / secs:.0f} steps/s "
             f"({secs * 1e3 / n_seg:.1f} ms/segment), missions done "
@@ -642,18 +694,21 @@ def main() -> int:
             f"{warm[1]}/{warm[0]} in the warm-up")
         say(f"{name} stages ms/segment: " + ", ".join(
             f"{k} {v / n_seg:.2f}" for k, v in stages.items()))
-        say(f"{name} kernels: " + ", ".join(
-            f"{k} {counts[k]} ({counts[k] / (n_seg + 1):g}/segment)"
+        say(f"{name} kernels (reset and {n_seg + 1} segments): " + ", ".join(
+            f"{k} {counts[k]} ({at_reset.get(k, 0)} at reset, "
+            f"{(counts[k] - at_reset.get(k, 0)) / (n_seg + 1):g}/segment)"
             for k in path_kernels))
         for k in path_kernels:
             if counts[k] <= 0:
                 raise AssertionError(f"the {name} path never launched {k}")
-            if per_segment and k in per_segment \
-                    and counts[k] != per_segment[k] * (n_seg + 1):
-                raise AssertionError(f"the {name} path launched {k} "
-                                     f"{counts[k]} times, expected "
-                                     f"{per_segment[k]} per segment")
-            record[k]["launches"] += counts[k]
+            if k in per_segment or k in at_reset:
+                want = per_segment.get(k, 0) * (n_seg + 1) + at_reset.get(k, 0)
+                if counts[k] != want:
+                    raise AssertionError(
+                        f"the {name} path launched {k} {counts[k]} times, "
+                        f"expected {per_segment.get(k, 0)} per segment and "
+                        f"{at_reset.get(k, 0)} at the reset")
+            launch_totals[k] += counts[k]
         finite = all(bool(torch.isfinite(t).all()) for t in (
             state.drone.pos, state.drone.vel, state.drone.quat, state.buffer,
             state.metrics))
@@ -665,7 +720,7 @@ def main() -> int:
     small_loop("scene", 32, 5, lambda g, n: scenegen.generate_batch(g, n, wp),
                mapp, {})
     run_path("scene", SCENE_PATH, B,
-             env.reset(worlds, pp, mp, mapp, _cuda.make_generator(2)))
+             lambda: env.reset(worlds, pp, mp, mapp, _cuda.make_generator(2)))
 
     # ================= the vision path: its kernels at B = BV =============
     worlds_v = scenegen.generate_batch(_cuda.make_generator(10), BV, wp)
@@ -828,10 +883,10 @@ def main() -> int:
                mapp_v, vision)
     goals_v = torch.stack([torch.full((BV,), 20.0), torch.from_numpy(
         rng.uniform(-1.5, 1.5, BV)).float()], 1).to(dev)
-    state_v = env.reset(worlds_v, pp, mp, mapp_v, _cuda.make_generator(12),
-                        goal=goals_v, **vision)
-    state_v, planned_v = run_path("vision", VISION_PATH, BV, state_v,
-                                  n_seg=2)
+    state_v, planned_v = run_path(
+        "vision", VISION_PATH, BV, lambda: env.reset(
+            worlds_v, pp, mp, mapp_v, _cuda.make_generator(12),
+            goal=goals_v, **vision), n_seg=2, at_reset=dict(edt_banded=1))
     if planned_v <= 0:
         raise AssertionError("the vision path's timed segments replanned "
                              "no env")
@@ -961,11 +1016,12 @@ def main() -> int:
     small_loop("sensor-rate", 16, 7,
                lambda g, n: scenegen.generate_batch(g, n, wp), mapp_s,
                vision, pp_=pp_s, twin=True, **sensor)
-    state_s = env.reset(worlds_v, pp_s, mp, mapp_s, _cuda.make_generator(14),
-                        goal=goals_v, **vision)
-    state_s, planned_s = run_path("sensor-rate", SENSOR_PATH, BV, state_s,
-                                  pp_=pp_s, per_segment=SENSOR_PER_SEGMENT,
-                                  **sensor)
+    state_s, planned_s = run_path(
+        "sensor-rate", SENSOR_PATH, BV, lambda: env.reset(
+            worlds_v, pp_s, mp, mapp_s, _cuda.make_generator(14),
+            goal=goals_v, **vision), pp_=pp_s,
+        per_segment=SENSOR_PER_SEGMENT, at_reset=dict(edt_banded=1),
+        **sensor)
     if planned_s <= 0:
         raise AssertionError("the sensor-rate path's timed segments "
                              "replanned no env")
@@ -974,6 +1030,166 @@ def main() -> int:
         f"cells per env (mean); vision path's {int((state_v.logodds < 0).sum()) / BV:.0f} "
         f"free; total {time.perf_counter() - t_start:.1f} s")
 
+    # ================= the reference's default maps (MapParams()) =========
+    # examples/demo.py: MapParams() (448 x 256 cells, fusion '2d', the exact
+    # ESDF) and CameraParams(160, 120); the gt+grid path is the JAX
+    # package's reset default (sensing='gt', plan_map='grid')
+    mapp_d = MapParams()
+    H_d, W_d = mapp_d.height, mapp_d.width
+    gt_grid = dict(sensing="gt", plan_map="grid")
+    cam4 = dataclasses.replace(cam, max_range=4.0)   # v1's window fits
+
+    # ---- (a) B9 exact at B = BV: ground-truth grids of BV worlds, and grids
+    # fused by the '2d' fusion from two frames per env
+    occ_gt = voxelize.occupancy_2d(worlds_v, mapp_d)
+    lo_d = occupancy.logodds_init(mapp_d, BV, dev)
+    for _ in range(2):
+        pos_d, quat_d = poses(BV)
+        depth_d = raycast.render_depth_auto(worlds_v, pos_d, quat_d, cam)
+        lo_d = occupancy.insert_depth_2d(lo_d, depth_d, pos_d, quat_d, cam,
+                                         mapp_d)
+    occ_fused = occupancy.to_occupancy(lo_d, mapp_d)
+    say(f"default map grids: {float(occ_gt.sum()) / BV:.0f} ground-truth and "
+        f"{float(occ_fused.sum()) / BV:.0f} fused occupied cells per env "
+        f"(mean), {int((lo_d < 0).sum()) / BV:.0f} fused free")
+    field_x = torch.empty(occ_gt.shape, device=dev)
+    n_diff = 0
+    for grid in (occ_gt, occ_fused):
+        edt.launch_edt_exact(grid, field_x, 0.5, mapp_d.resolution)
+        n_diff += int((field_x != edt._edt_plain(
+            grid, mapp_d.resolution)).sum())
+    say(f"edt_exact: {n_diff} cells differ over 2 x {BV} grids (0 expected; "
+        f"tol 0: bit-exact)")
+    report("edt_exact", (float(n_diff), float(n_diff)), 0.0,
+           median_ms(torch, lambda: edt.launch_edt_exact(
+               occ_gt, field_x, 0.5, mapp_d.resolution), 20),
+           median_ms(torch, lambda: edt._edt_plain(
+               occ_gt, mapp_d.resolution), 3),
+           occ_gt.numel() * EDT_CELL_OPS, occ_gt.numel() * (4 + 4))
+    ms_fused = median_ms(torch, lambda: edt.launch_edt_exact(
+        occ_fused, field_x, 0.5, mapp_d.resolution), 20)
+    say(f"edt_exact on the fused grids: {ms_fused:.3f} ms")
+
+    # ---- (b) B9 banded on the same grids at edt_truncation = 2.0 (R = 20)
+    field_b = torch.empty(occ_gt.shape, device=dev)
+    n_diff = 0
+    for grid in (occ_gt, occ_fused):
+        edt.launch_edt_banded(grid, field_b, 0.5, mapp_d.resolution, 2.0)
+        n_diff += int((field_b != edt._truncated_plain(
+            grid > 0.5, mapp_d.resolution, 2.0)).sum())
+    say(f"edt_banded: {n_diff} cells differ over 2 x {BV} grids (0 expected; "
+        f"tol 0: bit-exact)")
+    report("edt_banded", (float(n_diff), float(n_diff)), 0.0,
+           median_ms(torch, lambda: edt.launch_edt_banded(
+               occ_gt, field_b, 0.5, mapp_d.resolution, 2.0), 20),
+           median_ms(torch, lambda: edt._truncated_plain(
+               occ_gt > 0.5, mapp_d.resolution, 2.0), 3),
+           occ_gt.numel() * EDT_CELL_OPS, occ_gt.numel() * (4 + 4))
+
+    # ---- (c) B8 v1 at B = BV: the default map with the 4 m camera (114-cell
+    # windows that follow the drones; every 8th drone by the map's corner,
+    # where its window clamps), and a 120 x 96 map with the 6 m camera
+    mapp_w = dataclasses.replace(mapp_d, fusion="2d_dense")
+    mapp_s96 = MapParams(width=120, height=96, origin_x=-2.0, origin_y=-4.8,
+                         fusion="2d_dense")
+    win_rows = []
+    for label, mpw, camw, shift in (("default map, 4 m camera", mapp_w, cam4,
+                                     0.0),
+                                    ("120 x 96 map, 6 m camera", mapp_s96,
+                                     cam, 3.0)):
+        wv = worlds_v.replace(centers=worlds_v.centers - torch.tensor(
+            [shift, 0.0, 0.0], device=dev))
+        lo_w = occupancy.logodds_init(mpw, BV, dev)
+        n_off, n_upd, worst = 0, 0, 0.0
+        for f in range(3):
+            pos_w, quat_w = poses(BV)
+            if mpw.width > 200:
+                pos_w[::8, :2] = torch.tensor([-7.0, -11.5], device=dev)
+            depth_w = raycast.render_depth_auto(wv, pos_w, quat_w, camw)
+            tabs, sc8, hit = fusion._inputs(depth_w, pos_w, quat_w, camw, mpw)
+            sc_w, org = fusion._window_inputs(sc8, pos_w, camw, mpw)
+            out_w = lo_w.clone()
+            fusion.launch_fuse_window(out_w, tabs, sc_w, org, hit, camw, mpw)
+            want = fusion._fuse_window_plain(lo_w, tabs, sc_w, org, hit, camw,
+                                             mpw)
+            d = (out_w - want).abs()
+            off = d > 0
+            if off.any():
+                q = (d[off].cpu()[:, None] - l_quanta.abs()[None]).abs(
+                    ).amin(1)
+                say(f"fuse_depth_window {label} frame {f}: "
+                    f"{int(off.sum())} cells differ, by "
+                    f"{sorted(set(np.round(d[off].cpu().numpy(), 5)))[:6]} "
+                    f"(quantum misfit {float(q.max()):.2e})")
+                if float(q.max()) > 1e-5:
+                    raise AssertionError("fuse_depth_window: a cell differs "
+                                         "by more than one update quantum")
+            worst = max(worst, float(d.max()))
+            n_off += int(off.sum())
+            n_upd += int((want != lo_w).sum())
+            lo_w = want
+        ch, cw = fusion._window_cells(camw, mpw)
+        say(f"fuse_depth_window {label}: {ch} x {cw} windows, {n_off} of "
+            f"{n_upd} updated cells differ (0 expected; tol 1e-4 of them, "
+            f"each by one quantum); corner windows at {org[0].tolist()}")
+        if n_off > 1e-4 * max(n_upd, 1):
+            raise AssertionError("fuse_depth_window disagrees with its plain "
+                                 "version")
+        win_rows.append((label, mpw, camw, lo_w, tabs, sc_w, org, hit,
+                         worst, n_off / max(n_upd, 1)))
+    label, mpw, camw, lo_w, tabs, sc_w, org, hit, worst, frac = win_rows[0]
+    out_w = lo_w.clone()
+    ch, cw = fusion._window_cells(camw, mpw)
+    report("fuse_depth_window", (worst, frac), 1e-4,
+           median_ms(torch, lambda: fusion.launch_fuse_window(
+               out_w, tabs, sc_w, org, hit, camw, mpw), 20),
+           median_ms(torch, lambda: fusion._fuse_window_plain(
+               lo_w, tabs, sc_w, org, hit, camw, mpw), 5),
+           BV * ch * cw * 25 + BV * camw.width * 3,
+           BV * (2 * ch * cw * 4 + camw.width * (4 + 8) + 8 * 4 + 2 * 4),
+           on="rel")
+    label, mpw, camw, lo_w, tabs, sc_w, org, hit, _, _ = win_rows[1]
+    out_w2 = lo_w.clone()
+    ms_96 = median_ms(torch, lambda: fusion.launch_fuse_window(
+        out_w2, tabs, sc_w, org, hit, camw, mpw), 20)
+    say(f"fuse_depth_window {label}: {ms_96:.3f} ms")
+
+    # ---- (d) small loops on the default map, on the card against the CPU
+    small_loop("gt+grid", 16, 8,
+               lambda g, n: scenegen.generate_batch(g, n, wp),
+               dataclasses.replace(mapp_d, edt_truncation=2.0), gt_grid,
+               path_kernels=("edt_exact", "lbfgs_grid_solve",
+                             "track_segment_grid"))
+    small_loop("depth+grid 2d_dense", 16, 9,
+               lambda g, n: scenegen.generate_batch(g, n, wp), mapp_w, vision,
+               cam_=cam4, path_kernels=("fuse_depth_window", "edt_exact",
+                                        "lbfgs_grid_solve",
+                                        "track_segment_grid"))
+
+    # ---- (e) the gt+grid path at B = BV: the exact map built once at reset
+    _, planned_g = run_path(
+        "gt+grid", DEFAULT_MAP_PATH, BV, lambda: env.reset(
+            worlds_v, pp, mp, mapp_d, _cuda.make_generator(15),
+            goal=goals_v, **gt_grid), n_seg=2,
+        per_segment=dict(edt_exact=0), at_reset=dict(edt_exact=1))
+    # ---- (f) the default depth path: '2d' fusion, exact lite ESDF
+    state_f, planned_f = run_path(
+        "default depth+grid", DEFAULT_MAP_PATH, BV, lambda: env.reset(
+            worlds_v, pp, mp, mapp_d, _cuda.make_generator(16),
+            goal=goals_v, **vision), n_seg=2,
+        per_segment=dict(edt_exact=1), at_reset=dict(edt_exact=1))
+    if planned_g <= 0 or planned_f <= 0:
+        raise AssertionError("a default-map path's timed segments replanned "
+                             "no env")
+    field_f = state_f.emap.esdf.float()
+    say(f"default depth map: {int((state_f.logodds < 0).sum()) / BV:.0f} "
+        f"free cells per env (mean), ESDF max {float(field_f.max()):g} "
+        f"(bf16 FAR 9984 on maps that sensed nothing), min "
+        f"{float(field_f.min()):g}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    for k in KERNELS:
+        record[k]["launches"] = launch_totals[k]
     say("kernels: " + ", ".join(f"{k} {record[k]['launches']}"
                                 for k in KERNELS))
     print(json.dumps({"kernels": [record[k] for k in KERNELS]}), flush=True)

@@ -33,7 +33,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("minco_banded_solve", "lbfgs_scene_solve", "track_segment",
            "render_depth", "lbfgs_grid_solve", "fuse_depth_dense",
-           "edt_trunc_lite", "track_segment_grid", "fuse_depth_multi")
+           "edt_trunc_lite", "track_segment_grid", "fuse_depth_multi",
+           "edt_exact", "edt_banded", "fuse_depth_window")
 launches = {name: 0 for name in KERNELS}
 build_seconds = None   # wall time of the nvcc call (None: loaded from cache)
 
@@ -65,6 +66,14 @@ _SIGNATURES = {
     "neo_fuse_depth_multi": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # logodds, out, n_envs, H, W, R, host params [thr, res, max_dist], stream
     "neo_edt_trunc_lite": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # grid, out, n_envs, H, W, R, host params [thr, res, max_dist], stream
+    "neo_edt_banded": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # grid, out, n_envs, H, W, host params [thr, res, far], stream
+    "neo_edt_exact": [_P, _P, _I, _I, _I, _P, _P],
+    # logodds (in place), tabs, sc, org, hit, n_envs, H, W, ch, cw, Wcam,
+    # host params (float*), stream
+    "neo_fuse_depth_window": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P, _P],
     # cmds, state, state_out, trace, ticks, n_envs, spr, i0,
     # host params (float*), stream
     "neo_track_segment_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],

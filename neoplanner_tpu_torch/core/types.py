@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -55,15 +56,28 @@ class BoxWorld(_Replace):
 
 @dataclass
 class ESDFMap(_Replace):
-    """The lite ESDF of the vision loop (neoplanner_tpu/core/types.py
-    ``ESDFMap`` built with lite=True): a truncated distance field stored in
-    bf16, one per env. The occupancy and gradient planes of the full profile
-    are not kept: every consumer reads distances only."""
+    """Per-env ESDF maps (neoplanner_tpu/core/types.py ``ESDFMap``) in one
+    of the reference's two profiles. The full profile (esdf.build with
+    lite=False, the gt+grid path) holds the f32 distance field and the f32
+    occupancy and gradient planes. The lite profile (lite=True, the depth
+    path) holds the field in bf16 and no planes (None): its consumers read
+    distances only."""
 
-    esdf: torch.Tensor      # (B, H, W) bf16 distance to the nearest occupied cell [m]
+    esdf: torch.Tensor      # (B, H, W) distance to the nearest occupied cell [m]
     origin: torch.Tensor    # (2,) f32 (x, y) world coordinates of the grid corner [m]
     resolution: float       # m per cell
+    occupancy: Optional[torch.Tensor] = None  # (B, H, W) f32 {0, 1}
+    grad_x: Optional[torch.Tensor] = None     # (B, H, W) f32 d esdf / dx
+    grad_y: Optional[torch.Tensor] = None     # (B, H, W) f32 d esdf / dy
+
+    @property
+    def lite(self) -> bool:
+        return self.grad_x is None
 
     def index(self, idx) -> "ESDFMap":
         """The maps of the envs ``idx`` (an index tensor over B)."""
-        return ESDFMap(self.esdf[idx], self.origin, self.resolution)
+        def pick(t):
+            return None if t is None else t[idx]
+        return ESDFMap(self.esdf[idx], self.origin, self.resolution,
+                       pick(self.occupancy), pick(self.grad_x),
+                       pick(self.grad_y))

@@ -11,11 +11,7 @@
 // itself against the env's per-column carve table: r_cell < r_carve(u) - res
 // adds l_miss, then the cell is clipped to [l_min, l_max]. Hits: the wrapper
 // computes each column's hit cell (flat index, -1 for none); a second launch
-// adds l_hit there with an atomic clip-add (min(old + l_hit, l_max) by
-// compare-and-swap). Every add is the same positive l_hit onto a value that
-// is already clipped, so a cell hit k times ends at k sequential adds, then
-// clip, whatever the order of the atomics: the update is deterministic and
-// equals the reference's scatter-add followed by the clip.
+// adds l_hit there (csrc/fusion_hits.cuh).
 //
 // The TPU kernel's 8-aligned row window and 128-lane column halves were VMEM
 // tiling; a cell beyond the sensor reach never passes the carve test, so
@@ -31,6 +27,8 @@
 // env.
 #include <cuda_runtime.h>
 #include <string.h>
+
+#include "fusion_hits.cuh"
 
 namespace {
 
@@ -78,24 +76,6 @@ __global__ void __launch_bounds__(kBlock)
   out[idx] = fminf(fmaxf(v, P.l_min), P.l_max);
 }
 
-// hit (B * Wcam) flat grid index of each column's hit cell, -1 for none
-__global__ void __launch_bounds__(kBlock)
-    fuse_hits_kernel(const long long* __restrict__ hit, float* __restrict__ out,
-                     int n, FuseParams P) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long h = hit[i];
-  if (h < 0) return;
-  unsigned int* a = reinterpret_cast<unsigned int*>(out + h);
-  unsigned int old = *a, seen;
-  do {
-    seen = old;
-    const float nv = fminf(fmaxf(__fadd_rn(__uint_as_float(seen), P.l_hit),
-                                 P.l_min), P.l_max);
-    old = atomicCAS(a, seen, __float_as_uint(nv));
-  } while (old != seen);
-}
-
 }  // namespace
 
 extern "C" int neo_fuse_depth_dense(const void* logodds, const void* tabs,
@@ -111,10 +91,9 @@ extern "C" int neo_fuse_depth_dense(const void* logodds, const void* tabs,
   fuse_carve_kernel<<<grid, kBlock, Wcam * sizeof(float), st>>>(
       static_cast<const float*>(logodds), static_cast<const float*>(tabs),
       static_cast<const float*>(sc), static_cast<float*>(out), H, W, Wcam, P);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = n_envs * Wcam;
-  fuse_hits_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0, st>>>(
-      static_cast<const long long*>(hit), static_cast<float*>(out), n, P);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_hits(static_cast<const long long*>(hit),
+                                      static_cast<float*>(out), n_envs * Wcam,
+                                      P.l_hit, P.l_min, P.l_max, st));
 }

@@ -1,14 +1,16 @@
-"""The lite ESDF of the vision loop: construction and sampling.
+"""ESDF maps in both of the reference's profiles: construction and
+sampling.
 
-The port of neoplanner_tpu/mapping/esdf.py in its lite profile (a bf16
-truncated distance field per env, no occupancy or gradient planes):
-``build`` (:29) with max_dist, ``_cell_index`` (:66), ``sample_nearest``
-(:85, distance only), ``sample_bilinear`` (:112), ``sample`` (:222, "mxu"
-sampling as bilinear) and ``make_window`` (:193),
-batched over envs (``has_collision`` :234 is mapping/query.has_collision). :class:`GridWindow` and
-:func:`sample_window` are the per-env ESDF windows of the grid solver and
-the tap semantics of its kernel (plan/solve_pallas_grid.py ``sample``
-:60-130): the plain version of kernel B6's distance query.
+The port of neoplanner_tpu/mapping/esdf.py: ``build`` (:29; the exact
+field for max_dist = 0, the truncated one for max_dist > 0, the full
+profile with occupancy and gradient planes or the lite bf16 one),
+``_cell_index`` (:66), ``sample_nearest`` (:85), ``sample_bilinear``
+(:112), ``sample`` (:222, "mxu" sampling as bilinear), ``make_window``
+(:193), ``has_collision`` (:234) and ``is_occupied`` (:240), batched over
+envs. :class:`GridWindow` and :func:`sample_window` are the per-env ESDF
+windows of the grid solver and the tap semantics of its kernel
+(plan/solve_pallas_grid.py ``sample`` :60-130): the plain version of
+kernel B6's distance query.
 
 Out-of-map queries read 1e4 m (free) with a zero gradient (esdf.py:66, 80).
 """
@@ -26,17 +28,26 @@ FAR = 1e4
 
 
 def build(occupancy: torch.Tensor, origin, resolution: float,
-          max_dist: float) -> ESDFMap:
-    """Lite ESDFMap of occupancy grids (B, H, W) {0, 1}: the truncated field
-    (exact below max_dist > 0, clamped above) in bf16, computed by kernel
-    B9 for CUDA tensors (cells > 0.5 are occupied)."""
-    if max_dist <= 0.0:
-        raise ValueError("the port builds truncated lite maps only "
-                         "(max_dist > 0)")
-    field = edt.rebuild_truncated_lite(occupancy.to(torch.float32), 0.5,
-                                       resolution, max_dist)
-    return ESDFMap(esdf=field, origin=_origin(origin, occupancy.device),
-                   resolution=float(resolution))
+          max_dist: float = 0.0, lite: bool = False) -> ESDFMap:
+    """ESDFMap of occupancy grids (B, H, W) {0, 1} (cells > 0.5 are
+    occupied). max_dist = 0: the exact field (kernel B9 exact for CUDA
+    tensors), FAR on a grid with no occupied cell; max_dist > 0: exact below
+    max_dist and clamped above (kernel B9 banded). lite=True keeps the field
+    in bf16 and no planes (an exact lite field reads 9984, bf16's FAR, on an
+    empty grid); else the f32 field with its occupancy and its
+    central-difference gradient planes (per meter)."""
+    occupancy = occupancy.to(torch.float32)
+    if max_dist > 0.0:
+        dist = edt.edt_truncated(occupancy, resolution, max_dist)
+    else:
+        dist = edt.edt(occupancy, resolution)
+    org = _origin(origin, occupancy.device)
+    if lite:
+        return ESDFMap(esdf=dist.to(torch.bfloat16), origin=org,
+                       resolution=float(resolution))
+    gy, gx = edt.central_gradient(dist, resolution)
+    return ESDFMap(esdf=dist, origin=org, resolution=float(resolution),
+                   occupancy=occupancy, grad_x=gx, grad_y=gy)
 
 
 def _origin(origin, device) -> torch.Tensor:
@@ -55,20 +66,55 @@ def _flat(pos: torch.Tensor):
     return pos.reshape(pos.shape[0], -1, 2), pos.shape[1:-1]
 
 
-def sample_nearest(emap: ESDFMap, pos: torch.Tensor) -> torch.Tensor:
-    """Nearest-cell distance at points pos (B, ..., 2) of each env's map:
-    (B, ...). The lite map has no gradient planes; its consumers (metric,
-    local-target escape, acceptance) read distances only."""
-    p, mid = _flat(pos)
-    B = p.shape[0]
+def _nearest(emap: ESDFMap, p: torch.Tensor):
+    """Flat cell index (B, N) of the nearest cell of points p (B, N, 2)
+    (clamped into the map) and whether the point lies in the map."""
     H, W = emap.esdf.shape[-2:]
     rowf, colf = _cell_index(emap, p)
     row = torch.floor(rowf).long()
     col = torch.floor(colf).long()
     inb = (row >= 0) & (row < H) & (col >= 0) & (col < W)
-    flat = row.clamp(0, H - 1) * W + col.clamp(0, W - 1)
-    d0 = torch.gather(emap.esdf.reshape(B, H * W), 1, flat).to(torch.float32)
-    return torch.where(inb, d0, FAR).reshape((B,) + mid)
+    return row.clamp(0, H - 1) * W + col.clamp(0, W - 1), inb
+
+
+def _gather(field: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    return torch.gather(field.reshape(field.shape[0], -1), 1, flat)
+
+
+def _nearest_sample(emap: ESDFMap, pos: torch.Tensor):
+    """Nearest-cell distance (B, ...) at pos (B, ..., 2) and, on a full
+    map, the looked-up gradient (B, ..., 2) (None on a lite map). On a full
+    map the distance is differentiable in pos with that gradient as its
+    derivative: the reference's straight-through linearization, whose value
+    is (d0 - lin) + lin."""
+    p, mid = _flat(pos)
+    B = p.shape[0]
+    flat, inb = _nearest(emap, p)
+    d0 = torch.where(inb, _gather(emap.esdf, flat).to(torch.float32), FAR)
+    if emap.lite:
+        return d0.reshape((B,) + mid), None
+    gx = torch.where(inb, _gather(emap.grad_x, flat), 0.0)
+    gy = torch.where(inb, _gather(emap.grad_y, flat), 0.0)
+    grad = torch.stack([gx, gy], dim=-1)
+    lin = (grad.detach() * p).sum(-1)
+    dis = (d0 - lin).detach() + lin
+    return dis.reshape((B,) + mid), grad.reshape((B,) + mid + (2,))
+
+
+def sample_nearest(emap: ESDFMap, pos: torch.Tensor):
+    """Nearest-cell lookup at points pos (B, ..., 2) of each env's map, the
+    reference's semantics: on a full map (distance (B, ...), gradient
+    (B, ..., 2)), the distance differentiable with the gradient as its
+    derivative; on a lite map, which has no gradient planes, the distance
+    alone."""
+    dis, grad = _nearest_sample(emap, pos)
+    return dis if grad is None else (dis, grad)
+
+
+def nearest_distance(emap: ESDFMap, pos: torch.Tensor) -> torch.Tensor:
+    """The nearest-cell distance (B, ...) at pos (B, ..., 2) on either
+    profile (the distance of :func:`sample_nearest`)."""
+    return _nearest_sample(emap, pos)[0]
 
 
 def _bilinear(field: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
@@ -93,8 +139,9 @@ def _bilinear(field: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
 
 def sample_bilinear(emap: ESDFMap, pos: torch.Tensor) -> torch.Tensor:
     """Bilinearly interpolated distance between cell centers at pos
-    (B, ..., 2): (B, ...), differentiable in pos (autograd gives the
-    analytic bilinear gradient)."""
+    (B, ..., 2) of a bf16 (lite) or f32 (full) field, in f32: (B, ...),
+    differentiable in pos (autograd gives the analytic bilinear
+    gradient)."""
     p, mid = _flat(pos)
     H, W = emap.esdf.shape[-2:]
     rowf, colf = _cell_index(emap, p)
@@ -113,7 +160,7 @@ def sample(emap: ESDFMap, pos: torch.Tensor, mode: str = "bilinear"):
     because the TPU has no gather; here the same taps are indexed loads in
     f32 (:func:`sample_bilinear`), within the reference's bf16 error of it."""
     if mode == "nearest":
-        return sample_nearest(emap, pos)
+        return nearest_distance(emap, pos)
     if mode in ("bilinear", "mxu"):
         return sample_bilinear(emap, pos)
     raise ValueError(f"unsupported esdf interpolation mode: {mode}")
@@ -173,3 +220,23 @@ def sample_window(window: GridWindow, pos: torch.Tensor) -> torch.Tensor:
     out_map = ((px < o[..., 3]) | (py < o[..., 4]) | (px >= o[..., 5])
                | (py >= o[..., 6]))
     return torch.where(out_map, FAR, dis).reshape((p.shape[0],) + mid)
+
+
+def has_collision(emap: ESDFMap, pos: torch.Tensor,
+                  safe_dis: float) -> torch.Tensor:
+    """Point-in-collision predicate at pos (B, ..., 2): nearest-cell
+    distance below safe_dis (esdf.py:50-51)."""
+    return nearest_distance(emap, pos) < safe_dis
+
+
+def is_occupied(emap: ESDFMap, pos: torch.Tensor) -> torch.Tensor:
+    """Occupancy at pos (B, ..., 2) (esdf.py:35-48): the nearest cell's
+    occupancy plane, or on a lite map a zero distance (the EDT is exactly
+    zero on an occupied cell); out of the map is free."""
+    p, mid = _flat(pos)
+    flat, inb = _nearest(emap, p)
+    if emap.lite:
+        occ = _gather(emap.esdf, flat) <= 0.0
+    else:
+        occ = _gather(emap.occupancy, flat) > 0.5
+    return (occ & inb).reshape((p.shape[0],) + mid)

@@ -1,15 +1,23 @@
-"""Dense polar depth fusion: one frame per env (kernel B8 v2) and F frames
-per env in one pass (kernel B8 v3), each with its plain version.
+"""Dense polar depth fusion: one frame per env on a window (kernel B8 v1)
+or on the whole grid (kernel B8 v2), and F frames per env in one pass
+(kernel B8 v3), each with its plain version.
 
 :func:`insert_depth_2d_dense` is the port of
 neoplanner_tpu/mapping/occupancy_pallas.py ``insert_depth_2d_dense`` (:478)
-on its v2 branch (``_fuse_flat`` :611-652) with ``_scatter_hits`` (:494).
-Each frame collapses to a per-column carve table (occupancy.polar_columns);
-every grid cell then tests itself against the table (r_cell < r_carve(u) -
-res: + l_miss, then clip), and each column's nearest in-slice hit adds
-l_hit to the cell that holds it, then the grid is clipped again. For CUDA
-tensors the carve and the hits run in ``csrc/fusion.cu``; for CPU tensors
-:func:`_fuse_plain` runs the same arithmetic in PyTorch.
+with ``_fuse_flat`` (:608) and ``_scatter_hits`` (:494). Each frame
+collapses to a per-column carve table (occupancy.polar_columns); every grid
+cell then tests itself against the table (r_cell < r_carve(u) - res:
++ l_miss, then clip), and each column's nearest in-slice hit adds l_hit to
+the cell that holds it, then the grid is clipped again. On maps with
+W % 128 == 0 and H % 8 == 0 the reference's v2 branch (:611-652) covers the
+whole grid: ``csrc/fusion.cu`` for CUDA tensors, :func:`_fuse_plain` for CPU
+tensors. On other maps its v1 branch (:653-676) updates a (ch, cw) window
+around each camera (:func:`window_fits` says when that window covers the
+sensor's reach; otherwise the call raises, as the reference's does):
+``csrc/fusion_window.cu`` in place on a copy of the grid for CUDA tensors,
+:func:`_fuse_window_plain` for CPU tensors. v1 takes the cells' positions
+from the window's origin and rounds the column index half to even, so it
+is not v2 restricted to a window.
 
 :func:`insert_depth_2d_dense_multi` is the port of
 ``insert_depth_2d_dense_multi`` (:512, ``_fuse_flat_multi`` :532): the
@@ -18,18 +26,21 @@ frame over carve and hits together, cell = clip((cell + carve_f) + k_f *
 l_hit) with k_f the number of frame f's columns whose hit falls in the
 cell. That is not F chained v2 updates (v2 clips after the carve and again
 after the hits), so neither the kernel nor :func:`_fuse_multi_plain` is a
-loop over v2. For CUDA tensors it runs in ``csrc/fusion_multi.cu``.
+loop over v2. For CUDA tensors it runs in ``csrc/fusion_multi.cu``. Like
+the reference's, it takes v2-eligible maps only.
 
-Replaces: occupancy_pallas.py ``_make_kernel_v2`` (:176) via
-``_fuse_call_v2`` (:263), and ``_make_kernel_v3`` (:299) via
-``_fuse_call_v3`` (:419). Bound on the H100: device memory (the grid is
-read and written once per call, ~25 flops per cell and frame). Design, v2:
-one thread per cell of the whole grid, the carve table in shared memory;
-the hits are one atomic clip-add per column in a second launch. v3: see
-``csrc/fusion_multi.cu``.
+Replaces: occupancy_pallas.py ``_make_kernel`` (:51) via ``_fuse_call``
+(:121), ``_make_kernel_v2`` (:176) via ``_fuse_call_v2`` (:263), and
+``_make_kernel_v3`` (:299) via ``_fuse_call_v3`` (:419). Bound on the H100:
+device memory (the grid, or v1's windows, read and written once per call,
+~25 flops per cell and frame). Design, v1 and v2: one thread per cell, the
+carve table in shared memory; the hits are one atomic clip-add per column
+in a second launch. v3: see ``csrc/fusion_multi.cu``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -41,16 +52,36 @@ from neoplanner_tpu_torch.mapping import occupancy
 _MULTI_MAX_WIDTH = 2048   # B8 v3 holds at least one grid row per block
 
 
-def _check_v2(mp: MapParams) -> None:
-    """The port has the reference's v2/v3 dense fusions only, which cover
-    the whole sensor reach on any map with W % 128 == 0 and H % 8 == 0:
-    raise where the reference would take its v1 windowed kernel (one frame)
-    or fuse frame by frame on it (several frames) instead."""
-    if not (mp.width % 128 == 0 and mp.height % 8 == 0):
-        raise ValueError(
-            f"dense fusion needs a map with width % 128 == 0 and height % 8 "
-            f"== 0 (got {mp.width} x {mp.height}); the reference's v1 "
-            f"windowed kernel for other maps is not ported")
+def _v2_map(mp: MapParams) -> bool:
+    """The whole-grid kernels (v2, v3) take maps with W % 128 == 0 and
+    H % 8 == 0."""
+    return mp.width % 128 == 0 and mp.height % 8 == 0
+
+
+def _reach_cells(cam: CameraParams, mp: MapParams) -> int:
+    """Worst-case horizontal reach of a pixel's projected update in cells
+    (occupancy_pallas.py :150): a corner ray at z-depth max_range travels
+    max_range * sqrt(1 + tan^2(beta_max)) horizontally."""
+    tanb = (cam.width / 2.0) / cam.fx
+    r = cam.max_range * math.sqrt(1.0 + tanb * tanb)
+    return int(math.ceil(r / mp.resolution + 0.5))
+
+
+def _window_cells(cam: CameraParams, mp: MapParams):
+    """v1's window (ch, cw) around the camera, capped at 128 cells per axis
+    (occupancy_pallas.py :455)."""
+    c = 2 * _reach_cells(cam, mp) + 2
+    return min(c, mp.height, 128), min(c, mp.width, 128)
+
+
+def window_fits(cam: CameraParams, mp: MapParams) -> bool:
+    """Whether the dense fusion covers the sensor's whole reach
+    (occupancy_pallas.py :464): always on a v2 map; on another map when
+    v1's 128-cell window holds the reach or the whole map."""
+    if _v2_map(mp):
+        return True
+    c = 2 * _reach_cells(cam, mp) + 2
+    return c <= 128 or (mp.height <= 128 and mp.width <= 128)
 
 
 def _frame_inputs(depth, pos, quat, cam: CameraParams, mp: MapParams,
@@ -118,9 +149,21 @@ def insert_depth_2d_dense(logodds: torch.Tensor, depth: torch.Tensor,
                           row_stride: int = 1) -> torch.Tensor:
     """Fuse one frame per env: logodds (B, H, W), depth (B, h, w) rendered
     at row_stride, pos (B, 3), quat (B, 4). Returns the new (B, H, W)
-    grid."""
-    _check_v2(mp)
+    grid. Raises, as the reference does, where v1's window does not cover
+    the sensor's reach (:func:`window_fits`)."""
+    if not window_fits(cam, mp):
+        raise ValueError(
+            f"dense fusion window (128-cell cap) does not cover "
+            f"cam.max_range={cam.max_range} at resolution={mp.resolution}; "
+            f"use occupancy.insert_depth_2d (fusion='2d') for this config")
     tabs, sc, hit = _inputs(depth, pos, quat, cam, mp, row_stride)
+    if not _v2_map(mp):
+        sc, org = _window_inputs(sc, pos, cam, mp)
+        if not logodds.is_cuda:
+            return _fuse_window_plain(logodds, tabs, sc, org, hit, cam, mp)
+        out = logodds.to(torch.float32).contiguous().clone()
+        launch_fuse_window(out, tabs, sc, org, hit, cam, mp)
+        return out
     if not logodds.is_cuda:
         return _fuse_plain(logodds, tabs, sc, hit, cam, mp)
     out = torch.empty_like(logodds)
@@ -128,10 +171,30 @@ def insert_depth_2d_dense(logodds: torch.Tensor, depth: torch.Tensor,
     return out
 
 
-def _carve_update(shape, tabs, sc, cam: CameraParams, mp: MapParams):
-    """(B, H, W) carve update of one frame per env: l_miss on the cells
-    that the frame's carve table frees, 0 elsewhere, in the kernels'
-    operation order."""
+def _window_inputs(sc, pos, cam: CameraParams, mp: MapParams):
+    """v1's window per env (_fuse_flat :657-665): the scalars sc (B, 8)
+    with the world centre of the window's cell (0, 0) in place of the map's,
+    and org (B, 2) int32 [r0, c0], the window's corner in the grid (rounded
+    half to even around the camera, clamped inside the map)."""
+    ch, cw = _window_cells(cam, mp)
+    row_d = (pos[:, 1] - mp.origin_y) / mp.resolution
+    col_d = (pos[:, 0] - mp.origin_x) / mp.resolution
+    r0 = torch.clamp(torch.round(row_d - ch / 2), 0, mp.height - ch)
+    c0 = torch.clamp(torch.round(col_d - cw / 2), 0, mp.width - cw)
+    sc = sc.clone()
+    sc[:, 0] = mp.origin_x + (c0 + 0.5) * mp.resolution
+    sc[:, 1] = mp.origin_y + (r0 + 0.5) * mp.resolution
+    org = torch.stack([r0, c0], 1).to(torch.int32)
+    return sc.contiguous(), org.contiguous()
+
+
+def _carve_update(shape, tabs, sc, cam: CameraParams, mp: MapParams,
+                  half_even: bool = False):
+    """(B, H, W) carve update of one frame per env on an (H, W) block of
+    cells whose cell (0, 0) lies at (sc[:, 0], sc[:, 1]): l_miss on the
+    cells that the frame's carve table frees, 0 elsewhere, in the kernels'
+    operation order. The column index rounds as v2 does (floor(u + 0.5)),
+    or half to even as v1 does."""
     B, H, W = shape
     dev = tabs.device
     fx, res, half_w, _, l_miss, _, _ = _param_tensors(cam, mp, dev)
@@ -145,7 +208,7 @@ def _carve_update(shape, tabs, sc, cam: CameraParams, mp: MapParams):
     dcy = (-sp) * dx + cp * dy
     r_cell = torch.sqrt(dx * dx + dy * dy)
     u = half_w - (fx * dcy) / torch.clamp(dcx, min=1e-6)
-    uf = torch.floor(u + 0.5)
+    uf = torch.round(u) if half_even else torch.floor(u + 0.5)
     valid = (dcx > 1e-6) & (uf >= 0.0) & (uf <= cam.width - 1)
     uidx = torch.where(valid, uf, torch.zeros_like(uf)).long()
     rcarve = torch.gather(tabs[:, None, :].expand(B, H, -1), 2, uidx)
@@ -153,15 +216,12 @@ def _carve_update(shape, tabs, sc, cam: CameraParams, mp: MapParams):
     return torch.where(carve, l_miss, 0.0)
 
 
-def _fuse_plain(logodds, tabs, sc, hit, cam: CameraParams, mp: MapParams):
-    """B8 v2's plain version: the carve and the hits in PyTorch, in the
-    kernel's operation order."""
-    _, _, _, l_hit, _, l_min, l_max = _param_tensors(cam, mp, logodds.device)
-    out = torch.clamp(logodds + _carve_update(logodds.shape, tabs, sc, cam,
-                                              mp), l_min, l_max)
-    # hits: a cell hit k times gets k adds of l_hit in sequence, as the
-    # reference's scatter and the kernel's atomic adds give it (a summed
-    # k * l_hit would round differently)
+def _hits_plain(out, hit, cam: CameraParams, mp: MapParams):
+    """The hit scatter (_scatter_hits :494) in place on out: a cell hit k
+    times gets k adds of l_hit in sequence, as the reference's scatter and
+    the kernels' atomic adds give it (a summed k * l_hit would round
+    differently), then the grid is clipped."""
+    _, _, _, l_hit, _, l_min, l_max = _param_tensors(cam, mp, out.device)
     flat = out.reshape(-1)
     cells, counts = torch.unique(hit[hit >= 0], return_counts=True)
     for k in range(int(counts.max()) if counts.numel() else 0):
@@ -170,14 +230,47 @@ def _fuse_plain(logodds, tabs, sc, hit, cam: CameraParams, mp: MapParams):
     return torch.clamp(out, l_min, l_max)
 
 
+def _fuse_plain(logodds, tabs, sc, hit, cam: CameraParams, mp: MapParams):
+    """B8 v2's plain version: the carve and the hits in PyTorch, in the
+    kernel's operation order."""
+    _, _, _, _, _, l_min, l_max = _param_tensors(cam, mp, logodds.device)
+    out = torch.clamp(logodds + _carve_update(logodds.shape, tabs, sc, cam,
+                                              mp), l_min, l_max)
+    return _hits_plain(out, hit, cam, mp)
+
+
+def _fuse_window_plain(logodds, tabs, sc, org, hit, cam: CameraParams,
+                       mp: MapParams):
+    """B8 v1's plain version: each env's (ch, cw) window at org updated and
+    clipped on a copy of the grid, in the kernel's operation order, then
+    the hits."""
+    B = logodds.shape[0]
+    ch, cw = _window_cells(cam, mp)
+    _, _, _, _, _, l_min, l_max = _param_tensors(cam, mp, logodds.device)
+    dev = logodds.device
+    rows = (org[:, 0:1].long() + torch.arange(ch, device=dev))[:, :, None]
+    cols = (org[:, 1:2].long() + torch.arange(cw, device=dev))[:, None, :]
+    envs = torch.arange(B, device=dev)[:, None, None]
+    out = logodds.to(torch.float32).clone()
+    upd = _carve_update((B, ch, cw), tabs, sc, cam, mp, half_even=True)
+    out[envs, rows, cols] = torch.clamp(out[envs, rows, cols] + upd, l_min,
+                                        l_max)
+    return _hits_plain(out, hit, cam, mp)
+
+
 def insert_depth_2d_dense_multi(logodds: torch.Tensor, depths: torch.Tensor,
                                 pos: torch.Tensor, quat: torch.Tensor,
                                 cam: CameraParams, mp: MapParams,
                                 row_stride: int = 1) -> torch.Tensor:
     """Fuse F frames per env in order, one clip per frame: logodds
     (B, H, W), depths (B, F, h, w) rendered at row_stride, pos (B, F, 3),
-    quat (B, F, 4). Returns the new (B, H, W) grid."""
-    _check_v2(mp)
+    quat (B, F, 4). Returns the new (B, H, W) grid. Takes maps with
+    W % 128 == 0 and H % 8 == 0 only, as the reference's."""
+    if not _v2_map(mp):
+        raise ValueError(
+            f"multi-frame dense fusion needs a map with width % 128 == 0 "
+            f"and height % 8 == 0 (got {mp.width} x {mp.height}): the "
+            f"reference's whole-grid v3 kernel")
     tabs, sc, hit = _multi_inputs(depths, pos, quat, cam, mp, row_stride)
     if not logodds.is_cuda:
         return _fuse_multi_plain(logodds, tabs, sc, hit, cam, mp)
@@ -253,3 +346,28 @@ def launch_fuse(logodds, tabs, sc, hit, out, cam: CameraParams,
         _cuda.stream_ptr(dev))
     _cuda.check(err, "fuse_depth_dense")
     _cuda.launches["fuse_depth_dense"] += 1
+
+
+def launch_fuse_window(grid, tabs, sc, org, hit, cam: CameraParams,
+                       mp: MapParams) -> None:
+    """Launch B8 v1 on prepared tensors, in place on grid (B, H, W):
+    tabs (B, w), sc (B, 8) float32 with the windows' origins, org (B, 2)
+    int32 (:func:`_window_inputs`), hit (B, w) int64 (:func:`_inputs`)."""
+    dev = grid.device
+    B, H, W = grid.shape
+    w = cam.width
+    ch, cw = _window_cells(cam, mp)
+    for t, name, shape in ((grid, "grid", (B, H, W)), (tabs, "tabs", (B, w)),
+                           (sc, "sc", (B, 8))):
+        _cuda.require(t, name, shape, torch.float32, dev)
+    _cuda.require(org, "org", (B, 2), torch.int32, dev)
+    _cuda.require(hit, "hit", (B, w), torch.int64, dev)
+    if B == 0:
+        return
+    lib = _cuda.load()
+    err = lib.neo_fuse_depth_window(
+        _cuda.ptr(grid), _cuda.ptr(tabs), _cuda.ptr(sc), _cuda.ptr(org),
+        _cuda.ptr(hit), B, H, W, ch, cw, w,
+        _cuda.host_floats(_params(cam, mp)), _cuda.stream_ptr(dev))
+    _cuda.check(err, "fuse_depth_window")
+    _cuda.launches["fuse_depth_window"] += 1

@@ -1,12 +1,17 @@
 """2-D log-odds occupancy from depth frames: the grid, the per-column polar
-reduction of a frame, and the binarization.
+reduction of a frame, the scatter fusions and the binarization.
 
 The port of neoplanner_tpu/mapping/occupancy.py (``logodds_init`` :31,
-``_l`` :35, ``_cell_idx`` :39, ``polar_columns`` :87, and the threshold
-of ``to_occupancy`` :198, which the fused ESDF rebuild applies), batched
-over envs. Log-odds parameters are octomap's defaults (hit
-0.7, miss 0.4, clamp [0.12, 0.97]). The fusion itself (kernels B8 v2 and
-B8 v3) is in mapping/fusion.py.
+``_l`` :35, ``_cell_idx`` :39, ``insert_depth`` :46, ``polar_columns``
+:87, ``insert_depth_2d`` :145, ``to_occupancy`` :198), batched over envs.
+Log-odds parameters are octomap's defaults (hit 0.7, miss 0.4, clamp
+[0.12, 0.97]). The '2d' (:func:`insert_depth_2d`) and '3d'
+(:func:`insert_depth`) fusions are scatter-adds in both forms, on every
+device: no TPU kernel computes them. The adds to one cell are summed in
+another order than the reference's sequential scatter (the CPU sums
+duplicate indices first, the GPU adds atomically in any order), so the
+grids agree to f32 roundoff. The dense fusion (kernels B8 v1, v2, v3) is in
+mapping/fusion.py.
 """
 
 from __future__ import annotations
@@ -37,6 +42,48 @@ def _cell_idx(x: torch.Tensor, y: torch.Tensor, mp: MapParams):
     row = torch.floor((y - mp.origin_y) / mp.resolution).long()
     inb = (row >= 0) & (row < mp.height) & (col >= 0) & (col < mp.width)
     return row, col, inb
+
+
+def _scatter_add(grid: torch.Tensor, row, col, w) -> torch.Tensor:
+    """grid (B, H, W) with w (B, ...) added at the clipped cells (row, col)
+    (B, ...) of each env (the reference's ``.at[...].add``)."""
+    B, H, W = grid.shape
+    envs = torch.arange(B, device=grid.device).reshape(
+        (B,) + (1,) * (row.dim() - 1)).expand_as(row)
+    return grid.index_put((envs, row.clamp(0, H - 1), col.clamp(0, W - 1)),
+                          w.to(grid.dtype), accumulate=True)
+
+
+def insert_depth(logodds: torch.Tensor, depth: torch.Tensor,
+                 pos: torch.Tensor, quat: torch.Tensor, cam: CameraParams,
+                 mp: MapParams, carve_stride: int = 2,
+                 carve_samples: int = 48) -> torch.Tensor:
+    """The '3d' fusion of full-resolution frames (B, h, w) into logodds
+    (B, H, W): every in-slice hit point adds l_hit to its cell, then
+    carve_samples samples along every carve_stride-th ray (both axes), up to
+    one cell short of its end point, add l_miss where they lie in the
+    z-slice; one clip."""
+    l_hit, l_miss = _l(mp.prob_hit), _l(mp.prob_miss)
+    pts, hit = raycast.depth_to_points(depth, pos, quat, cam)
+    in_slice = (pts[..., 2] >= mp.z_min) & (pts[..., 2] <= mp.z_max)
+    row, col, inb = _cell_idx(pts[..., 0], pts[..., 1], mp)
+    logodds = _scatter_add(logodds, row, col,
+                           (hit & in_slice & inb).to(logodds.dtype) * l_hit)
+
+    pts_s = pts[:, ::carve_stride, ::carve_stride]             # (B, h', w', 3)
+    p = pos[:, None, None, None, :]
+    ray = pts_s[:, None] - p
+    length = torch.linalg.vector_norm(ray, dim=-1, keepdim=True)
+    fr = (torch.arange(carve_samples, dtype=torch.float32,
+                       device=depth.device) + 0.5) / carve_samples
+    margin = torch.clamp(length - mp.resolution, min=0.0)
+    samples = p + ray / torch.clamp(length, min=1e-6) * (
+        fr[None, :, None, None, None] * margin)                # (B, S, ...)
+    z_ok = (samples[..., 2] >= mp.z_min) & (samples[..., 2] <= mp.z_max)
+    srow, scol, sinb = _cell_idx(samples[..., 0], samples[..., 1], mp)
+    logodds = _scatter_add(logodds, srow, scol,
+                           (z_ok & sinb).to(logodds.dtype) * l_miss)
+    return torch.clamp(logodds, _l(mp.clamp_min), _l(mp.clamp_max))
 
 
 def polar_columns(depth: torch.Tensor, pos: torch.Tensor, quat: torch.Tensor,
@@ -100,3 +147,36 @@ def occ_threshold(mp: MapParams) -> float:
     ESDF rebuild compares against."""
     return float(torch.tensor(_l(mp.occ_threshold) + 1e-6,
                               dtype=torch.float32))
+
+
+def insert_depth_2d(logodds: torch.Tensor, depth: torch.Tensor,
+                    pos: torch.Tensor, quat: torch.Tensor, cam: CameraParams,
+                    mp: MapParams, carve_samples: int = 48,
+                    row_stride: int = 1) -> torch.Tensor:
+    """The '2d' fusion: one polar ray per image column of frames (B, h, w)
+    rendered at row_stride. carve_samples samples up to one cell short of
+    each column's carve range add l_miss to their cells, then each column's
+    nearest in-slice hit adds l_hit to its cell, then one clip."""
+    r_hit, r_carve, u_dir = polar_columns(depth, pos, quat, cam, mp,
+                                          row_stride)            # (B, w)
+    fr = (torch.arange(carve_samples, dtype=torch.float32,
+                       device=depth.device) + 0.5) / carve_samples
+    r_s = fr[None, :, None] * torch.clamp(r_carve - mp.resolution,
+                                          min=0.0)[:, None, :]   # (B, S, w)
+    cx = pos[:, 0, None, None] + r_s * u_dir[:, None, :, 0]
+    cy = pos[:, 1, None, None] + r_s * u_dir[:, None, :, 1]
+    row, col, inb = _cell_idx(cx, cy, mp)
+    logodds = _scatter_add(logodds, row, col, (inb & (r_s > 0)).to(
+        logodds.dtype) * _l(mp.prob_miss))
+    hx = pos[:, 0:1] + r_hit * u_dir[..., 0]
+    hy = pos[:, 1:2] + r_hit * u_dir[..., 1]
+    hrow, hcol, hinb = _cell_idx(hx, hy, mp)
+    logodds = _scatter_add(logodds, hrow, hcol, (hinb & (r_hit < BIG)).to(
+        logodds.dtype) * _l(mp.prob_hit))
+    return torch.clamp(logodds, _l(mp.clamp_min), _l(mp.clamp_max))
+
+
+def to_occupancy(logodds: torch.Tensor, mp: MapParams) -> torch.Tensor:
+    """Binarized occupancy (B, H, W) float32 {0, 1} of log-odds grids:
+    occupied above the threshold, unknown (0) free (:198)."""
+    return (logodds > occ_threshold(mp)).to(torch.float32)

@@ -1,26 +1,34 @@
-"""Truncated 2-D Euclidean distance transform: kernel B9 (fused) and its
-plain version.
+"""2-D Euclidean distance transforms: the exact transform (kernel B9
+exact), the truncated one (kernel B9 banded) and the fused truncated
+rebuild of the vision loop (kernel B9 fused), each with its plain version.
 
-The port of neoplanner_tpu/ops/edt.py (``_row_distance_sq`` :28,
-``_pass2_banded`` :75, ``edt_truncated`` :91) and of
-neoplanner_tpu/ops/edt_pallas.py ``rebuild_truncated_lite`` (:203). With
-truncation radius R = ceil(max_dist / res) cells:
+The port of neoplanner_tpu/ops/edt.py (``_row_distance_sq`` :28, ``_pass2``
+:44, ``edt_sq_cells`` :64, ``_pass2_banded`` :75, ``edt_truncated`` :91,
+``edt`` :116, ``central_gradient`` :125) and of
+neoplanner_tpu/ops/edt_pallas.py (``pass2`` :114, ``pass2_banded`` :85,
+``rebuild_truncated_lite`` :203):
 
-  pass 1 (rows):    g2[i,j] = min(squared distance to the nearest occupied
-                    cell of row i, (R+1)^2)
-  pass 2 (columns): d2[i,j] = min(R^2, min_{|d|<=R} d^2 + g2[i+d,j])
-  field = min(sqrt(d2) * res, max_dist)
+  pass 1 (rows):    g2[i,j] = squared distance in cells to the nearest
+                    occupied cell of row i (1e9 where the row has none)
+  pass 2 (columns): d2[i,j] = min_k (i-k)^2 + g2[k,j]
 
-Exact below max_dist, clamped above. :func:`rebuild_truncated_lite` goes
-from log-odds straight to the bf16 field: for CUDA tensors in one launch of
-``csrc/edt_trunc.cu`` per call, for CPU tensors through the pass chain
-below. Every step is integer arithmetic held exactly in f32 until one
-sqrt, so both agree bit for bit.
+:func:`edt` is the exact field in meters, sqrt(d2) * res, and 1e4 (FAR)
+where a column pass finds no occupied cell at all. With truncation radius
+R = ceil(max_dist / res) cells, g2 is clamped at (R+1)^2, pass 2 runs over
+|i-k| <= R and is clamped at R^2, and the field is min(sqrt(d2) * res,
+max_dist) (:func:`edt_truncated`, and :func:`rebuild_truncated_lite`, which
+goes from log-odds straight to the bf16 field). Every step is integer
+arithmetic held exactly in f32 (or int32 in the kernels) until one
+correctly rounded sqrt, so kernels and plain versions agree bit for bit.
 
-Replaces: edt_pallas.py ``_make_fused_trunc_kernel`` (:153) via
-``_fused_trunc_flat`` (:187). Bound on the H100: device memory, 6 B per
-cell against ~4(2R+1) integer operations. Design: row tiles with an R-row
-halo in shared memory (binarized bytes, then uint16 pass-1 results).
+For CUDA tensors each entry point launches its kernel: ``csrc/edt_exact.cu``
+(B9 exact), the f32 entry of ``csrc/edt_trunc.cu`` (B9 banded) and its bf16
+entry (B9 fused); for CPU tensors it runs the pass chain below.
+
+Replaces: edt_pallas.py ``_pass2_kernel`` (:32) via ``pass2`` (:119),
+``_make_banded_kernel`` (:56) via ``pass2_banded`` (:98), and
+``_make_fused_trunc_kernel`` (:153) via ``_fused_trunc_flat`` (:187).
+Bounds and designs: see the kernel sources.
 """
 
 from __future__ import annotations
@@ -32,12 +40,21 @@ import torch
 from neoplanner_tpu_torch import _cuda
 
 _BIG = 1e9
+FAR = 1e4                     # empty-map distance in meters (esdf.py:66)
 _TILE = 16                    # output rows per block (csrc/edt_trunc.cu)
+_STRIP = 32                   # columns per block (csrc/edt_exact.cu)
 _SMEM_MAX = 227 * 1024        # shared memory a block can use on the H100
 
 
 def radius_cells(max_dist: float, resolution: float) -> int:
     return max(1, int(math.ceil(max_dist / float(resolution))))
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of x (f32), as the reference
+    and the kernels (__fsqrt_rn) take it: PyTorch's vectorized CPU sqrt is
+    not always correctly rounded, the f64 sqrt rounded to f32 is."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def _row_distance_sq(occ: torch.Tensor) -> torch.Tensor:
@@ -51,6 +68,28 @@ def _row_distance_sq(occ: torch.Tensor) -> torch.Tensor:
         torch.where(occ, -idx, big), [-1]), dim=-1).values, [-1])
     dist = torch.minimum(idx - left, right - idx)
     return torch.clamp(dist * dist, max=_BIG)
+
+
+def _pass2(g2: torch.Tensor) -> torch.Tensor:
+    """out[..., i, j] = min_k (i-k)^2 + g2[..., k, j] over all rows, in
+    f32 as the reference's ``_pass2``, blocked over output rows so that the
+    (..., rows, H, W) broadcast stays near 2^26 elements; any H."""
+    H = g2.shape[-2]
+    ks = torch.arange(H, dtype=torch.float32, device=g2.device)
+    block = max(1, min(H, (1 << 26) // max(g2.numel(), 1)))
+    out = []
+    for i0 in range(0, H, block):
+        i = ks[i0:i0 + block]
+        d2 = (i[:, None] - ks[None, :]) ** 2                       # (b, H)
+        out.append(torch.amin(d2[:, :, None] + g2[..., None, :, :], dim=-2))
+    return torch.cat(out, dim=-2)
+
+
+def _edt_sq_cells(occupancy: torch.Tensor) -> torch.Tensor:
+    """Exact squared EDT in cells of grids (..., H, W) (cells > 0.5 are
+    occupied): the reference's ``edt_sq_cells``, the plain pass chain of
+    kernel B9 exact; _BIG where no cell is occupied."""
+    return _pass2(_row_distance_sq(occupancy > 0.5))
 
 
 def _pass2_banded(g2: torch.Tensor, radius: int) -> torch.Tensor:
@@ -69,25 +108,81 @@ def _pass2_banded(g2: torch.Tensor, radius: int) -> torch.Tensor:
     return torch.clamp(out, max=r2)
 
 
-def edt_truncated(occ: torch.Tensor, resolution: float,
-                  max_dist: float) -> torch.Tensor:
-    """EDT in meters of occ (..., H, W) bool, exact below max_dist and
-    clamped to it above (float32)."""
+def _truncated_plain(occ: torch.Tensor, resolution: float,
+                     max_dist: float) -> torch.Tensor:
+    """The truncated field in meters of occ (..., H, W) bool: the plain
+    version of kernels B9 banded and B9 fused (before its bf16 store)."""
     radius = radius_cells(max_dist, resolution)
     g2 = torch.clamp(_row_distance_sq(occ), max=float((radius + 1) ** 2))
-    d = torch.sqrt(_pass2_banded(g2, radius)) * torch.tensor(
+    d = _sqrt_rn(_pass2_banded(g2, radius)) * torch.tensor(
         resolution, dtype=torch.float32, device=occ.device)
     return torch.clamp(d, max=max_dist)
+
+
+def edt_truncated(occupancy: torch.Tensor, resolution: float,
+                  max_dist: float) -> torch.Tensor:
+    """EDT in meters of grids (B, H, W) (cells > 0.5 are occupied), exact
+    below max_dist and clamped to it above (float32): kernel B9 banded for
+    CUDA tensors."""
+    if not occupancy.is_cuda:
+        return _truncated_plain(occupancy > 0.5, resolution, max_dist)
+    out = torch.empty(occupancy.shape, dtype=torch.float32,
+                      device=occupancy.device)
+    launch_edt_banded(occupancy.to(torch.float32).contiguous(), out, 0.5,
+                      resolution, max_dist)
+    return out
+
+
+def _edt_plain(occupancy: torch.Tensor, resolution: float) -> torch.Tensor:
+    """The exact field in meters of grids (..., H, W) (cells > 0.5 are
+    occupied): the plain version of kernel B9 exact."""
+    d2 = _edt_sq_cells(occupancy)
+    d = _sqrt_rn(d2) * torch.tensor(resolution, dtype=torch.float32,
+                                    device=d2.device)
+    return torch.where(d2 >= _BIG, FAR, torch.clamp(d, max=FAR))
+
+
+def edt(occupancy: torch.Tensor, resolution: float) -> torch.Tensor:
+    """Exact EDT in meters of grids (B, H, W) (cells > 0.5 are occupied),
+    float32, as scipy's distance_transform_edt(1 - occ) * res; FAR (1e4)
+    throughout a grid with no occupied cell. Kernel B9 exact for CUDA
+    tensors."""
+    if not occupancy.is_cuda:
+        return _edt_plain(occupancy, resolution)
+    out = torch.empty(occupancy.shape, dtype=torch.float32,
+                      device=occupancy.device)
+    launch_edt_exact(occupancy.to(torch.float32).contiguous(), out, 0.5,
+                     resolution)
+    return out
+
+
+def central_gradient(field: torch.Tensor, spacing: float):
+    """np.gradient's central differences of fields (..., H, W), one-sided
+    at the borders, divided by spacing: (d/drow, d/dcol) = (grad_y,
+    grad_x) per meter (the reference's ``central_gradient`` :125). Plain
+    PyTorch on every device: no TPU kernel computes it."""
+    gy = torch.empty_like(field)
+    gx = torch.empty_like(field)
+    gy[..., 1:-1, :] = (field[..., 2:, :] - field[..., :-2, :]) * 0.5
+    gy[..., 0, :] = field[..., 1, :] - field[..., 0, :]
+    gy[..., -1, :] = field[..., -1, :] - field[..., -2, :]
+    gx[..., :, 1:-1] = (field[..., :, 2:] - field[..., :, :-2]) * 0.5
+    gx[..., :, 0] = field[..., :, 1] - field[..., :, 0]
+    gx[..., :, -1] = field[..., :, -1] - field[..., :, -2]
+    # a tensor divisor: a true division on every device, as the reference's
+    s = torch.tensor(spacing, dtype=field.dtype, device=field.device)
+    return gy / s, gx / s
 
 
 def rebuild_truncated_lite(logodds: torch.Tensor, thr: float,
                            resolution: float,
                            max_dist: float) -> torch.Tensor:
     """The bf16 truncated field (B, H, W) of log-odds grids (B, H, W):
-    occupied where logodds > thr (a float32 value)."""
+    occupied where logodds > thr (a float32 value); kernel B9 fused for
+    CUDA tensors."""
     if not logodds.is_cuda:
-        return edt_truncated(logodds > thr, resolution,
-                             max_dist).to(torch.bfloat16)
+        return _truncated_plain(logodds > thr, resolution,
+                                max_dist).to(torch.bfloat16)
     out = torch.empty(logodds.shape, dtype=torch.bfloat16,
                       device=logodds.device)
     launch_edt(logodds.to(torch.float32).contiguous(), out, thr, resolution,
@@ -95,18 +190,22 @@ def rebuild_truncated_lite(logodds: torch.Tensor, thr: float,
     return out
 
 
+def _check_band(W: int, radius: int) -> None:
+    if (_TILE + 2 * radius) * W * 3 + 1 > _SMEM_MAX:
+        raise ValueError(f"a {W}-cell row tile with a {radius}-row halo "
+                         f"exceeds the kernel's shared memory")
+
+
 def launch_edt(logodds, out, thr: float, resolution: float,
                max_dist: float) -> None:
-    """Launch B9 on prepared tensors: logodds (B, H, W) float32; writes out
-    (B, H, W) bfloat16."""
+    """Launch B9 fused on prepared tensors: logodds (B, H, W) float32;
+    writes out (B, H, W) bfloat16."""
     dev = logodds.device
     B, H, W = logodds.shape
     _cuda.require(logodds, "logodds", (B, H, W), torch.float32, dev)
     _cuda.require(out, "out", (B, H, W), torch.bfloat16, dev)
     radius = radius_cells(max_dist, resolution)
-    if (_TILE + 2 * radius) * W * 3 + 1 > _SMEM_MAX:
-        raise ValueError(f"a {W}-cell row tile with a {radius}-row halo "
-                         f"exceeds the kernel's shared memory")
+    _check_band(W, radius)
     if B == 0:
         return
     lib = _cuda.load()
@@ -115,3 +214,45 @@ def launch_edt(logodds, out, thr: float, resolution: float,
         _cuda.host_floats([thr, resolution, max_dist]), _cuda.stream_ptr(dev))
     _cuda.check(err, "edt_trunc_lite")
     _cuda.launches["edt_trunc_lite"] += 1
+
+
+def launch_edt_banded(grid, out, thr: float, resolution: float,
+                      max_dist: float) -> None:
+    """Launch B9 banded on prepared tensors: grid (B, H, W) float32
+    (occupied where > thr); writes the truncated field out (B, H, W)
+    float32."""
+    dev = grid.device
+    B, H, W = grid.shape
+    _cuda.require(grid, "grid", (B, H, W), torch.float32, dev)
+    _cuda.require(out, "out", (B, H, W), torch.float32, dev)
+    radius = radius_cells(max_dist, resolution)
+    _check_band(W, radius)
+    if B == 0:
+        return
+    lib = _cuda.load()
+    err = lib.neo_edt_banded(
+        _cuda.ptr(grid), _cuda.ptr(out), B, H, W, radius,
+        _cuda.host_floats([thr, resolution, max_dist]), _cuda.stream_ptr(dev))
+    _cuda.check(err, "edt_banded")
+    _cuda.launches["edt_banded"] += 1
+
+
+def launch_edt_exact(grid, out, thr: float, resolution: float) -> None:
+    """Launch B9 exact on prepared tensors: grid (B, H, W) float32
+    (occupied where > thr); writes the exact field out (B, H, W) float32
+    in meters, FAR where the column pass finds no occupied cell."""
+    dev = grid.device
+    B, H, W = grid.shape
+    _cuda.require(grid, "grid", (B, H, W), torch.float32, dev)
+    _cuda.require(out, "out", (B, H, W), torch.float32, dev)
+    if (H * _STRIP + _STRIP) * 4 > _SMEM_MAX:
+        raise ValueError(f"a {H}-row column strip exceeds the exact "
+                         f"kernel's shared memory")
+    if B == 0:
+        return
+    lib = _cuda.load()
+    err = lib.neo_edt_exact(
+        _cuda.ptr(grid), _cuda.ptr(out), B, H, W,
+        _cuda.host_floats([thr, resolution, FAR]), _cuda.stream_ptr(dev))
+    _cuda.check(err, "edt_exact")
+    _cuda.launches["edt_exact"] += 1

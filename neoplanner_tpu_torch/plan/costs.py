@@ -8,8 +8,9 @@ optimization default, samples at t = T·j/(K-1)):
                collision  ∫max(safe_dis - SDF(p), 0)³ ]
 
 Every function takes a leading problem axis N; the map holds one row per
-problem: the analytic scene SDF (SceneMap), a lite grid ESDF (ESDFMap,
-sampled as pp.esdf_interp says) or the grid solver's windows (GridWindow).
+problem: the analytic scene SDF (SceneMap), a grid ESDF (ESDFMap, lite or
+full, sampled as pp.esdf_interp says) or the grid solver's windows
+(GridWindow).
 Gradients come from autograd through the banded solve's implicit adjoint
 (ops/minco.solve_banded).
 """

@@ -187,3 +187,16 @@ def launch_render(pos, quat, prims, depth, cam: CameraParams,
         _cuda.stream_ptr(dev))
     _cuda.check(err, "render_depth")
     _cuda.launches["render_depth"] += 1
+
+
+def depth_to_points(depth: torch.Tensor, pos: torch.Tensor,
+                    quat: torch.Tensor, cam: CameraParams):
+    """Back-project full-resolution depth frames (B, h, w) from poses pos
+    (B, 3), quat (B, 4) to world points (B, h, w, 3) and the hit mask
+    (B, h, w) (raycast.py ``depth_to_points`` :185)."""
+    dirs_body = ray_dirs_camera(cam, 1, depth.device)        # (h, w, 3)
+    rng = depth / torch.clamp(dirs_body[..., 0], min=1e-6)   # ray length
+    pts_body = dirs_body * rng[..., None]
+    pts = pos[:, None, None, :] + frames.quat_rotate(quat[:, None, None, :],
+                                                     pts_body)
+    return pts, depth < cam.max_range - 1e-4

@@ -1,33 +1,42 @@
 """The closed loop with NEO planning: reset, step, rollout.
 
-The port of neoplanner_tpu/sim/env.py for two configurations, both with the
-NEO planner (``_replan`` :219-293), random missions and periodic replanning
+The port of neoplanner_tpu/sim/env.py for three paths, all with the NEO
+planner (``_replan`` :219-293), random missions and periodic replanning
 (``step_segment`` :452), and ``rollout`` (:720):
 
 - the flagship (bench.py:101-142): ground-truth sensing and the analytic
   scene SDF for every distance query (``sensing='gt', plan_map='scene'``,
   the scene-lite state of reset :147-156: no per-env grids);
+- the ground-truth grid (the reference's defaults, reset :157-159):
+  ``sensing='gt', plan_map='grid'``, the world rasterized at reset into a
+  full-profile exact ESDF (kernel B9 exact) that planning, local targets
+  and tracking read;
 - the vision loop (examples/profile_vision.py:33-71):
   ``sensing='depth', plan_map='grid'``, the onboard mode in which each
-  drone builds its map from its own depth frames (reset :157-166,
+  drone builds its map from its own depth frames (reset :160-166,
   ``fuse_frame`` :363, ``rebuild_esdf`` :408, ``sense_and_map`` :440, the
   depth branch of step_segment :509-515), with ``fuse_frames`` frames fused
-  per segment (the sensor-rate loop, step_segment :567-633).
+  per segment (the sensor-rate loop, step_segment :567-633), with every
+  fusion of ``MapParams.fusion`` and an exact or truncated lite ESDF.
 
 The other planners and mission modes are not ported.
 
 B envs advance together. Each segment: render the depth frame (kernel B4);
-in the vision loop fuse it into the log-odds grid (kernel B8 v2) and
-rebuild the truncated ESDF (kernel B9); pick the local target, run the
-PlannerNet on the same frame, refine with the lazy L-BFGS bank (kernel B1 on
-the scene, B6 on per-env ESDF windows; acceptance and coefficients through
-kernel B5), sample the new setpoints, then track them for steps_per_replan
-substeps (kernel B3 on the scene, B10 with the grid metric). With
-``fuse_frames`` F > 1 the tracking runs in F chunks and F - 1 more frames,
-rendered at ``mapp.fusion_row_stride`` from the poses after the first F - 1
-chunks, are fused: all in one B4 launch and one B8 v3 launch after the last
-chunk when the ESDF rebuilds once per segment (``esdf_rate`` 1), else frame
-by frame after each chunk (B4, B8 v2 and every F // esdf_rate chunks B9).
+in the vision loop fuse it into the log-odds grid (the '2d_dense' fusion:
+kernel B8 v2, or B8 v1 on maps that v2 does not take; the '2d' and '3d'
+scatter fusions) and rebuild the ESDF (kernel B9 fused for a truncated
+field, B9 exact for an exact one); pick the local target, run the
+PlannerNet on the same frame, refine with the lazy L-BFGS bank (kernel B1
+on the scene, B6 on per-env ESDF windows; acceptance and coefficients
+through kernel B5), sample the new setpoints, then track them for
+steps_per_replan substeps (kernel B3 on the scene, B10 with the grid
+metric). With ``fuse_frames`` F > 1 the tracking runs in F chunks and
+F - 1 more frames, rendered at ``mapp.fusion_row_stride`` from the poses
+after the first F - 1 chunks, are fused: all in one B4 launch and one B8 v3
+launch after the last chunk when the ESDF rebuilds once per segment
+(``esdf_rate`` 1) and the map and camera suit the dense whole-grid fusion,
+else frame by frame after each chunk (B4, the map's fusion, and every
+F // esdf_rate chunks the rebuild).
 
 Random draws come from the state's ``torch.Generator``, one :class:`Draws`
 per segment; a caller may pass its own draws instead (the parity tests pass
@@ -55,6 +64,7 @@ from neoplanner_tpu_torch.plan import neo
 from neoplanner_tpu_torch.sense import raycast
 from neoplanner_tpu_torch.sim import dynamics, missions, track
 from neoplanner_tpu_torch.utils.profiling import stage
+from neoplanner_tpu_torch.world import voxelize
 
 METRIC_WEIGHTS = (1.0, 1.0, 100.0)  # distance, feasibility, collision
 
@@ -84,9 +94,11 @@ class EnvState(_Replace):
     missions_ok: torch.Tensor    # (B,) int32
     metric_ok_sum: torch.Tensor  # (B,) weighted metric of the ok missions
     generator: torch.Generator
-    # the vision loop's sensed maps and the map parameters that fusion and
-    # the ESDF rebuild read (None on the scene path)
-    emap: Optional[ESDFMap] = None          # lite truncated ESDF (B, H, W)
+    # the grid paths' maps (None on the scene path): the ground-truth
+    # full-profile ESDF, or the vision loop's sensed lite ESDF with its
+    # log-odds grid and the map parameters that fusion and the ESDF rebuild
+    # read (logodds and mapp None on the ground-truth grid)
+    emap: Optional[ESDFMap] = None          # (B, H, W)
     logodds: Optional[torch.Tensor] = None  # (B, H, W) fused occupancy
     mapp: Optional[MapParams] = None
 
@@ -127,7 +139,8 @@ def draw(gen: torch.Generator, B: int, pp: PlannerParams) -> Draws:
         goal_u=torch.rand((B,), generator=gen, device=dev))
 
 
-PATHS = (("gt", "scene"), ("depth", "grid"))
+PATHS = (("gt", "scene"), ("gt", "grid"), ("depth", "grid"))
+FUSIONS = ("2d", "2d_dense", "3d")
 
 
 def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
@@ -139,25 +152,31 @@ def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
     JAX reset's skip_takeoff=True; takeoff is not ported). Without a goal,
     each env samples a random goal (from goal_u, else from the generator),
     as in random missions; goals are vetted against the ground-truth scene
-    in both sensing modes. sensing='depth' starts the map unknown: a zero
-    log-odds grid and its truncated lite ESDF (mapp.edt_truncation > 0),
-    and the state keeps mapp for fusing and rebuilding; the state's maps
-    then choose the path that step_segment runs."""
+    in every sensing mode. plan_map='grid' with sensing='gt' rasterizes each
+    world (voxelize.occupancy_2d) and builds its exact full-profile ESDF.
+    sensing='depth' starts the map unknown: a zero log-odds grid and its
+    lite ESDF (exact for mapp.edt_truncation = 0, else truncated), and the
+    state keeps mapp for fusing and rebuilding. The state's maps then choose
+    the path that step_segment runs."""
     if (sensing, plan_map) not in PATHS:
         raise ValueError(f"unsupported sensing/plan_map {sensing}/{plan_map}"
                          f"; the port runs {PATHS}")
     B = world.centers.shape[0]
     dev = world.centers.device
     scene = scene_map.build(world, mapp)
+    origin = (mapp.origin_x, mapp.origin_y)
     emap = logodds = None
     if sensing == "depth":
-        if mapp.fusion != "2d_dense":
-            raise ValueError(f"the port implements fusion='2d_dense' only "
-                             f"(got {mapp.fusion!r})")
+        if mapp.fusion not in FUSIONS:
+            raise ValueError(f"unknown fusion {mapp.fusion!r}; the port "
+                             f"runs {FUSIONS}")
         logodds = occupancy.logodds_init(mapp, B, dev)
-        emap = esdf_map.build(torch.zeros_like(logodds),
-                              (mapp.origin_x, mapp.origin_y),
-                              mapp.resolution, mapp.edt_truncation)
+        emap = esdf_map.build(torch.zeros_like(logodds), origin,
+                              mapp.resolution, mapp.edt_truncation,
+                              lite=True)
+    elif plan_map == "grid":
+        emap = esdf_map.build(voxelize.occupancy_2d(world, mapp), origin,
+                              mapp.resolution)
     flap = torch.zeros(B, dtype=torch.int32, device=dev)
     if goal is None:
         if goal_u is None:
@@ -197,18 +216,27 @@ def fuse_frame(state: EnvState, cam: CameraParams,
                depth: Optional[torch.Tensor] = None,
                depth_stride: int = 1) -> EnvState:
     """Fuse a depth frame (B, h, w) taken from the current pose, rendered at
-    depth_stride, into the log-odds grids (the '2d_dense' fusion, kernel
-    B8 v2) — no ESDF rebuild. Without a frame, render one at
-    mapp.fusion_row_stride first (kernel B4)."""
+    depth_stride, into the log-odds grids by mapp.fusion (env.py :363-405)
+    — no ESDF rebuild. Without a frame, render one first (kernel B4), at
+    mapp.fusion_row_stride ('3d': at full resolution). '2d_dense' runs the
+    dense fusion (kernels B8 v2 or v1) where its window covers the sensor's
+    reach, else the '2d' scatter fusion, as the reference chooses by
+    configuration; '3d' takes full-resolution frames."""
+    mapp = state.mapp
     if depth is None:
-        depth_stride = state.mapp.fusion_row_stride
+        depth_stride = mapp.fusion_row_stride if mapp.fusion != "3d" else 1
         depth = raycast.render_depth_auto(state.world, state.drone.pos,
                                           state.drone.quat, cam,
                                           row_stride=depth_stride)
-    logodds = fusion.insert_depth_2d_dense(state.logodds, depth,
-                                           state.drone.pos, state.drone.quat,
-                                           cam, state.mapp,
-                                           row_stride=depth_stride)
+    args = (state.logodds, depth, state.drone.pos, state.drone.quat, cam,
+            mapp)
+    if mapp.fusion == "2d_dense" and fusion.window_fits(cam, mapp):
+        logodds = fusion.insert_depth_2d_dense(*args,
+                                               row_stride=depth_stride)
+    elif mapp.fusion in ("2d", "2d_dense"):
+        logodds = occupancy.insert_depth_2d(*args, row_stride=depth_stride)
+    else:
+        logodds = occupancy.insert_depth(*args)
     return state.replace(logodds=logodds)
 
 
@@ -227,13 +255,23 @@ def fuse_frames_multi(state: EnvState, cam: CameraParams, pos: torch.Tensor,
 
 
 def rebuild_esdf(state: EnvState) -> EnvState:
-    """Binarize the fused log-odds and rebuild the truncated lite ESDF in
-    one pass (kernel B9)."""
+    """Binarize the fused log-odds and rebuild the ESDF in the state's
+    profile (env.py :408-437): a truncated lite field straight from the
+    log-odds in one pass (kernel B9 fused) where the reference takes its
+    fused kernel (lite, edt_truncation > 0, H % 8 == 0), else esdf.build
+    on the binarized grid (kernel B9 exact or B9 banded)."""
     mapp = state.mapp
-    field = edt.rebuild_truncated_lite(state.logodds,
-                                       occupancy.occ_threshold(mapp),
-                                       mapp.resolution, mapp.edt_truncation)
-    return state.replace(emap=state.emap.replace(esdf=field))
+    lite = state.emap.lite
+    if lite and mapp.edt_truncation > 0.0 and mapp.height % 8 == 0:
+        field = edt.rebuild_truncated_lite(state.logodds,
+                                           occupancy.occ_threshold(mapp),
+                                           mapp.resolution,
+                                           mapp.edt_truncation)
+        return state.replace(emap=state.emap.replace(esdf=field))
+    emap = esdf_map.build(occupancy.to_occupancy(state.logodds, mapp),
+                          (mapp.origin_x, mapp.origin_y), mapp.resolution,
+                          mapp.edt_truncation, lite=lite)
+    return state.replace(emap=emap)
 
 
 def sense_and_map(state: EnvState, cam: CameraParams, depth: torch.Tensor,
@@ -263,11 +301,11 @@ def _replan(state: EnvState, pp, mp, net, depth: torch.Tensor, pmap,
     return traj, new_cmd, near, ahead[:, :2]
 
 
-def _chunks(vision: bool, spr: int, fuse_frames: int,
+def _chunks(sensed: bool, spr: int, fuse_frames: int,
             goal_stream: Optional[torch.Tensor], esdf_rate: int) -> int:
     """Tracking chunks of a segment, with the reference's checks
     (step_segment :574-585)."""
-    n_chunks = fuse_frames if vision else 1
+    n_chunks = fuse_frames if sensed else 1
     if goal_stream is not None:
         c = goal_stream.shape[1]
         if n_chunks > 1 and c != n_chunks:
@@ -291,7 +329,8 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
                  esdf_rate: int = 1):
     """One replan period for every env: sense (on the vision path, which
     reset chose with sensing='depth': the frame is rendered once at full
-    resolution, fused into the map, and shared with the net), (maybe)
+    resolution, fused into the map, the ESDF rebuilt, and the frame shared
+    with the net; on the other paths the frame feeds the net only), (maybe)
     replan, then track steps_per_replan setpoints; finished missions count
     and draw a new goal. Returns (state, SegmentInfo).
 
@@ -304,19 +343,20 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
     given). ``timer`` (a utils.profiling.StageTimer) records the render,
     fuse, esdf, net, plan and track stages, and fuse_multi for the batched
     frames."""
-    vision = state.emap is not None
+    grid = state.emap is not None          # the gt+grid or vision path
+    sensed = state.logodds is not None     # the vision path
     spr = mp.steps_per_replan
     B, nbuf = state.buffer.shape[:2]
-    n_chunks = _chunks(vision, spr, fuse_frames, goal_stream, esdf_rate)
+    n_chunks = _chunks(sensed, spr, fuse_frames, goal_stream, esdf_rate)
     if draws is None:
         draws = draw(state.generator, B, pp)
 
     with stage(timer, "render"):
         depth = raycast.render_depth_auto(state.world, state.drone.pos,
                                           state.drone.quat, cam)
-    if vision:
+    if sensed:
         state = sense_and_map(state, cam, depth, timer)
-    pmap = state.emap if vision else state.scene
+    pmap = state.emap if grid else state.scene
 
     do_replan = ((state.phase == missions.PHASE_MISSION) & ~state.reached
                  & ~state.failed & ~state.near_goal)
@@ -344,13 +384,16 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
         carry_ts=torch.where(plan_ok[:, None], traj.ts, state.carry_ts),
         has_carry=state.has_carry | plan_ok)
 
-    tracker = track.track_segment_grid if vision else track.track_segment
+    tracker = track.track_segment_grid if grid else track.track_segment
     # Mid-segment frames have no consumer before the segment ends when the
     # ESDF rebuilds once per segment: the tracking follows the command
-    # buffer. So the frames' poses are collected and every frame is fused in
+    # buffer. So, where the dense whole-grid fusion takes the map and the
+    # camera, the frames' poses are collected and every frame is fused in
     # one pass after the last chunk (the reference's batch_fuse, :596-601).
-    fusing = vision and fuse_frames > 1
-    batch_fuse = fusing and esdf_rate == 1
+    fusing = sensed and fuse_frames > 1
+    mapp = state.mapp
+    batch_fuse = (fusing and esdf_rate == 1 and mapp.fusion == "2d_dense"
+                  and fusion._v2_map(mapp) and fusion.window_fits(cam, mapp))
     chunk = spr // n_chunks
     traces, fuse_pos, fuse_quat = [], [], []
     for c in range(n_chunks):

@@ -186,7 +186,7 @@ def track_segment_grid(state, cmds: torch.Tensor, pp: PlannerParams,
     t_ticks = [t for t in range(cmds.shape[1])
                if (t + i0) % METRIC_EVERY == 0]
     pos = trace[:, t_ticks, 0, :2]                            # (B, T, 2)
-    dis = esdf_map.sample_nearest(state.emap, pos)
+    dis = esdf_map.nearest_distance(state.emap, pos)
     dviol = torch.clamp(pp.safe_dis - torch.clamp(dis, min=0.0), min=0.0)
     m2 = (ticks[:, t_ticks] * dviol ** 3).sum(1)
     metrics = metrics + torch.stack(

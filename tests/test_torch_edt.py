@@ -74,7 +74,7 @@ def test_build_at_reset_is_uniform_truncation():
     everywhere, as the JAX reset's lite map."""
     mp = MapParams(width=256, height=192, origin_x=-4.0, origin_y=-9.6)
     emap = esdf.build(torch.zeros((2, 192, 256)), (mp.origin_x, mp.origin_y),
-                      mp.resolution, 2.0)
+                      mp.resolution, 2.0, lite=True)
     want = _jax_field(np.zeros((192, 256), np.float32), 2.0)
     np.testing.assert_array_equal(emap.esdf[1].float().numpy(), want)
     assert float(want.min()) == 2.0

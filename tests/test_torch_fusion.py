@@ -120,12 +120,26 @@ def test_fusion_marks_hits_and_free_space(fused):
 
 
 def test_irregular_map_raises():
-    """The reference's v1 windowed kernel (W % 128 != 0) is not ported."""
+    """On a map that the whole-grid v2 kernel does not take (W % 128 != 0),
+    the dense fusion runs the reference's v1 window, which the default 6 m
+    camera's reach (168 cells) overflows on a 200 x 100 map: the port
+    raises the reference's error, as occupancy_pallas.insert_depth_2d_dense
+    does."""
     mp = MapParams(width=200, height=100, fusion="2d_dense")
     depth, pos, quat = _frames()[0]
-    with pytest.raises(ValueError, match="width % 128"):
+    assert not fusion.window_fits(CameraParams(), mp)
+    assert not occupancy_pallas.window_fits(JCameraParams(),
+                                            JMapParams(width=200, height=100))
+    with pytest.raises(ValueError, match=r"dense fusion window \(128-cell "
+                       r"cap\) does not cover cam.max_range=6.0"):
         fusion.insert_depth_2d_dense(occupancy.logodds_init(mp, B), depth,
                                      pos, quat, CameraParams(), mp)
+    with pytest.raises(ValueError, match=r"dense fusion window \(128-cell "
+                       r"cap\) does not cover cam.max_range=6.0"):
+        occupancy_pallas.insert_depth_2d_dense(
+            jnp.zeros((100, 200)), jnp.asarray(depth[0].numpy()),
+            jnp.asarray(pos[0].numpy()), jnp.asarray(quat[0].numpy()),
+            JCameraParams(), JMapParams(width=200, height=100))
 
 
 def test_cpu_tensor_takes_plain_version():

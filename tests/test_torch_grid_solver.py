@@ -66,7 +66,7 @@ def maps():
         x, JMapParams(**MAPP)))(w)
     jmaps = jax.vmap(lambda o: jesdf.build(
         o, jnp.array(ORIGIN), RES, max_dist=2.0, lite=True))(occ)
-    tmap = esdf.build(_t(occ), ORIGIN, RES, 2.0)
+    tmap = esdf.build(_t(occ), ORIGIN, RES, 2.0, lite=True)
     np.testing.assert_array_equal(tmap.esdf.float().numpy(),
                                   np.asarray(jmaps.esdf.astype(jnp.float32)))
     return jmaps, tmap

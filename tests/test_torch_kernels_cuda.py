@@ -213,7 +213,7 @@ def test_track_grid_kernel_matches_plain(cuda_device):
                    sensing="depth", plan_map="grid")
     occ = torch.zeros((4, 192, 256))
     occ[:, 96:103, 77:84] = 1.0
-    st = st.replace(emap=esdf.build(occ, ORIGIN, 0.1, 2.0),
+    st = st.replace(emap=esdf.build(occ, ORIGIN, 0.1, 2.0, lite=True),
                     drone=st.drone.replace(pos=st.drone.pos + torch.tensor(
                         [3.0, 0.0, 0.0])))
     cmds = _cmds(4, x0=3.0)
@@ -305,6 +305,51 @@ def test_fusion_kernel_matches_plain(cuda_device):
         assert float(step.max()) <= 1e-5
 
 
+# ---- B8 v1: windowed dense depth fusion
+
+
+@pytest.mark.parametrize("mapp_kw, cam_kw", [
+    (dict(fusion="2d_dense"), dict(max_range=4.0)),
+    (dict(width=120, height=96, origin_x=-2.0, origin_y=-4.8,
+          fusion="2d_dense"), dict())])
+def test_window_fusion_kernel_matches_plain(cuda_device, mapp_kw, cam_kw):
+    """Three frames fused in sequence on maps that v2 does not take (the
+    448 x 256 default map with a 4 m camera, whose 114-cell windows follow
+    the drones and clamp at the map's corner, and a 120 x 96 map with the
+    6 m camera): as B8 v2, at most 1e-4 of the updated cells may differ,
+    each by exactly one l_miss or l_hit quantum; cells outside the windows
+    keep their values but for the hits."""
+    cam = CameraParams(**cam_kw)
+    mp = MapParams(**mapp_kw)
+    small = mp.width < 200
+    worlds = _worlds(3)
+    if small:
+        worlds = worlds.replace(centers=worlds.centers - torch.tensor(
+            [3.0, 0.0, 0.0]))
+    lo = occupancy.logodds_init(mp, 3)
+    lo_g = lo.to(cuda_device)
+    quanta = torch.tensor([occupancy._l(mp.prob_miss),
+                           occupancy._l(mp.prob_hit)]).abs()
+    before = _cuda.launches["fuse_depth_window"]
+    for seed in (4, 5, 6):
+        pos, quat = _poses(3, seed, x=(0.0, 3.0))
+        if not small:          # the third drone by the map's corner
+            pos[2, :2] = torch.tensor([-7.0, -11.5])
+        depth = raycast.render_depth(worlds, pos, quat, cam)
+        lo = fusion.insert_depth_2d_dense(lo, depth, pos, quat, cam, mp)
+        lo_g = fusion.insert_depth_2d_dense(
+            lo_g, depth.to(cuda_device), pos.to(cuda_device),
+            quat.to(cuda_device), cam, mp)
+    assert _cuda.launches["fuse_depth_window"] == before + 3
+    diff = (lo_g.cpu() - lo).abs()
+    off = diff > 0
+    assert int((lo < 0).sum()) > 1000
+    assert int(off.sum()) <= 1e-4 * int((lo != 0).sum())
+    if off.any():
+        step = (diff[off][:, None] - quanta[None]).abs().amin(1)
+        assert float(step.max()) <= 1e-5
+
+
 # ---- B8 v3: multi-frame dense depth fusion
 
 
@@ -363,6 +408,47 @@ def test_edt_kernel_matches_plain(cuda_device, shape, max_dist, sparse):
     assert torch.equal(got.cpu(), want)
 
 
+# ---- B9 exact and B9 banded: occupancy -> f32 ESDF
+
+
+def _occupancy_grids():
+    rng = np.random.default_rng(6)
+    out = [(rng.uniform(0, 1, size=(3, 256, 448)) < d).astype(np.float32)
+           for d in (0.002, 0.05)]
+    out.append((rng.uniform(0, 1, size=(2, 37, 53)) < 0.1).astype(
+        np.float32))
+    one = np.zeros((2, 40, 40), np.float32)
+    one[0, 10, 25] = 1.0
+    out += [one, np.ones((1, 16, 24), np.float32),
+            np.zeros((1, 16, 24), np.float32)]
+    return [_t(g) for g in out]
+
+
+def test_edt_exact_kernel_matches_plain(cuda_device):
+    """Bit for bit on sparse and dense 256 x 448 grids, H = 37 and W = 53
+    (neither a multiple of the tiling), one obstacle, a full grid and an
+    empty one (FAR): integer min-plus, one correctly rounded sqrt."""
+    before = _cuda.launches["edt_exact"]
+    for occ in _occupancy_grids():
+        want = edt.edt(occ, 0.1)
+        got = edt.edt(occ.to(cuda_device), 0.1)
+        assert torch.equal(got.cpu(), want)
+    assert _cuda.launches["edt_exact"] == before + 6
+    assert float(want.min()) == 1e4
+
+
+@pytest.mark.parametrize("max_dist", [0.7, 2.0])
+def test_edt_banded_kernel_matches_plain(cuda_device, max_dist):
+    """Bit for bit, the f32 truncated field (as B9 fused before its bf16
+    store)."""
+    before = _cuda.launches["edt_banded"]
+    for occ in _occupancy_grids():
+        want = edt.edt_truncated(occ, 0.1, max_dist)
+        got = edt.edt_truncated(occ.to(cuda_device), 0.1, max_dist)
+        assert torch.equal(got.cpu(), want)
+    assert _cuda.launches["edt_banded"] == before + 6
+
+
 # ---- B6 (+B2): L-BFGS on ESDF windows
 
 
@@ -376,7 +462,7 @@ def test_grid_solver_kernel_matches_plain(cuda_device):
             r, c = rng.integers(60, 130), rng.integers(60, 140)
             h, w = rng.integers(4, 12, size=2)
             occ[e, r:r + h, c:c + w] = 1.0
-    emap = esdf.build(occ, ORIGIN, 0.1, 2.0)
+    emap = esdf.build(occ, ORIGIN, 0.1, 2.0, lite=True)
     pp = PlannerParams(samples_per_piece=24, max_iters=1, max_ls=4)
     x0, head, tail = _boundary(8, seed=1, start=(3.0, 0.0))
     env_of = torch.arange(8) % 2
