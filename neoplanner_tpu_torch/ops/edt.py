@@ -43,6 +43,7 @@ _BIG = 1e9
 FAR = 1e4                     # empty-map distance in meters (esdf.py:66)
 _TILE = 16                    # output rows per block (csrc/edt_trunc.cu)
 _STRIP = 32                   # columns per block (csrc/edt_exact.cu)
+_MAX_ROW = 1024               # cells per row it loads at once
 _SMEM_MAX = 227 * 1024        # shared memory a block can use on the H100
 
 
@@ -245,9 +246,12 @@ def launch_edt_exact(grid, out, thr: float, resolution: float) -> None:
     B, H, W = grid.shape
     _cuda.require(grid, "grid", (B, H, W), torch.float32, dev)
     _cuda.require(out, "out", (B, H, W), torch.float32, dev)
-    if (H * _STRIP + _STRIP) * 4 > _SMEM_MAX:
+    if H * _STRIP * 8 > _SMEM_MAX:
         raise ValueError(f"a {H}-row column strip exceeds the exact "
                          f"kernel's shared memory")
+    if W > _MAX_ROW:
+        raise ValueError(f"the exact kernel takes rows of up to {_MAX_ROW} "
+                         f"cells (got {W})")
     if B == 0:
         return
     lib = _cuda.load()
