@@ -63,7 +63,23 @@ Phases, one short line each:
    live replans, launches (edt_exact 1 at the reset, 0 per segment);
 17. the default depth path: the same on MapParams() with depth sensing
    (the '2d' fusion, the exact lite ESDF rebuilt every segment: edt_exact
-   1 at the reset and 1 per segment).
+   1 at the reset and 1 per segment);
+18. the per-evaluation objective kernels against their plain versions at
+   the lazy banks' shapes: B2s (after phase 3) on 3072 scene problems and
+   their 12,288 line-search candidates, B7 (after phase 6) on 1536
+   problems and 6144 candidates on the vision path's windows and (after
+   phase 12) on windows of the gt+grid maps, with samples past the window
+   and past the map; values within 5e-4, gradients within 2e-3 of each
+   problem's largest component; and solve.solve_per_eval against B1 and
+   B6 on their problems (one iteration, 24 in the cost basin, one solve
+   of each timed and one per-eval solve under torch.profiler);
+19. small loops (B = 16, 2 segments) of the 'expert' and 'warmstart'
+   planners with the per-evaluation solve on the scene and gt+grid paths,
+   on the card against the CPU;
+20. the 'expert' planner at full width, goals at x = 20, 1 warm-up and 2
+   timed segments: the gt+grid path at B = 512 with the fused solver and
+   with the per-evaluation solve, the scene path at B = 1024 with the
+   per-evaluation solve (no frame rendered: render_depth 0).
 
 The vision paths' counts include their reset, which builds the truncated
 lite map of an unknown grid through B9 banded. The last lines are every
@@ -135,6 +151,18 @@ KERNELS = {
     "fuse_depth_window": dict(
         source="neoplanner_tpu_torch/csrc/fusion_window.cu",
         replaces="neoplanner_tpu/mapping/occupancy_pallas.py:51"),
+    "objective_scene_fwd": dict(
+        source="neoplanner_tpu_torch/csrc/objective_eval.cu",
+        replaces="neoplanner_tpu/plan/costs_pallas.py:514"),
+    "objective_scene_valgrad": dict(
+        source="neoplanner_tpu_torch/csrc/objective_eval.cu",
+        replaces="neoplanner_tpu/plan/costs_pallas.py:514"),
+    "objective_grid_fwd": dict(
+        source="neoplanner_tpu_torch/csrc/objective_eval.cu",
+        replaces="neoplanner_tpu/plan/costs_pallas_grid.py:79"),
+    "objective_grid_valgrad": dict(
+        source="neoplanner_tpu_torch/csrc/objective_eval.cu",
+        replaces="neoplanner_tpu/plan/costs_pallas_grid.py:94"),
 }
 SCENE_PATH = ("lbfgs_scene_solve", "minco_banded_solve", "track_segment",
               "render_depth")
@@ -147,6 +175,14 @@ SENSOR_PATH = VISION_PATH + ("fuse_depth_multi",)
 # the gt+grid and the default depth path (whose '2d' fusion has no kernel)
 DEFAULT_MAP_PATH = ("render_depth", "edt_exact", "lbfgs_grid_solve",
                     "minco_banded_solve", "track_segment_grid")
+# the expert planner's loops (no net, no frame on the ground-truth paths)
+EXPERT_GRID_PATH = ("edt_exact", "lbfgs_grid_solve", "minco_banded_solve",
+                    "track_segment_grid")
+PER_EVAL_GRID_PATH = ("edt_exact", "objective_grid_fwd",
+                      "objective_grid_valgrad", "minco_banded_solve",
+                      "track_segment_grid")
+PER_EVAL_SCENE_PATH = ("objective_scene_fwd", "objective_scene_valgrad",
+                       "minco_banded_solve", "track_segment")
 FUSE_FRAMES = 6               # examples/profile_vision.py:36 (VIS_FUSE)
 # launches per segment of the sensor-rate loop: the replan-time frame and
 # the five mid-segment frames in one launch, one fusion each, one rebuild,
@@ -251,7 +287,7 @@ def main() -> int:
     from neoplanner_tpu_torch.mapping import esdf, fusion, occupancy, scene
     from neoplanner_tpu_torch.models import planner_net
     from neoplanner_tpu_torch.ops import edt, minco
-    from neoplanner_tpu_torch.plan import costs, expert, solve
+    from neoplanner_tpu_torch.plan import costs, expert, objective, solve
     from neoplanner_tpu_torch.sense import raycast
     from neoplanner_tpu_torch.sim import env, track
     from neoplanner_tpu_torch.utils.profiling import StageTimer
@@ -285,6 +321,9 @@ def main() -> int:
     cam = CameraParams(width=npc.img_width, height=npc.img_height)
     onnx = os.path.join(REPO, "artifacts", "planner_net_smallconv.onnx")
     rng = np.random.default_rng(0)
+    # the per-evaluation checks draw from their own generator, so that every
+    # other check reads the inputs it read before they were added
+    rng_eval = np.random.default_rng(9)
     worlds = scenegen.generate_batch(_cuda.make_generator(0), B, wp)
     sc = scene.build(worlds, mapp)
     n_active = sc.active.sum(1).cpu().numpy()
@@ -294,38 +333,43 @@ def main() -> int:
     def report(name, err, tol, ms, plain_ms, flops, nbytes, library_ms=None,
                on="abs"):
         """Record a kernel; err = (max abs, a relative measure), held to
-        tol on the first (on="abs") or the second (on="rel")."""
+        tol on the first (on="abs") or the second (on="rel", or "ratio":
+        the largest error over its bound)."""
         b_ms, b_by = bound(flops, nbytes)
         record[name] = dict(name=name, route="cuda", **KERNELS[name],
                             launches=0, max_abs_err=err[0], ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=library_ms)
         ok = err[0 if on == "abs" else 1] <= tol
-        say(f"{name}: max abs {err[0]:.3g}, rel {err[1]:.3g}; tol {tol:g} "
-            f"({on}) {'ok' if ok else 'MISS'}; {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        measure = "ratio to the bounds" if on == "ratio" else "rel"
+        say(f"{name}: max abs {err[0]:.3g}, {measure} {err[1]:.3g}; tol "
+            f"{tol:g} ({on}) {'ok' if ok else 'MISS'}; {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; operations "
+            f"{flops / PEAK_F32 * 1e3:.4f}, bytes "
+            f"{nbytes / PEAK_BYTES * 1e3:.4f})")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
 
-    def boundary_problems(n, start=None):
+    def boundary_problems(n, start=None, gen=None):
         """n planning problems from start (n, 2), by default standard normal
         around the origin, to ~5 m ahead: (head, tail, q0, ts0) on the
-        card."""
+        card, drawn from gen (by default rng)."""
+        g = rng if gen is None else gen
         head = torch.zeros((n, 3, 2))
         tail = torch.zeros((n, 3, 2))
-        head[:, 0] = (torch.from_numpy(rng.normal(size=(n, 2))).float()
+        head[:, 0] = (torch.from_numpy(g.normal(size=(n, 2))).float()
                       if start is None else start.cpu())
-        head[:, 1] = torch.from_numpy(rng.normal(scale=0.5,
-                                                 size=(n, 2))).float()
+        head[:, 1] = torch.from_numpy(g.normal(scale=0.5,
+                                               size=(n, 2))).float()
         tail[:, 0] = head[:, 0] + torch.tensor([5.0, 0.0]) + \
-            torch.from_numpy(rng.normal(size=(n, 2))).float()
-        tail[:, 1] = torch.from_numpy(rng.normal(scale=0.5,
-                                                 size=(n, 2))).float()
+            torch.from_numpy(g.normal(size=(n, 2))).float()
+        tail[:, 1] = torch.from_numpy(g.normal(scale=0.5,
+                                               size=(n, 2))).float()
         head, tail = head.to(dev), tail.to(dev)
         q0 = expert.straight_line_wpts(head[:, 0], tail[:, 0], pp) \
-            + torch.from_numpy(rng.normal(scale=0.4, size=(n, 2, 2))).float(
+            + torch.from_numpy(g.normal(scale=0.4, size=(n, 2, 2))).float(
             ).to(dev)
-        ts0 = torch.from_numpy(rng.uniform(1.0, 4.0, (n, 3))).float().to(dev)
+        ts0 = torch.from_numpy(g.uniform(1.0, 4.0, (n, 3))).float().to(dev)
         return head, tail, q0, ts0
 
     def accepted(x, head, tail, pmap, cost_pp):
@@ -434,6 +478,186 @@ def main() -> int:
                 or float(d_w.median()) > 1e-2 or float(d_t.median()) > 1e-2:
             raise AssertionError(f"the {name} lazy bank on the card "
                                  f"disagrees with its plain version")
+
+    def objective_check(kind, label, pmap, x, head, tail, env_of,
+                        dist_flops, map_bytes, record_it=True):
+        """B2s (kind 'scene') or B7 ('grid') against its plain version at a
+        lazy bank's shapes: the value and gradient at the P problems x, and
+        the value at max_ls line-search candidates of each (t * d, t =
+        0.5^k, d a random direction), in one launch each: values within
+        5e-4 of max(|f|, 1) of the plain version, gradients within 2e-3 of
+        max(|g|_inf, 1) per problem (the golden tests' 5e-4 and 2e-3,
+        tests/test_costs_pallas*.py, which scale each component by itself:
+        a component that cancels to a small value carries the roundoff of
+        the large terms it sums, and at this batch the plain version sits
+        ~1e-2 off its f64 self there, so the elementwise measures are
+        printed) of the reference named below.
+        dist_flops (P,): operations of one distance query per problem;
+        map_bytes: the map bytes the launch must read. With record_it, the
+        kernel's record."""
+        P, L = x.shape[0], pp.max_ls
+        d = torch.from_numpy(rng_eval.normal(scale=0.3, size=(P, 7))).float(
+            ).to(dev)
+        steps = 0.5 ** torch.arange(L, device=dev, dtype=torch.float32)
+        xc = (x[:, None] + steps[:, None] * d[:, None]).reshape(-1, 7
+                                                                ).contiguous()
+        hc = head.repeat_interleave(L, 0).contiguous()
+        tc = tail.repeat_interleave(L, 0).contiguous()
+        e1 = env_of.to(torch.int32).contiguous()
+        ec = e1.repeat_interleave(L).contiguous()
+        if kind == "scene":
+            map_args = (scene.pack_prims(pmap),)
+            launch = objective.launch_scene
+        else:
+            map_args = (pmap.win.contiguous(), pmap.worg.contiguous())
+            launch = objective.launch_grid
+        f_c = torch.empty(P * L, device=dev)
+        f_v = torch.empty(P, device=dev)
+        g_v = torch.empty((P, 7), device=dev)
+        launch(xc, hc, tc, *map_args, ec, f_c, None, pp)
+        launch(x, head, tail, *map_args, e1, f_v, g_v, pp)
+        want_c = objective.plain_fwd(xc, hc, tc, pmap, ec.long(), pp)
+        want_f, want_g = objective.plain_valgrad(x, head, tail, pmap,
+                                                 env_of.long(), pp)
+
+        def f64(t):
+            return t.detach().cpu().double()
+
+        def rel_g(g, ref):
+            """max |g - ref| scaled by each problem's largest component of
+            ref (or 1), and scaled elementwise by max(|ref|, 1)"""
+            d = (f64(g) - f64(ref)).abs()
+            row = f64(ref).abs().amax(1, keepdim=True).clamp(min=1.0)
+            return (float((d / row).max()),
+                    float((d / f64(ref).abs().clamp(min=1.0)).max()))
+        s_c = float(rel(f_c, want_c).max())
+        s_f = float(rel(f_v, want_f).max())
+        s_g, s_g_el = rel_g(g_v, want_g)
+        # beside it, both against the plain version in f64 on the CPU (on
+        # the card its banded solve is kernel B5, in f32)
+        pmap64 = type(pmap)(*(
+            f64(t) if t.is_floating_point() else t.cpu()
+            for t in (getattr(pmap, f.name)
+                      for f in dataclasses.fields(pmap))))
+        g64 = objective.plain_valgrad(f64(x), f64(head), f64(tail), pmap64,
+                                      env_of.long().cpu(), pp)[1]
+        k64, p64 = rel_g(g_v, g64), rel_g(want_g, g64)
+        # the gradient's reference: on the scene the f64 value, exact to
+        # roundoff (kernel and f32 plain version each carry up to ~2e-3 of
+        # f32 sums, so their distance can reach twice that); on windows the
+        # f32 plain version, which takes the kernel's bilinear cells (at a
+        # cell edge f64 takes the next cell, and the gradient jumps there)
+        g_gate = k64[0] if kind == "scene" else s_g
+        n_coll = int((want_f > 100.0).sum())
+        say(f"objective_{kind} {label}: {P} problems, {P * L} candidates; "
+            f"values scaled err {s_c:.3g} (candidates), {s_f:.3g} (problems)"
+            f" (tol 5e-4); gradients scaled err against the f32 plain "
+            f"version {s_g:.3g} (elementwise {s_g_el:.3g}), against f64: "
+            f"kernel {k64[0]:.3g} (elementwise {k64[1]:.3g}), plain "
+            f"{p64[0]:.3g} (elementwise {p64[1]:.3g}); held: "
+            f"{'f64' if kind == 'scene' else 'f32 plain'} {g_gate:.3g} (tol "
+            f"2e-3); {n_coll} problems with a live collision term")
+        if max(s_c, s_f) > 5e-4 or g_gate > 2e-3 or n_coll == 0:
+            raise AssertionError(f"objective_{kind} {label} disagrees with "
+                                 f"its plain version")
+        if not record_it:
+            return
+        io_c = P * L * (7 + 12 + 1 + 1) * 4
+        io_v = P * (7 + 12 + 1 + 7 + 1) * 4
+        dfl = np.asarray(dist_flops, dtype=np.float64)
+        K = pp.samples_per_piece
+        report(f"objective_{kind}_fwd",
+               (float((f_c - want_c).abs().max()), s_c), 5e-4,
+               median_ms(torch, lambda: launch(xc, hc, tc, *map_args, ec, f_c,
+                                               None, pp), 20),
+               median_ms(torch, lambda: objective.plain_fwd(
+                   xc, hc, tc, pmap, ec.long(), pp), 3),
+               float(np.sum(objective_flops(K, np.repeat(dfl, L), False))),
+               io_c + map_bytes, on="rel")
+        report(f"objective_{kind}_valgrad",
+               (max(float((f_v - want_f).abs().max()),
+                    float((g_v - want_g).abs().max())),
+                max(s_f / 5e-4, g_gate / 2e-3)), 1.0,
+               median_ms(torch, lambda: launch(x, head, tail, *map_args, e1,
+                                               f_v, g_v, pp), 20),
+               median_ms(torch, lambda: objective.plain_valgrad(
+                   x, head, tail, pmap, env_of.long(), pp), 3),
+               float(np.sum(objective_flops(K, dfl, True))),
+               io_v + map_bytes, on="ratio")
+
+    def per_eval_check(name, pmap, x0_, head_, tail_, env_, fused,
+                       accept_map, cost_pp):
+        """solve.solve_per_eval (the PyTorch loop over B2s / B7) against the
+        fused solver kernel (B1 / B6) on the same problems: one iteration x
+        within 1e-4 with the same iteration counts; 24 iterations in the
+        cost basin as basin() holds a solver kernel to its plain version
+        (roundoff steers a few percent of the solves onto other iterate
+        paths, as it does between the plain version on the card and on the
+        CPU): acceptance flags agreeing on >= 95% (the count of differing
+        flags printed), the median relative f difference <= 1e-4 and the
+        mean f within 1%, with the share of problems whose f agrees within
+        5e-3 printed; then one timed 24-iteration solve of each (after a
+        synchronize)."""
+        n = x0_.shape[0]
+        pp1 = dataclasses.replace(pp, max_iters=1)
+        xf1, _, itf1 = fused(x0_, head_, tail_, pmap, env_, pp1)
+        xp1, _, itp1 = solve.solve_per_eval(x0_, head_, tail_, pmap, env_,
+                                            pp1)
+        d1 = float((xp1 - xf1).abs().max())
+        same_it = int((itp1 == itf1).sum())
+        times = {}
+        for which, fn in (("fused", fused), ("per_eval",
+                                             solve.solve_per_eval)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x0_, head_, tail_, pmap, env_, pp)
+            torch.cuda.synchronize()
+            times[which] = ((time.perf_counter() - t0) * 1e3, out)
+        (_, (xf, ff, itf)), (_, (xp, fp, itp)) = times["fused"], \
+            times["per_eval"]
+        ok_f = accepted(xf, head_, tail_, accept_map, cost_pp)
+        ok_p = accepted(xp, head_, tail_, accept_map, cost_pp)
+        rel_f = rel(fp, ff)
+        within = float((rel_f <= 5e-3).mean())
+        mean_gap = abs(float(fp.mean()) / float(ff.mean()) - 1.0)
+        n_flags = int((ok_f != ok_p).sum())
+        say(f"solve_per_eval vs {name} B={n}: 1 iteration x diff max "
+            f"{d1:.3g} (tol 1e-4), iteration counts equal {same_it}/{n}; 24 "
+            f"iterations: f rel diff median {np.median(rel_f):.2e} (tol "
+            f"1e-4) max {rel_f.max():.2e}, within 5e-3 on {within:.3f}, mean "
+            f"f gap {mean_gap:.2e} (tol 1e-2); "
+            f"acceptance flags differ on {n_flags}/{n} (accepted "
+            f"{int(ok_p.sum())} per_eval, {int(ok_f.sum())} fused); iters "
+            f"mean {float(itp.float().mean()):.1f} / "
+            f"{float(itf.float().mean()):.1f}; one solve "
+            f"{times['per_eval'][0]:.1f} ms per_eval, "
+            f"{times['fused'][0]:.1f} ms fused")
+        if d1 > 1e-4 or same_it != n or np.median(rel_f) > 1e-4 \
+                or mean_gap > 1e-2 or n_flags > 0.05 * n:
+            raise AssertionError(f"solve_per_eval leaves {name}'s results")
+        # where a per-evaluation solve's time goes: its device events under
+        # torch.profiler (one stream, so they do not overlap)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve.solve_per_eval(x0_, head_, tail_, pmap, env_, pp)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        obj = sum(e.time_range.elapsed_us() for e in kern
+                  if "objective_" in e.name) / 1e3
+        if kern:
+            say(f"solve_per_eval {name} under torch.profiler: {wall:.1f} ms "
+                f"wall, {len(kern)} device events busy {busy:.2f} ms (idle "
+                f"share {1.0 - busy / wall:.3f}), of which the objective "
+                f"kernels {obj:.2f} ms")
+        else:
+            say(f"solve_per_eval {name} device time under torch.profiler: "
+                f"not measured (no device events recorded)")
 
     # ---- B5: banded MINCO solve, N = B systems (acceptance of lane 0)
     head, tail, q0, ts0 = boundary_problems(B)
@@ -566,6 +790,21 @@ def main() -> int:
 
     lazy_bank("scene", sc, sc_cpu, head, tail, q0, ts0, it24, ok_k)
 
+    # ---- B2s: the scene path's lazy bank at B = 1024 (3 lanes per env:
+    # 3072 problems, 12,288 line-search candidates)
+    lanes = 1 + pp.retry_num
+    x_bank = (x0.repeat_interleave(lanes, 0) + torch.from_numpy(
+        rng_eval.normal(scale=0.3, size=(B * lanes, 7))).float().to(dev)
+    ).contiguous()
+    env_bank = torch.arange(B, device=dev).repeat_interleave(lanes)
+    objective_check("scene", "bank B=1024", sc, x_bank,
+                    head.repeat_interleave(lanes, 0).contiguous(),
+                    tail.repeat_interleave(lanes, 0).contiguous(), env_bank,
+                    20 * n_active[env_bank.cpu().numpy()],
+                    B * 24 * 6 * 4)
+    per_eval_check("lbfgs_scene_solve", sc, x0, head, tail, env_of.long(),
+                   solve.solve_scene, sc, pp)
+
     net = planner_net.load(onnx, npc, dev)
     net_cpu = planner_net.load(onnx, npc, "cpu")
 
@@ -660,13 +899,14 @@ def main() -> int:
                                  f"disagrees with the plain path")
 
     def run_path(name, path_kernels, n, make_state, n_seg=SEGMENTS, pp_=pp,
-                 per_segment=None, at_reset=None, **seg_kw):
+                 per_segment=None, at_reset=None, absent=(), **seg_kw):
         """The loop of the path that reset chose: counts set to 0, the
         state made by make_state() (the reset), one warm-up and n_seg timed
         segments stepped with seg_kw, counts read. For the kernels in
         per_segment and at_reset the counts are held to exactly that many
-        launches per segment plus that many at the reset; returns (state,
-        planned replans in the timed segments)."""
+        launches per segment plus that many at the reset, the kernels in
+        absent to none; returns (state, planned replans in the timed
+        segments)."""
         _cuda.reset_launches()
         state = make_state()
         state, info = env.step_segment(state, pp_, mp, sp, cam, net, **seg_kw)
@@ -709,6 +949,9 @@ def main() -> int:
                         f"expected {per_segment.get(k, 0)} per segment and "
                         f"{at_reset.get(k, 0)} at the reset")
             launch_totals[k] += counts[k]
+        for k in absent:
+            if counts[k] != 0:
+                raise AssertionError(f"the {name} path launched {k}")
         finite = all(bool(torch.isfinite(t).all()) for t in (
             state.drone.pos, state.drone.vel, state.drone.quat, state.buffer,
             state.metrics))
@@ -854,6 +1097,33 @@ def main() -> int:
            on="rel")
     lazy_bank("grid", emap, emap_cpu, head_v, tail_v, q0_v, ts0_v, it24_v,
               ok_kv)
+
+    # ---- B7: the vision path's lazy bank on the same windows (3 lanes per
+    # env: 1536 problems, 6144 candidates); the third lane of every 8th env
+    # ends 12 m ahead (beyond its window), of every 8th + 4 beyond the map
+    x_bank = x0_v.repeat_interleave(lanes, 0).clone()
+    head_b = head_v.repeat_interleave(lanes, 0).clone()
+    tail_b = tail_v.repeat_interleave(lanes, 0).clone()
+    far = torch.arange(BV * lanes, device=dev)
+    far_win = far[(far % lanes == 2) & ((far // lanes) % 8 == 0)]
+    far_map = far[(far % lanes == 2) & ((far // lanes) % 8 == 4)]
+    tail_b[far_win, 0] = head_b[far_win, 0] + torch.tensor([12.0, 0.0],
+                                                           device=dev)
+    tail_b[far_map, 0] = torch.tensor([24.0, 0.0], device=dev)
+    x_bank[:, :4] = expert.straight_line_wpts(
+        head_b[:, 0], tail_b[:, 0], pp).reshape(-1, 4)
+    x_bank = (x_bank + torch.from_numpy(rng_eval.normal(
+        scale=0.2, size=(BV * lanes, 7))).float().to(dev)).contiguous()
+    env_bank_v = torch.arange(BV, device=dev).repeat_interleave(lanes)
+    objective_check("grid", "vision windows B=512", window, x_bank, head_b,
+                    tail_b, env_bank_v, np.full(BV * lanes, 25.0),
+                    4 * window_cells_read(
+                        esdf.GridWindow(window.win[env_bank_v],
+                                        window.worg[env_bank_v]),
+                        (x_bank,), head_b, tail_b)
+                    + window.worg.numel() * 4)
+    per_eval_check("lbfgs_grid_solve", window, x0_v, head_v, tail_v,
+                   envs_v.long(), solve.solve_grid, emap, near_pp)
 
     # ---- B10: one grid tracking segment of BV envs on the sensed maps
     st_v = env.reset(worlds_v, pp, mp, mapp_v, _cuda.make_generator(11),
@@ -1070,6 +1340,27 @@ def main() -> int:
         occ_fused, field_x, 0.5, mapp_d.resolution), 20)
     say(f"edt_exact on the fused grids: {ms_fused:.3f} ms")
 
+    # ---- B7 on windows of the gt+grid path's full-profile maps: BV
+    # problems from the origin, every 8th ending 12 m ahead (beyond its
+    # window), every 8th + 4 beyond the map's edge at y = 12.8
+    emap_gt = esdf.build(occ_gt, (mapp_d.origin_x, mapp_d.origin_y),
+                         mapp_d.resolution)
+    head_g, tail_g, q0_g, ts0_g = boundary_problems(BV, gen=rng_eval)
+    idx = torch.arange(BV, device=dev)
+    tail_g[idx % 8 == 0, 0] = head_g[idx % 8 == 0, 0] + torch.tensor(
+        [12.0, 0.0], device=dev)
+    tail_g[idx % 8 == 4, 0] = head_g[idx % 8 == 4, 0] + torch.tensor(
+        [2.0, 14.0], device=dev)
+    window_g = expert.make_plan_window(emap_gt, head_g, tail_g, pp)
+    q0_g = expert.straight_line_wpts(head_g[:, 0], tail_g[:, 0], pp) + \
+        torch.from_numpy(rng_eval.normal(scale=0.4, size=(BV, 2, 2))).float(
+            ).to(
+            dev)
+    x0_g = costs.pack(q0_g, minco.T_to_tau(ts0_g, pp.t_min, pp.t_max),
+                      pp).contiguous()
+    objective_check("grid", "gt+grid windows B=512", window_g, x0_g, head_g,
+                    tail_g, idx, None, 0, record_it=False)
+
     # ---- (b) B9 banded on the same grids at edt_truncation = 2.0 (R = 20)
     field_b = torch.empty(occ_gt.shape, device=dev)
     n_diff = 0
@@ -1166,6 +1457,19 @@ def main() -> int:
                                         "lbfgs_grid_solve",
                                         "track_segment_grid"))
 
+    # ---- (d') the expert planners with the per-evaluation solve, small
+    # loops on the card against the CPU: the scene and the gt+grid path
+    for planner in ("expert", "warmstart"):
+        small_loop(f"scene {planner} per_eval", 16, 20,
+                   lambda g, n: scenegen.generate_batch(g, n, wp), mapp, {},
+                   path_kernels=PER_EVAL_SCENE_PATH, planner=planner,
+                   solver="per_eval")
+        small_loop(f"gt+grid {planner} per_eval", 16, 21,
+                   lambda g, n: scenegen.generate_batch(g, n, wp),
+                   dataclasses.replace(mapp_d, edt_truncation=2.0), gt_grid,
+                   path_kernels=PER_EVAL_GRID_PATH, planner=planner,
+                   solver="per_eval")
+
     # ---- (e) the gt+grid path at B = BV: the exact map built once at reset
     _, planned_g = run_path(
         "gt+grid", DEFAULT_MAP_PATH, BV, lambda: env.reset(
@@ -1181,12 +1485,40 @@ def main() -> int:
     if planned_g <= 0 or planned_f <= 0:
         raise AssertionError("a default-map path's timed segments replanned "
                              "no env")
+
     field_f = state_f.emap.esdf.float()
     say(f"default depth map: {int((state_f.logodds < 0).sum()) / BV:.0f} "
         f"free cells per env (mean), ESDF max {float(field_f.max()):g} "
         f"(bf16 FAR 9984 on maps that sensed nothing), min "
-        f"{float(field_f.min()):g}; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{float(field_f.min()):g}")
+
+    # ---- (g) the expert planner at full width: the gt+grid path at B = BV
+    # with the fused solver (B6) and with the per-evaluation solve (B7), the
+    # scene path at B = 1024 with the per-evaluation solve (B2s); no net and
+    # no frame (render_depth 0), goals at x = 20
+    planned_x = []
+    for solver, kernels in (("fused", EXPERT_GRID_PATH),
+                            ("per_eval", PER_EVAL_GRID_PATH)):
+        planned_x.append(run_path(
+            f"gt+grid expert {solver}", kernels, BV, lambda: env.reset(
+                worlds_v, pp, mp, mapp_d, _cuda.make_generator(17),
+                goal=goals_v, **gt_grid), n_seg=2,
+            per_segment=dict(edt_exact=0), at_reset=dict(edt_exact=1),
+            absent=("render_depth",) + tuple(
+                k for k in ("lbfgs_grid_solve", "objective_grid_fwd",
+                            "objective_grid_valgrad") if k not in kernels),
+            planner="expert", solver=solver)[1])
+    goals_b = torch.stack([torch.full((B,), 20.0), torch.from_numpy(
+        rng_eval.uniform(-1.5, 1.5, B)).float()], 1).to(dev)
+    planned_x.append(run_path(
+        "scene expert per_eval", PER_EVAL_SCENE_PATH, B, lambda: env.reset(
+            worlds, pp, mp, mapp, _cuda.make_generator(18), goal=goals_b),
+        n_seg=2, absent=("render_depth", "lbfgs_scene_solve"),
+        planner="expert", solver="per_eval")[1])
+    if min(planned_x) <= 0:
+        raise AssertionError("an expert loop's timed segments replanned no "
+                             "env")
+    say(f"total {time.perf_counter() - t_start:.1f} s")
 
     for k in KERNELS:
         record[k]["launches"] = launch_totals[k]

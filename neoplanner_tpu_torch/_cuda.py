@@ -34,7 +34,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("minco_banded_solve", "lbfgs_scene_solve", "track_segment",
            "render_depth", "lbfgs_grid_solve", "fuse_depth_dense",
            "edt_trunc_lite", "track_segment_grid", "fuse_depth_multi",
-           "edt_exact", "edt_banded", "fuse_depth_window")
+           "edt_exact", "edt_banded", "fuse_depth_window",
+           "objective_scene_fwd", "objective_scene_valgrad",
+           "objective_grid_fwd", "objective_grid_valgrad")
 launches = {name: 0 for name in KERNELS}
 build_seconds = None   # wall time of the nvcc call (None: loaded from cache)
 
@@ -74,6 +76,13 @@ _SIGNATURES = {
     # host params (float*), stream
     "neo_fuse_depth_window": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _P],
+    # x, head, tail, prims, env_of, f_out, g_out (null: value only),
+    # n_problems, n_prims, K, host params (float*), stream
+    "neo_objective_scene": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # x, head, tail, win, worg, env_of, f_out, g_out (null: value only),
+    # n_problems, Hw, Ww, K, host params (float*), stream
+    "neo_objective_grid": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P, _P],
     # cmds, state, state_out, trace, ticks, n_envs, spr, i0,
     # host params (float*), stream
     "neo_track_segment_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],

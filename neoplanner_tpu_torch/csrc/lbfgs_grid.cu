@@ -9,13 +9,8 @@
 // The loop is lbfgs_device.cuh's, shared with B1; only the distance query
 // differs. A skipped problem returns its start point with f = 0, iters 0.
 //
-// The window taps keep the TPU kernel's semantics (`sample`, :60-130):
-// u/v = (world - window origin) / res - 0.5, clipped to [0, Hw - 1.001];
-// the bilinear value of the four neighbouring cells; a sample outside the
-// MAP (worg[3:7]) reads FAR (free); the derivative is zero where the clip
-// bites. The one-hot MXU tap matmuls and the lane stacking of the TPU form
-// were workarounds for a machine without gathers and do not carry over:
-// here a tap is four indexed loads.
+// The window taps are csrc/window_query.cuh's (shared with B7): the TPU
+// kernel's `sample` (:60-130) with a tap as four indexed loads.
 //
 // Bound on the H100: operations and per-thread latency, as B1: ~100
 // objective evaluations of 72 samples (four window loads each) plus two
@@ -26,46 +21,13 @@
 #include <string.h>
 
 #include "lbfgs_device.cuh"
+#include "window_query.cuh"
 
 namespace {
 
 constexpr int kBlock = 64;
 
 using neo::kNV;
-
-struct WindowQuery {
-  const float* win;  // (Hw, Ww) row-major, row = y
-  float ox, oy, res, mx0, my0, mx1, my1, umax, vmax;
-  int Ww;
-
-  template <bool GRAD>
-  __device__ __forceinline__ float dist(float px, float py, float* gx,
-                                        float* gy) const {
-    const float uraw = (py - oy) / res - 0.5f;
-    const float vraw = (px - ox) / res - 0.5f;
-    const float u = fminf(fmaxf(uraw, 0.0f), umax);
-    const float v = fminf(fmaxf(vraw, 0.0f), vmax);
-    const int r0 = static_cast<int>(floorf(u));
-    const int c0 = static_cast<int>(floorf(v));
-    const float fr = u - static_cast<float>(r0);
-    const float fc = v - static_cast<float>(c0);
-    const float* w = win + r0 * Ww + c0;
-    const float d00 = __ldg(w), d01 = __ldg(w + 1);
-    const float d10 = __ldg(w + Ww), d11 = __ldg(w + Ww + 1);
-    const float top = d00 * (1.0f - fc) + d01 * fc;
-    const float bot = d10 * (1.0f - fc) + d11 * fc;
-    const bool out_map = px < mx0 || py < my0 || px >= mx1 || py >= my1;
-    if (GRAD) {
-      const bool iny = uraw > 0.0f && uraw < umax;
-      const bool inx = vraw > 0.0f && vraw < vmax;
-      const float ddu = bot - top;
-      const float ddv = (d01 - d00) * (1.0f - fr) + (d11 - d10) * fr;
-      *gx = (out_map || !inx) ? 0.0f : ddv / res;
-      *gy = (out_map || !iny) ? 0.0f : ddu / res;
-    }
-    return out_map ? neo::kFar : top * (1.0f - fr) + bot * fr;
-  }
-};
 
 __global__ void __launch_bounds__(kBlock)
     lbfgs_grid_kernel(const float* __restrict__ x0,
@@ -86,14 +48,8 @@ __global__ void __launch_bounds__(kBlock)
   float f = 0.0f;
   int it = 0;
   if (skip[p] == 0) {
-    const long long e = env_of[p];
-    const float* o = worg + e * 7;
-    const WindowQuery query{win + e * Hw * Ww, o[0], o[1], o[2], o[3], o[4],
-                            o[5], o[6],
-                            // the clip bounds of esdf.sample_bilinear,
-                            // rounded from double as the reference does
-                            static_cast<float>(Hw - 1.001),
-                            static_cast<float>(Ww - 1.001), Ww};
+    const neo::WindowQuery query =
+        neo::window_query(win, worg, env_of[p], Hw, Ww);
     float hd[6], tl[6];
 #pragma unroll
     for (int i = 0; i < 6; ++i) {

@@ -62,11 +62,19 @@ def _two_loop(g, s_hist, y_hist, rho, head, count, m):
 def minimize(fun: Callable, x0: torch.Tensor, *, max_iters: int = 256,
              history: int = 10, max_ls: int = 8, ftol: float = 1e-9,
              gtol: float = 1e-6, c1: float = 1e-4,
-             skip: Optional[torch.Tensor] = None) -> LBFGSResult:
+             skip: Optional[torch.Tensor] = None,
+             ls_fun: Optional[Callable] = None) -> LBFGSResult:
     """Minimize the batched ``fun(x (N, n)) -> (N,)`` from x0 (N, n).
 
     skip (N,) bool freezes problems from the start: they return x0 with
     iters 0 (the lazy retry bank of plan/expert.py).
+
+    ls_fun, when given, evaluates all line-search candidates in one call,
+    (N, max_ls, n) -> (N, max_ls) (the JAX package's wide line search,
+    lbfgs.py:84-112, :131-139): it must compute fun's value, needs no
+    gradient, and suits a forward-only kernel. Without it each candidate
+    step is one call of fun. The accepted point is evaluated with fun's
+    value and gradient either way.
     """
     N, n = x0.shape
     m = history
@@ -97,8 +105,11 @@ def minimize(fun: Callable, x0: torch.Tensor, *, max_iters: int = 256,
             1.0 / torch.clamp(g.abs().sum(-1), min=1e-12), max=1.0),
             torch.ones_like(gtd))
         steps = t0[:, None] * halves                            # (N, L)
-        f_cand = torch.stack([fun(x + steps[:, k:k + 1] * d)
-                              for k in range(max_ls)], dim=1)
+        if ls_fun is None:
+            f_cand = torch.stack([fun(x + steps[:, k:k + 1] * d)
+                                  for k in range(max_ls)], dim=1)
+        else:
+            f_cand = ls_fun(x[:, None] + steps[..., None] * d[:, None])
         armijo = f_cand <= f[:, None] + c1 * steps * gtd[:, None]
         ls_ok = armijo.any(1)
         first_ok = torch.argmax(armijo.to(torch.int8), dim=1)

@@ -1,18 +1,26 @@
-"""Expert minimum-jerk planner pieces used by NEO: the seed bank, one batch
-of L-BFGS solves with acceptance, and the lazy warm-start bank.
+"""Expert minimum-jerk planner: the seed bank, batches of L-BFGS solves
+with acceptance, and the three banks built from them: the multi-start
+expert plan, its warm-started form with the carried solution, and the lazy
+warm-start bank of NEO.
 
 The port of neoplanner_tpu/plan/expert.py (``seed_bank`` :49,
-``make_plan_window`` :101, ``solve_one`` :121, ``warm_start_plan`` :316,
+``make_plan_window`` :101, ``solve_one`` :121, ``_select`` :216, ``plan``
+:242, ``plan_with_carry`` :273, ``warm_start_plan`` :316,
 ``pad_boundary_state`` :389), batched: a problem axis P with ``env_of``
 naming each problem's env replaces the JAX package's nested vmaps over envs
 and bank lanes. The retry noise is an argument (standard normals), so any
-generator can supply it.
+generator can supply it. Every bank is lazy: the lanes that the selection
+can only read after a failure are solved with a skip flag per env.
 
 On the analytic scene map the solve and the acceptance both use the scene
 SDF. On a sensed grid (an ESDFMap) the solve runs on one
-kernel_window_cells window per env (kernel B6), and acceptance re-evaluates
-the solution on the FULL map with nearest-cell distances (solve_one
-:165-191), so a window can never accept what the map rejects.
+kernel_window_cells window per env, and acceptance re-evaluates the
+solution on the FULL map with nearest-cell distances (solve_one
+:165-191), so a window can never accept what the map rejects. ``solver``
+chooses how a batch is solved: 'fused', the whole solve in one kernel (B1
+on the scene, B6 on windows), or 'per_eval', the L-BFGS loop in PyTorch
+with one objective kernel launch per evaluation (B2s, B7), the JAX
+package's ``NEO_SOLVER=xla`` branch.
 """
 
 from __future__ import annotations
@@ -86,24 +94,37 @@ def make_plan_window(emap: ESDFMap, head: torch.Tensor, tail: torch.Tensor,
     return esdf_map.make_window(emap, center, pp.kernel_window_cells)
 
 
+SOLVERS = ("fused", "per_eval")
+
+
 def solve_one(pmap, head: torch.Tensor, tail: torch.Tensor,
               int_wpts0: torch.Tensor, ts0: torch.Tensor,
               env_of: torch.Tensor, pp: PlannerParams, skip=None,
-              window=None) -> Trajectory:
+              window=None, solver: str = "fused") -> Trajectory:
     """P L-BFGS solves from P initializations (plan_once,
     expert_planner.py:205-237), each accepted when its weighted collision
     cost is within collision_cost_tol. pmap is the scene map or, with its
     per-env ``window`` (make_plan_window), the sensed grid. A skipped
-    problem returns its seed unsolved with iters 0."""
+    problem returns its seed unsolved with iters 0. ``solver`` is 'fused'
+    or 'per_eval' (see the module docstring)."""
     x0 = costs.pack(int_wpts0, minco.T_to_tau(ts0, pp.t_min, pp.t_max), pp)
+    grid = isinstance(pmap, ESDFMap)
     cost_pp = pp
-    if isinstance(pmap, ESDFMap):
+    if solver == "per_eval":
+        x, _, iters = solve.solve_per_eval(x0, head, tail,
+                                           window if grid else pmap, env_of,
+                                           pp, skip=skip)
+    elif solver != "fused":
+        raise ValueError(f"unknown solver {solver!r}; the port runs "
+                         f"{SOLVERS}")
+    elif grid:
         x, _, iters = solve.solve_grid(x0, head, tail, window, env_of, pp,
                                        skip=skip)
-        cost_pp = dataclasses.replace(pp, esdf_interp="nearest")
     else:
         x, _, iters = solve.solve_scene(x0, head, tail, pmap, env_of, pp,
                                         skip=skip)
+    if grid:
+        cost_pp = dataclasses.replace(pp, esdf_interp="nearest")
     q, tau = costs.unpack(x, pp)
     ts = minco.tau_to_T(tau, pp.t_min, pp.t_max)
     with torch.no_grad():
@@ -114,35 +135,145 @@ def solve_one(pmap, head: torch.Tensor, tail: torch.Tensor,
                       iters=iters)
 
 
+def _solve_lanes(pmap, head, tail, seeds, ts_bank, pp, window, solver,
+                 skip=None) -> Trajectory:
+    """solve_one on every lane of every env: seeds (B, S, D, M-1), ts_bank
+    (B, S, M), skip (B,) bool per env; fields (B, S, ...)."""
+    B, S = seeds.shape[:2]
+    envs = torch.arange(B, device=head.device).repeat_interleave(S)
+    traj = solve_one(
+        pmap, head.repeat_interleave(S, 0), tail.repeat_interleave(S, 0),
+        seeds.reshape((B * S,) + seeds.shape[2:]),
+        ts_bank.reshape(B * S, -1), envs, pp,
+        skip=None if skip is None else skip.repeat_interleave(S),
+        window=window, solver=solver)
+    return Trajectory(*(t.reshape((B, S) + t.shape[1:]) for t in
+                        _fields(traj)))
+
+
+def _fields(traj: Trajectory):
+    return tuple(getattr(traj, f.name) for f in dataclasses.fields(traj))
+
+
+def _lazy_bank(pmap, head, tail, seeds, ts_bank, n_first, skip_of, pp,
+               window, solver) -> Trajectory:
+    """The lazy bank: lanes [0, n_first) of every env first, then the
+    others with skip = skip_of(first lanes) per env (two launches that
+    share the grid's windows); fields (B, S, ...)."""
+    first = _solve_lanes(pmap, head, tail, seeds[:, :n_first],
+                         ts_bank[:, :n_first], pp, window, solver)
+    rest = _solve_lanes(pmap, head, tail, seeds[:, n_first:],
+                        ts_bank[:, n_first:], pp, window, solver,
+                        skip=skip_of(first))
+    return Trajectory(*(torch.cat([a, b], 1) for a, b in
+                        zip(_fields(first), _fields(rest))))
+
+
+def _pick(bank: Trajectory, idx: torch.Tensor) -> Trajectory:
+    envs = torch.arange(idx.shape[0], device=idx.device)
+    return Trajectory(*(t[envs, idx] for t in _fields(bank)))
+
+
+def _select(bank: Trajectory, pp: PlannerParams) -> Trajectory:
+    """Per env, the lane the reference's priority picks from a bank with
+    fields (B, S, ...): the cheapest accepted of the first batch_num lanes
+    (expert_planner.py:161-165), else the cheapest accepted retry
+    (:166-168), else the least colliding, with ok = any lane accepted and
+    the bank's iterations summed."""
+    ok = bank.ok
+    total = bank.costs @ costs.weights(pp, ok.device).to(bank.costs.dtype)
+    primary = torch.arange(ok.shape[1], device=ok.device) < pp.batch_num
+    inf = torch.full_like(total, float("inf"))
+    score_primary = torch.where(ok & primary, total, inf)
+    score_retry = torch.where(ok, total, inf)
+    any_primary = (ok & primary).any(1)
+    any_ok = ok.any(1)
+    idx = torch.where(any_primary, torch.argmin(score_primary, 1),
+                      torch.where(any_ok, torch.argmin(score_retry, 1),
+                                  torch.argmin(bank.costs[..., 3], 1)))
+    return _pick(bank, idx).replace(
+        ok=any_ok, iters=bank.iters.sum(1, dtype=torch.int32))
+
+
+def plan(pmap, head: torch.Tensor, tail: torch.Tensor, noise: torch.Tensor,
+         pp: PlannerParams, solver: str = "fused") -> Trajectory:
+    """The expert plan of B envs (MinJerkPlanner.plan -> batch_plan ->
+    warm_start_plan, expert_planner.py:62-80, 142-168, 186-203) as one
+    bank: the batch_num multi-start seeds first, then the wide laterals and
+    the noisy retries (noise (B, retry_num, D, M-1)) only for envs whose
+    primaries were all rejected; :func:`_select` picks."""
+    B = head.shape[0]
+    seeds = seed_bank(head[:, 0], tail[:, 0], noise, pp)     # (B, S, D, n)
+    ts_bank = init_ts(pp, head.device).expand(B, seeds.shape[1], -1)
+    window = (make_plan_window(pmap, head, tail, pp)
+              if isinstance(pmap, ESDFMap) else None)
+    if seeds.shape[1] > pp.batch_num:
+        bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, pp.batch_num,
+                          lambda prim: prim.ok.any(1), pp, window, solver)
+    else:
+        bank = _solve_lanes(pmap, head, tail, seeds, ts_bank, pp, window,
+                            solver)
+    return _select(bank, pp)
+
+
+def plan_with_carry(pmap, head: torch.Tensor, tail: torch.Tensor,
+                    carry_wpts0: torch.Tensor, carry_ts0: torch.Tensor,
+                    has_carry: torch.Tensor, noise: torch.Tensor,
+                    pp: PlannerParams, solver: str = "fused") -> Trajectory:
+    """The 'warmstart' planner's replan as one bank: lane 0 holds the
+    carried solution (carry_wpts0 (B, D, M-1) in the world frame, carry_ts0
+    (B, M)) where has_carry, else the straight seed (then this is
+    :func:`plan`); the other lanes are plan's seeds, solved only for envs
+    whose carry was absent or rejected. An accepted carry wins
+    (expert_planner.py:186-192), else :func:`_select` picks."""
+    B = head.shape[0]
+    seeds = seed_bank(head[:, 0], tail[:, 0], noise, pp)
+    S = seeds.shape[1]
+    seeds = torch.cat([torch.where(has_carry[:, None, None], carry_wpts0,
+                                   seeds[:, 0])[:, None], seeds[:, 1:]], 1)
+    ts_bank = init_ts(pp, head.device).expand(B, S, -1)
+    ts_bank = torch.cat([torch.where(has_carry[:, None], carry_ts0,
+                                     ts_bank[:, 0])[:, None],
+                         ts_bank[:, 1:]], 1)
+    window = (make_plan_window(pmap, head, tail, pp)
+              if isinstance(pmap, ESDFMap) else None)
+    if S > 1:
+        bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, 1,
+                          lambda first: has_carry & first.ok[:, 0], pp,
+                          window, solver)
+    else:
+        bank = _solve_lanes(pmap, head, tail, seeds, ts_bank, pp, window,
+                            solver)
+    sel = _select(bank, pp)
+    use_carry = has_carry & bank.ok[:, 0]
+    picked = Trajectory(*(
+        torch.where(use_carry.reshape((B,) + (1,) * (s.dim() - 1)),
+                    lanes[:, 0], s)
+        for lanes, s in zip(_fields(bank), _fields(sel))))
+    return picked.replace(ok=sel.ok, iters=bank.iters.sum(1,
+                                                          dtype=torch.int32))
+
+
 def warm_start_plan(pmap, head: torch.Tensor, tail: torch.Tensor,
                     int_wpts0: torch.Tensor, ts0: torch.Tensor,
-                    noise: torch.Tensor, pp: PlannerParams) -> Trajectory:
+                    noise: torch.Tensor, pp: PlannerParams,
+                    solver: str = "fused") -> Trajectory:
     """Warm-started plan of B envs (expert_planner.py:186-203) on the scene
     map or a sensed grid: the given initialization first, then the noisy
-    straight-line retries — solved only for envs whose first lane was
-    rejected (the lazy bank: two launches, the retries with a skip mask;
-    both share the grid's windows). The first lane wins when it is
-    accepted, else the cheapest accepted retry, else the least colliding."""
+    straight-line retries, solved only for envs whose first lane was
+    rejected. The first lane wins when it is accepted, else the cheapest
+    accepted retry, else the least colliding."""
     B = head.shape[0]
     dev = head.device
-    envs = torch.arange(B, device=dev)
     window = (make_plan_window(pmap, head, tail, pp)
               if isinstance(pmap, ESDFMap) else None)
     retries = seed_bank(head[:, 0], tail[:, 0], noise, pp)[:, pp.batch_num:]
     R = retries.shape[1]
-    first = solve_one(pmap, head, tail, int_wpts0, ts0, envs, pp,
-                      window=window)
-    rest = solve_one(
-        pmap, head.repeat_interleave(R, 0), tail.repeat_interleave(R, 0),
-        retries.reshape((B * R,) + retries.shape[2:]),
-        init_ts(pp, dev).expand(B * R, -1), envs.repeat_interleave(R), pp,
-        skip=first.ok.repeat_interleave(R), window=window)
-
-    def bank(a, b):
-        return torch.cat([a[:, None], b.reshape((B, R) + b.shape[1:])], 1)
-
-    ok = bank(first.ok, rest.ok)                                # (B, 1+R)
-    cvec = bank(first.costs, rest.costs)                        # (B, 1+R, 4)
+    seeds = torch.cat([int_wpts0[:, None], retries], 1)
+    ts_bank = torch.cat([ts0[:, None], init_ts(pp, dev).expand(B, R, -1)], 1)
+    bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, 1,
+                      lambda first: first.ok[:, 0], pp, window, solver)
+    ok, cvec = bank.ok, bank.costs                  # (B, 1+R), (B, 1+R, 4)
     total = cvec @ costs.weights(pp, dev).to(cvec.dtype)
     any_ok = ok.any(1)
     best_ok = torch.argmin(torch.where(ok, total, torch.full_like(
@@ -150,12 +281,5 @@ def warm_start_plan(pmap, head: torch.Tensor, tail: torch.Tensor,
     least_coll = torch.argmin(cvec[..., 3], dim=1)
     idx = torch.where(ok[:, 0], torch.zeros_like(best_ok),
                       torch.where(any_ok, best_ok, least_coll))
-
-    def pick(a, b):
-        return bank(a, b)[envs, idx]
-
-    return Trajectory(
-        int_wpts=pick(first.int_wpts, rest.int_wpts),
-        ts=pick(first.ts, rest.ts), coeffs=pick(first.coeffs, rest.coeffs),
-        costs=cvec[envs, idx], ok=any_ok,
-        iters=bank(first.iters, rest.iters).sum(1, dtype=torch.int32))
+    return _pick(bank, idx).replace(
+        ok=any_ok, iters=bank.iters.sum(1, dtype=torch.int32))

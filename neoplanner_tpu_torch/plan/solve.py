@@ -12,6 +12,12 @@ bilinear window taps. For CPU tensors they run the plain version:
 ops/lbfgs.minimize on plan/costs.objective over the same map, with the
 gradient from autograd.
 
+:func:`solve_per_eval` is the port of the per-evaluation branch of
+neoplanner_tpu/plan/expert.py ``solve_one`` (:193-204): ops/lbfgs.minimize
+in PyTorch, one objective kernel launch per evaluation (plan/objective.py:
+B2s on the scene, B7 on windows), the line-search candidates in one wide
+forward launch.
+
 Replaces: plan/solve_pallas.py ``_make_solver_kernel`` (:223) with
 ``lbfgs_in_kernel`` (:49) (B1), plan/solve_pallas_grid.py
 ``_make_grid_solver_kernel`` (:46) (B6), and the costs_pallas.py device
@@ -35,7 +41,7 @@ from neoplanner_tpu_torch.config import PlannerParams
 from neoplanner_tpu_torch.mapping import esdf as esdf_map
 from neoplanner_tpu_torch.mapping import scene as scene_map
 from neoplanner_tpu_torch.ops import lbfgs
-from neoplanner_tpu_torch.plan import costs
+from neoplanner_tpu_torch.plan import costs, objective
 
 _BLOCK = 64            # threads per block of the kernel (csrc/lbfgs_scene.cu)
 _SMEM_LIMIT = 48 * 1024
@@ -186,3 +192,30 @@ def launch_grid_solver(x0, head, tail, win, worg, env_of, skip, out,
         _cuda.stream_ptr(dev))
     _cuda.check(err, "lbfgs_grid_solve")
     _cuda.launches["lbfgs_grid_solve"] += 1
+
+
+def solve_per_eval(x0: torch.Tensor, head: torch.Tensor, tail: torch.Tensor,
+                   pmap, env_of: torch.Tensor, pp: PlannerParams,
+                   skip=None):
+    """Solve P problems as :func:`solve_scene` (pmap a SceneMap) or
+    :func:`solve_grid` (pmap a GridWindow) do, with the loop in PyTorch and
+    each objective evaluation one kernel launch: the value and gradient
+    (plan/objective.objective_vjp) at each accepted point, the max_ls
+    line-search candidates of every problem in one forward launch. The same
+    stopping and Armijo constants; a skipped problem returns x0 unsolved
+    with iters 0. Returns (x (P, nv), f (P,), iters (P,) int32)."""
+    L = pp.max_ls
+    fun = partial(objective.objective_vjp, head=head, tail=tail, pmap=pmap,
+                  env_of=env_of, pp=pp)
+    head_l, tail_l = head.repeat_interleave(L, 0), tail.repeat_interleave(L, 0)
+    env_l = env_of.repeat_interleave(L)
+
+    def ls_fun(cand):                     # (P, L, nv) -> (P, L)
+        f = objective.objective_fwd(cand.reshape(-1, cand.shape[-1]),
+                                    head_l, tail_l, pmap, env_l, pp)
+        return f.reshape(cand.shape[:2])
+
+    res = lbfgs.minimize(fun, x0, max_iters=pp.max_iters, history=pp.history,
+                         max_ls=L, ftol=FTOL, gtol=GTOL, c1=C1, skip=skip,
+                         ls_fun=ls_fun)
+    return res.x, res.f, res.iters

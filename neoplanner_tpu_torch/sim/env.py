@@ -1,8 +1,9 @@
-"""The closed loop with NEO planning: reset, step, rollout.
+"""The closed loop: reset, step, rollout.
 
-The port of neoplanner_tpu/sim/env.py for three paths, all with the NEO
-planner (``_replan`` :219-293), random missions and periodic replanning
-(``step_segment`` :452), and ``rollout`` (:720):
+The port of neoplanner_tpu/sim/env.py for three paths, with the 'expert',
+'warmstart', 'nn' and 'neo' planners (``_replan`` :219-293), random
+missions and periodic replanning (``step_segment`` :452), and ``rollout``
+(:720):
 
 - the flagship (bench.py:101-142): ground-truth sensing and the analytic
   scene SDF for every distance query (``sensing='gt', plan_map='scene'``,
@@ -15,20 +16,22 @@ planner (``_replan`` :219-293), random missions and periodic replanning
   ``sensing='depth', plan_map='grid'``, the onboard mode in which each
   drone builds its map from its own depth frames (reset :160-166,
   ``fuse_frame`` :363, ``rebuild_esdf`` :408, ``sense_and_map`` :440, the
-  depth branch of step_segment :509-515), with ``fuse_frames`` frames fused
+  depth branch of step_segment :503-516), with ``fuse_frames`` frames fused
   per segment (the sensor-rate loop, step_segment :567-633), with every
   fusion of ``MapParams.fusion`` and an exact or truncated lite ESDF.
 
-The other planners and mission modes are not ported.
+The 'geo' planner and the other mission and replan modes are not ported.
 
-B envs advance together. Each segment: render the depth frame (kernel B4);
-in the vision loop fuse it into the log-odds grid (the '2d_dense' fusion:
-kernel B8 v2, or B8 v1 on maps that v2 does not take; the '2d' and '3d'
-scatter fusions) and rebuild the ESDF (kernel B9 fused for a truncated
-field, B9 exact for an exact one); pick the local target, run the
-PlannerNet on the same frame, refine with the lazy L-BFGS bank (kernel B1
-on the scene, B6 on per-env ESDF windows; acceptance and coefficients
-through kernel B5), sample the new setpoints, then track them for
+B envs advance together. Each segment: render the depth frame (kernel B4)
+where a net planner reads it or the vision loop fuses it; in the vision
+loop fuse it into the log-odds grid (the '2d_dense' fusion: kernel B8 v2,
+or B8 v1 on maps that v2 does not take; the '2d' and '3d' scatter
+fusions) and rebuild the ESDF (kernel B9 fused for a truncated field, B9
+exact for an exact one); pick the local target and plan: the PlannerNet on
+the frame and, but for 'nn', a lazy L-BFGS bank (solver 'fused': kernel
+B1 on the scene, B6 on per-env ESDF windows; 'per_eval': the loop in
+PyTorch with kernel B2s or B7 per evaluation; acceptance and coefficients
+through kernel B5); sample the new setpoints, then track them for
 steps_per_replan substeps (kernel B3 on the scene, B10 with the grid
 metric). With ``fuse_frames`` F > 1 the tracking runs in F chunks and
 F - 1 more frames, rendered at ``mapp.fusion_row_stride`` from the poses
@@ -60,7 +63,7 @@ from neoplanner_tpu_torch.mapping import esdf as esdf_map
 from neoplanner_tpu_torch.mapping import fusion, occupancy
 from neoplanner_tpu_torch.mapping import scene as scene_map
 from neoplanner_tpu_torch.ops import edt, minco
-from neoplanner_tpu_torch.plan import neo
+from neoplanner_tpu_torch.plan import expert, neo, nn_init
 from neoplanner_tpu_torch.sense import raycast
 from neoplanner_tpu_torch.sim import dynamics, missions, track
 from neoplanner_tpu_torch.utils.profiling import stage
@@ -274,27 +277,66 @@ def rebuild_esdf(state: EnvState) -> EnvState:
     return state.replace(emap=emap)
 
 
-def sense_and_map(state: EnvState, cam: CameraParams, depth: torch.Tensor,
+def sense_and_map(state: EnvState, cam: CameraParams,
+                  depth: Optional[torch.Tensor] = None,
                   timer=None) -> EnvState:
-    """Fuse the frame and rebuild the ESDF (depth cam -> octomap_server ->
-    projected map -> ESDF in the reference)."""
+    """Fuse the frame (without one, a frame rendered at the fusion's row
+    stride) and rebuild the ESDF (depth cam -> octomap_server -> projected
+    map -> ESDF in the reference)."""
     with stage(timer, "fuse"):
         state = fuse_frame(state, cam, depth)
     with stage(timer, "esdf"):
         return rebuild_esdf(state)
 
 
-def _replan(state: EnvState, pp, mp, net, depth: torch.Tensor, pmap,
-            draws: Draws, timer=None):
-    """NEO plan from the state one replan period ahead (buffer row spr) on
-    the planning map pmap, the net reading the depth frame."""
+PLANNERS = ("expert", "warmstart", "nn", "neo")
+
+
+def _check_planner(planner: str, solver: str) -> None:
+    if planner == "geo":
+        raise ValueError("the 'geo' planner is not ported yet (ROADMAP A6)")
+    if planner not in PLANNERS:
+        raise ValueError(f"unknown planner {planner!r}; the port runs "
+                         f"{PLANNERS}")
+    if solver not in expert.SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}; the port runs "
+                         f"{expert.SOLVERS}")
+
+
+def _replan(state: EnvState, pp, mp, planner: str, solver: str, net,
+            depth: Optional[torch.Tensor], pmap, draws: Draws, timer=None):
+    """Plan from the state one replan period ahead (buffer row spr) on the
+    planning map pmap with ``planner`` (env.py:258-282): 'expert' the
+    multi-start bank, 'warmstart' that bank with the carried solution in
+    lane 0, 'nn' the net's prediction as it is, 'neo' the prediction
+    refined; the net reads the depth frame."""
     ahead = state.buffer[:, mp.steps_per_replan]            # (B, 3, 2)
     target_state, near = missions.set_local_target(
         pmap, ahead[:, 0], state.goal, draws.target_noise,
         state.fail_count, mp, pp)
-    traj = neo.enhanced_plan(pmap, net, depth, state.drone,
-                             mp.des_pos_z, ahead[:, :2], target_state,
-                             draws.bank_noise, pp, timer=timer)
+    head = expert.pad_boundary_state(ahead[:, :2], pp)
+    tail = expert.pad_boundary_state(target_state, pp)
+    if planner == "expert":
+        with stage(timer, "plan"):
+            traj = expert.plan(pmap, head, tail, draws.bank_noise, pp,
+                               solver=solver)
+    elif planner == "warmstart":
+        with stage(timer, "plan"):
+            q0 = state.carry_wpts + ahead[:, 0, :, None]
+            traj = expert.plan_with_carry(pmap, head, tail, q0,
+                                          state.carry_ts, state.has_carry,
+                                          draws.bank_noise, pp,
+                                          solver=solver)
+    elif planner == "nn":
+        with stage(timer, "net"):
+            traj = nn_init.nn_trajectory(net, depth, state.drone,
+                                         mp.des_pos_z, ahead[:, :2],
+                                         target_state, head, tail, pp)
+    else:
+        traj = neo.enhanced_plan(pmap, net, depth, state.drone,
+                                 mp.des_pos_z, ahead[:, :2], target_state,
+                                 draws.bank_noise, pp, timer=timer,
+                                 solver=solver)
     with stage(timer, "plan"):
         new_cmd, _, _ = minco.full_state_cmd(traj.coeffs, traj.ts,
                                              mp.cmd_hz, n_traj_samples(pp, mp))
@@ -322,17 +364,27 @@ def _chunks(sensed: bool, spr: int, fuse_frames: int,
 
 
 def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
-                 sp: SimParams, cam: CameraParams, net,
+                 sp: SimParams, cam: CameraParams, net=None,
                  draws: Optional[Draws] = None, timer=None,
                  fuse_frames: int = 1,
                  goal_stream: Optional[torch.Tensor] = None,
-                 esdf_rate: int = 1):
-    """One replan period for every env: sense (on the vision path, which
-    reset chose with sensing='depth': the frame is rendered once at full
-    resolution, fused into the map, the ESDF rebuilt, and the frame shared
-    with the net; on the other paths the frame feeds the net only), (maybe)
-    replan, then track steps_per_replan setpoints; finished missions count
-    and draw a new goal. Returns (state, SegmentInfo).
+                 esdf_rate: int = 1, planner: str = "neo",
+                 solver: str = "fused"):
+    """One replan period for every env: sense, (maybe) replan, then track
+    steps_per_replan setpoints; finished missions count and draw a new
+    goal. Returns (state, SegmentInfo).
+
+    planner is 'neo' (the net's prediction refined, the default), 'nn' (the
+    prediction as it is), 'expert' (the multi-start bank) or 'warmstart'
+    (that bank with the last accepted solution carried in lane 0); solver
+    is 'fused' or 'per_eval' (plan/expert.py). Sensing follows the JAX
+    loop (env.py:503-516): with a net planner ('nn', 'neo') the frame is
+    rendered once at full resolution for the net and, on the vision path
+    (which reset chose with sensing='depth'), fused into the map before the
+    ESDF rebuild; the expert planners need no net and render no frame for
+    one, so on the vision path they fuse a frame rendered at
+    mapp.fusion_row_stride, and on the ground-truth paths they render
+    nothing.
 
     fuse_frames F > 1 (vision path) tracks the segment in F chunks and
     fuses F - 1 more frames from the poses after the first F - 1 chunks,
@@ -343,6 +395,7 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
     given). ``timer`` (a utils.profiling.StageTimer) records the render,
     fuse, esdf, net, plan and track stages, and fuse_multi for the batched
     frames."""
+    _check_planner(planner, solver)
     grid = state.emap is not None          # the gt+grid or vision path
     sensed = state.logodds is not None     # the vision path
     spr = mp.steps_per_replan
@@ -351,17 +404,19 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
     if draws is None:
         draws = draw(state.generator, B, pp)
 
-    with stage(timer, "render"):
-        depth = raycast.render_depth_auto(state.world, state.drone.pos,
-                                          state.drone.quat, cam)
+    depth = None
+    if planner in ("nn", "neo"):
+        with stage(timer, "render"):
+            depth = raycast.render_depth_auto(state.world, state.drone.pos,
+                                              state.drone.quat, cam)
     if sensed:
         state = sense_and_map(state, cam, depth, timer)
     pmap = state.emap if grid else state.scene
 
     do_replan = ((state.phase == missions.PHASE_MISSION) & ~state.reached
                  & ~state.failed & ~state.near_goal)
-    traj, new_cmd, near, plan_init = _replan(state, pp, mp, net, depth, pmap,
-                                             draws, timer)
+    traj, new_cmd, near, plan_init = _replan(state, pp, mp, planner, solver,
+                                             net, depth, pmap, draws, timer)
     plan_ok = traj.ok & do_replan
 
     track_cmds = state.buffer[:, :spr].contiguous()
@@ -452,10 +507,12 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
 
 def rollout(state: EnvState, num_segments: int, pp: PlannerParams,
             mp: MissionParams, sp: SimParams, cam: CameraParams,
-            net, fuse_frames: int = 1) -> EnvState:
-    """num_segments replan periods, each fusing fuse_frames frames on the
-    vision path."""
+            net=None, fuse_frames: int = 1, planner: str = "neo",
+            solver: str = "fused") -> EnvState:
+    """num_segments replan periods with ``planner`` and ``solver``, each
+    fusing fuse_frames frames on the vision path."""
     for _ in range(num_segments):
         state, _ = step_segment(state, pp, mp, sp, cam, net,
-                                fuse_frames=fuse_frames)
+                                fuse_frames=fuse_frames, planner=planner,
+                                solver=solver)
     return state

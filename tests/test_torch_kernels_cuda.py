@@ -475,3 +475,110 @@ def test_grid_solver_kernel_matches_plain(cuda_device):
     np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
                                rtol=1e-3)
 
+
+
+# ---- B2s and B7: one objective evaluation per problem
+
+
+def _grid_windows():
+    """96-cell windows of two lite maps with boxes ahead of the drones, and
+    ten problems on them: six among the boxes, two whose tails lie beyond
+    the window's edge inside the map and two beyond the map (x > 21.6)."""
+    occ = torch.zeros((2, 192, 256))
+    rng = np.random.default_rng(9)
+    for e in range(2):
+        for _ in range(8):
+            r, c = rng.integers(60, 130), rng.integers(60, 140)
+            h, w = rng.integers(4, 12, size=2)
+            occ[e, r:r + h, c:c + w] = 1.0
+    emap = esdf.build(occ, ORIGIN, 0.1, 2.0, lite=True)
+    x0, head, tail = _boundary(10, seed=4, start=(3.0, 0.0))
+    head[6:8, 0, 0] = 8.0
+    tail[6:8, 0, 0] = 17.0
+    head[8:, 0, 0] = 17.0
+    tail[8:, 0, 0] = 24.0
+    pp = PlannerParams()
+    x0[6:, :4] = expert.straight_line_wpts(head[6:, 0], tail[6:, 0],
+                                           pp).reshape(4, 4)
+    env_of = torch.arange(10) % 2
+    window = esdf.make_window(emap, torch.tensor([[5.5, 0.0]] * 2), 96)
+    return x0, head, tail, window, env_of
+
+
+def _objective_case(which):
+    if which == "scene":
+        worlds = _worlds(2, seed=7)
+        x0, head, tail = _boundary(64, seed=2, start=(4.0, 0.0))
+        return x0, head, tail, scene.build(worlds, MapParams(**MAPP)), \
+            torch.arange(64) % 2
+    return _grid_windows()
+
+
+def _map_to(pmap, dev):
+    return type(pmap)(*(getattr(pmap, f.name).to(dev)
+                        for f in dataclasses.fields(pmap)))
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+@pytest.mark.parametrize("grad", [False, True])
+def test_objective_kernel_matches_plain(cuda_device, which, grad):
+    """Values within 5e-4 of the plain version (the golden tests' bound,
+    tests/test_costs_pallas*.py), gradients within 2e-3 (their bound) of
+    each problem's largest component (or 1), as chip_smoke.py holds them:
+    on the scene against the plain version in f64 (the f32 plain version
+    itself sits 2e-3 off it on a component of ~8 of a gradient of ~6000,
+    the roundoff of the large terms that cancel there, which the golden
+    tests' elementwise scale would count), on windows against the f32
+    plain version (it takes the kernel's bilinear cells; f64 may take the
+    next cell at a cell edge). One launch of the named kernel."""
+    from neoplanner_tpu_torch.plan import objective
+    x0, head, tail, pmap, env_of = _objective_case(which)
+    pp = PlannerParams(samples_per_piece=24)
+    fn = objective.objective_valgrad if grad else objective.objective_fwd
+    want = fn(x0, head, tail, pmap, env_of, pp)
+    name = f"objective_{which}_{'valgrad' if grad else 'fwd'}"
+    before = _cuda.launches[name]
+    got = fn(*(a.to(cuda_device) for a in (x0, head, tail)),
+             _map_to(pmap, cuda_device), env_of.to(cuda_device), pp)
+    torch.cuda.synchronize()
+    assert _cuda.launches[name] == before + 1
+    f_k, f_p = (got[0], want[0]) if grad else (got, want)
+    np.testing.assert_allclose(f_k.cpu().numpy(), f_p.numpy(), rtol=5e-4,
+                               atol=5e-4)
+    assert float(f_p.max()) > 100.0            # a collision term is live
+    if grad:
+        g_ref = want[1].double()
+        if which == "scene":
+            g_ref = objective.objective_valgrad(
+                *(a.double() for a in (x0, head, tail)),
+                scene.SceneMap(pmap.centers.double(), pmap.half.double(),
+                               pmap.is_cyl, pmap.active), env_of, pp)[1]
+        scale = g_ref.abs().amax(1, keepdim=True).clamp(min=1.0)
+        np.testing.assert_allclose((got[1].cpu().double() / scale).numpy(),
+                                   (g_ref / scale).numpy(), atol=2e-3)
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+def test_per_eval_solve_matches_fused_kernel(cuda_device, which):
+    """One iteration of the per-evaluation solve (B2s / B7 under the
+    PyTorch loop) against the fused solver kernel (B1 / B6) on the card:
+    the same step from the same gradient, x within 1e-4, the same
+    iteration counts; the autograd form's gradient is the kernel's times
+    grad_out."""
+    from neoplanner_tpu_torch.plan import objective
+    x0, head, tail, pmap, env_of = (a.to(cuda_device) if isinstance(
+        a, torch.Tensor) else _map_to(a, cuda_device)
+        for a in _objective_case(which))
+    pp = PlannerParams(samples_per_piece=24, max_iters=1, max_ls=4)
+    fused = solve.solve_scene if which == "scene" else solve.solve_grid
+    want = fused(x0, head, tail, pmap, env_of, pp)
+    got = solve.solve_per_eval(x0, head, tail, pmap, env_of, pp)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert got[2].tolist() == want[2].tolist()
+    x = x0.clone().requires_grad_(True)
+    f = objective.objective_vjp(x, head, tail, pmap, env_of, pp)
+    w = torch.linspace(0.5, 2.0, x.shape[0], device=cuda_device)
+    (gx,) = torch.autograd.grad(f, x, w)
+    _, g = objective.objective_valgrad(x0, head, tail, pmap, env_of, pp)
+    assert torch.equal(gx, w[:, None] * g)
