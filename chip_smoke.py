@@ -11,9 +11,12 @@ Phases, one short line each:
    numpy seed, TF32 off: max abs/rel error beside the stated tolerance,
    kernel and plain times (CUDA events, medians), the bound from bytes and
    operations;
-3. the lazy bank (expert.warm_start_plan: B1 on the first lanes, then on
-   the retries with a skip mask) at B = 1024 on the card against its plain
-   version on the CPU;
+3. B1 timed at its second launch of a segment, the lazy bank's retry
+   lanes (B x retry_num problems, those of the envs whose first lane was
+   accepted skipped), beside its first-lane launch; the lazy bank
+   (expert.warm_start_plan: B1 on the first lanes, then on the retries with
+   a skip mask) at B = 1024 on the card against its plain version on the
+   CPU;
 4. a small scene loop (B = 32, 2 segments) on the card against the same
    loop on the CPU, where every kernel wrapper takes its plain version;
 5. the scene path: the NEO closed loop of bench.py's flagship configuration
@@ -25,8 +28,9 @@ Phases, one short line each:
    B = 512 (examples/profile_vision.py's map, one fused frame per segment):
    B8 v2 on rendered frames, B9 on the fused grids, B6 on windows of the
    rebuilt maps (one iteration, 24 iterations against the cost basin with a
-   plain GPU-vs-CPU control, and the lazy bank with rejected first lanes on
-   the card against the CPU), B10 on the sensed maps;
+   plain GPU-vs-CPU control, the retry launch timed as B1's, and the lazy
+   bank with rejected first lanes on the card against the CPU), B10 on the
+   sensed maps;
 7. a small vision loop (B = 16, 2 segments) on the card against the CPU;
 8. the vision path: the same NEO loop with depth sensing, fusion, the
    truncated ESDF, grid planning and grid tracking at B = 512, goals at
@@ -324,6 +328,7 @@ def main() -> int:
     # the per-evaluation checks draw from their own generator, so that every
     # other check reads the inputs it read before they were added
     rng_eval = np.random.default_rng(9)
+    rng_retry = np.random.default_rng(10)   # the retry launches' seeds
     worlds = scenegen.generate_batch(_cuda.make_generator(0), B, wp)
     sc = scene.build(worlds, mapp)
     n_active = sc.active.sum(1).cpu().numpy()
@@ -425,6 +430,13 @@ def main() -> int:
             f"{np.percentile(rel_f, 99):.2e} max {rel_f.max():.2e}, mean f "
             f"gap {mean_gap:.2e} (tol 1e-2); iters mean "
             f"{float(iters.float().mean()):.1f}")
+        gap = (f_k - f_p).abs()
+        top = torch.topk(gap, min(5, n)).indices
+        say(f"{name} largest f differences (kernel vs plain, iters): "
+            + ", ".join(f"{float(f_k[i]):.6g} vs {float(f_p[i]):.6g} "
+                        f"({int(iters[i])})" for i in top)
+            + f"; their share of the summed difference "
+            f"{float(gap[top].sum() / gap.sum().clamp(min=1e-30)):.3f}")
         say(f"{name} plain GPU vs CPU ({n_c} problems): f rel diff max "
             f"{f1_ctrl.max():.2e} at 1 iter; at 24 iters median "
             f"{np.median(f_ctrl):.2e} p99 {np.percentile(f_ctrl, 99):.2e} "
@@ -432,6 +444,38 @@ def main() -> int:
         if agree < 0.95 or np.median(rel_f) > 1e-4 or mean_gap > 1e-2:
             raise AssertionError(f"{name} leaves the plain version's cost "
                                  f"basin")
+
+    def retry_launch(name, x0_, head_, tail_, ok_first, first_ms, launch):
+        """Time a solver kernel at its second launch of a segment: the lazy
+        bank's retry lanes (expert.warm_start_plan), retry_num problems per
+        env from the first lane's start perturbed, those of the envs whose
+        first lane was accepted skipped; print it beside the first-lane
+        launch. launch(x0, head, tail, env_of, skip, out) launches it."""
+        n, r = x0_.shape[0], pp.retry_num
+        xr = (x0_.repeat_interleave(r, 0) + torch.from_numpy(
+            rng_retry.normal(scale=0.3, size=(n * r, 7))).float().to(dev)
+        ).contiguous()
+        env_r = torch.arange(n, device=dev,
+                             dtype=torch.int32).repeat_interleave(r)
+        skip_r = ok_first.to(torch.int32)[env_r.long()].contiguous()
+        out = (torch.empty_like(xr), torch.empty(n * r, device=dev),
+               torch.empty(n * r, dtype=torch.int32, device=dev))
+        args = (xr, head_.repeat_interleave(r, 0).contiguous(),
+                tail_.repeat_interleave(r, 0).contiguous(), env_r, skip_r,
+                out)
+        ms = median_ms(torch, lambda: launch(*args), 10)
+        live = int((skip_r == 0).sum())
+        skipped_ok = bool((out[2][skip_r == 1] == 0).all()) and bool(
+            (out[1][skip_r == 1] == 0).all()) and torch.equal(
+            out[0][skip_r == 1], xr[skip_r == 1])
+        say(f"{name} retry launch: {n * r} problems, {live} live (envs "
+            f"{int((~ok_first).sum())}), iters mean "
+            f"{float(out[2][skip_r == 0].float().mean()) if live else 0:.1f}"
+            f": {ms:.3f} ms; first-lane launch ({n} problems) "
+            f"{first_ms:.3f} ms; skipped problems return (x0, 0, 0): "
+            f"{skipped_ok}")
+        if not skipped_ok:
+            raise AssertionError(f"{name} changed a skipped problem")
 
     def lazy_bank(name, pmap, pmap_cpu, head, tail, q0, ts0, it_first,
                   first_ok):
@@ -780,9 +824,12 @@ def main() -> int:
           rel(pf1[:n_c].cpu(), plain_cpu(pp1)),
           rel(pf[:n_c].cpu(), plain_cpu(pp)), n_c)
     iters = sol[2].cpu().numpy().astype(np.float64)
-    report("lbfgs_scene_solve", err1, 1e-3,
-           median_ms(torch, lambda: solve.launch_solver(
-               x0, head, tail, prims6, env_of, skip, sol, pp), 10),
+    first_ms = median_ms(torch, lambda: solve.launch_solver(
+        x0, head, tail, prims6, env_of, skip, sol, pp), 10)
+    retry_launch("lbfgs_scene_solve", x0, head, tail, ok_k, first_ms,
+                 lambda *a: solve.launch_solver(*a[:3], prims6, *a[3:],
+                                                pp=pp))
+    report("lbfgs_scene_solve", err1, 1e-3, first_ms,
            median_ms(torch, lambda: plain(pp), 3),
            solve_flops(pp.samples_per_piece, 20 * n_active, iters),
            B * (7 * 4 + 12 * 4 + 2 * 4 + 7 * 4 + 8) + B * 24 * 6 * 4,
@@ -1085,9 +1132,13 @@ def main() -> int:
           rel(pf1_v[:n_cv].cpu(), plain_grid(pp1, n_cv, "cpu")[1]),
           rel(pf_v[:n_cv].cpu(), plain_grid(pp, n_cv, "cpu")[1]), n_cv)
     iters_v = sol_v[2].cpu().numpy().astype(np.float64)
-    report("lbfgs_grid_solve", err1_v, 1e-3,
-           median_ms(torch, lambda: solve.launch_grid_solver(
-               *grid_args, pp=pp), 10),
+    first_ms_v = median_ms(torch, lambda: solve.launch_grid_solver(
+        *grid_args, pp=pp), 10)
+    retry_launch("lbfgs_grid_solve", x0_v, head_v, tail_v, ok_kv,
+                 first_ms_v,
+                 lambda *a: solve.launch_grid_solver(
+                     *a[:3], window.win, window.worg, *a[3:], pp=pp))
+    report("lbfgs_grid_solve", err1_v, 1e-3, first_ms_v,
            median_ms(torch, lambda: plain_grid(pp), 3),
            solve_flops(pp.samples_per_piece, 25, iters_v),
            BV * (7 * 4 + 12 * 4 + 2 * 4 + 7 * 4 + 8)

@@ -1,5 +1,5 @@
 // B6: the whole L-BFGS solve of one sensed-grid trajectory problem per
-// thread, on a per-env ESDF window, with the objective and its hand adjoint
+// warp, on a per-env ESDF window, with the objective and its hand adjoint
 // (B2, objective.cuh) inlined.
 //
 // Replaces neoplanner_tpu/plan/solve_pallas_grid.py
@@ -10,14 +10,17 @@
 // differs. A skipped problem returns its start point with f = 0, iters 0.
 //
 // The window taps are csrc/window_query.cuh's (shared with B7): the TPU
-// kernel's `sample` (:60-130) with a tap as four indexed loads.
+// kernel's `sample` (:60-130) with a tap as four indexed loads through the
+// read-only cache, unchanged.
 //
-// Bound on the H100: operations and per-thread latency, as B1: ~100
-// objective evaluations of 72 samples (four window loads each) plus two
-// 18x18 banded solves, in sequence in one thread, from a 36 KB f32 window
-// that several problems of one env share (it stays in L1/L2). Design: one
-// thread per problem; the wrapper clusters the live problems of the lazy
-// bank into leading warps, so skipped problems cost warps nothing.
+// Bound on the H100: operations and one problem's chain of dependent
+// steps, as B1: ~100 objective evaluations of 72 samples (four window
+// loads each) and one or two 18x18 banded solves, in sequence, from a 36 KB
+// f32 window that the problems of one env share (it stays in L1/L2).
+// Design: B1's, one warp per problem with the samples over its lanes and
+// the Givens rotations by columns; the ring in the warp's shared memory.
+// A skipped problem's warp exits at once, so the lazy bank needs no
+// ordering of its live problems.
 #include <string.h>
 
 #include "lbfgs_device.cuh"
@@ -25,11 +28,12 @@
 
 namespace {
 
-constexpr int kBlock = 64;
+constexpr int kWarps = 4;  // problems per block, one warp each
+constexpr int kBlock = 32 * kWarps;
 
 using neo::kNV;
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 2)
     lbfgs_grid_kernel(const float* __restrict__ x0,
                       const float* __restrict__ head,
                       const float* __restrict__ tail,
@@ -40,8 +44,11 @@ __global__ void __launch_bounds__(kBlock)
                       float* __restrict__ f_out, int* __restrict__ it_out,
                       int n_problems, int Hw, int Ww, int K, int max_iters,
                       int max_ls, neo::SolveParams P) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_problems) return;
+  __shared__ float rings[kWarps][neo::kWarpFloats];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kWarps + warp;
+  if (p >= n_problems) return;  // the whole warp
   float x[kNV];
 #pragma unroll
   for (int i = 0; i < kNV; ++i) x[i] = x0[p * kNV + i];
@@ -56,12 +63,15 @@ __global__ void __launch_bounds__(kBlock)
       hd[i] = head[p * 6 + i];
       tl[i] = tail[p * 6 + i];
     }
-    neo::lbfgs_solve(x, hd, tl, query, K, max_iters, max_ls, P, &f, &it);
+    neo::lbfgs_solve(x, hd, tl, query, K, max_iters, max_ls, P, rings[warp],
+                     lane, &f, &it);
   }
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < kNV; ++i) x_out[p * kNV + i] = x[i];
-  f_out[p] = f;
-  it_out[p] = it;
+    for (int i = 0; i < kNV; ++i) x_out[p * kNV + i] = x[i];
+    f_out[p] = f;
+    it_out[p] = it;
+  }
 }
 
 }  // namespace
@@ -78,7 +88,7 @@ extern "C" int neo_lbfgs_grid_solve(const void* x0, const void* head,
   static_assert(sizeof(neo::SolveParams) == 11 * sizeof(float), "layout");
   memcpy(&P, host_params, sizeof(P));
   const dim3 block(kBlock);
-  const dim3 grid((n_problems + kBlock - 1) / kBlock);
+  const dim3 grid((n_problems + kWarps - 1) / kWarps);
   lbfgs_grid_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x0), static_cast<const float*>(head),
       static_cast<const float*>(tail), static_cast<const float*>(win),

@@ -1,5 +1,5 @@
 // B1: the whole L-BFGS solve of one scene-backend trajectory problem per
-// thread, with the objective and its hand adjoint (B2, objective.cuh) inlined.
+// warp, with the objective and its hand adjoint (B2, objective.cuh) inlined.
 //
 // Replaces neoplanner_tpu/plan/solve_pallas.py `_make_solver_kernel` (:223)
 // and `lbfgs_in_kernel` (:49), launched by `_solve_batch` (:300). Python
@@ -9,23 +9,35 @@
 // its start point with f = 0 and iters = 0 (the lazy retry bank of
 // plan/expert.warm_start_plan).
 //
-// Bound on the H100: operations, and per-thread latency. Each objective
-// evaluation is ~M*K*n_prims SDF tests (24 primitives x 72 samples) plus two
-// 18x18 banded solves, all sequential in one thread; the data read is a few
-// hundred bytes per problem. A problem's primitives are staged in the
-// thread's own slice of shared memory, strided by the block size so that a
-// warp's 32 loads of one field hit 32 banks.
+// Bound on the H100: operations, and one problem's chain of dependent
+// steps. A solve is ~50-120 objective evaluations in sequence, each M*K = 72
+// samples against 24 primitive slots and one or two 18x18 banded Givens
+// solves, from a few hundred bytes of input. Design: one warp per problem,
+// kWarps problems per block, so that B = 1024 problems keep 1024 warps on
+// all 132 SMs. A piece's samples go over the lanes, and each sum is taken
+// in sample order by one lane (objective.cuh: the thread form's roundings);
+// each Givens rotation is one step of the lanes that hold its columns; the
+// serial remainder is the rotations' chain, one square root and divide per
+// rotation (62 forward, 33 transposed), which takes most of a solve; the
+// forward solve is skipped where the line search's last evaluation was at
+// the accepted point. The env's
+// primitive table is staged once in the warp's slice of shared memory and
+// read as broadcasts (all lanes test the same primitive at once); the
+// L-BFGS ring sits beside it. A skipped problem's warp writes its start
+// point and exits, so the lazy retry launch costs about one warp's solve,
+// as the first launch does, whatever its skipped share.
 #include <string.h>
 
 #include "lbfgs_device.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;
+constexpr int kWarps = 4;  // problems per block, one warp each
+constexpr int kBlock = 32 * kWarps;
 
 using neo::kNV;
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 2)
     lbfgs_scene_kernel(const float* __restrict__ x0,
                        const float* __restrict__ head,
                        const float* __restrict__ tail,
@@ -35,11 +47,15 @@ __global__ void __launch_bounds__(kBlock)
                        float* __restrict__ f_out, int* __restrict__ it_out,
                        int n_problems, int n_prims, int K, int max_iters,
                        int max_ls, neo::SolveParams P) {
-  extern __shared__ float smem[];  // [n_prims * 6][blockDim.x]
-  const int tid = threadIdx.x;
-  const int p = blockIdx.x * blockDim.x + tid;
-  if (p >= n_problems) return;
-  const int stride = blockDim.x;
+  // per warp: the L-BFGS ring and the objective's scratch, then the env's
+  // primitives [n_prims][6]
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kWarps + warp;
+  if (p >= n_problems) return;  // the whole warp
+  float* ring = smem + warp * (neo::kWarpFloats + 6 * n_prims);
+  float* pr = ring + neo::kWarpFloats;
 
   float x[kNV];
 #pragma unroll
@@ -48,20 +64,24 @@ __global__ void __launch_bounds__(kBlock)
   int it = 0;
   if (skip[p] == 0) {
     const float* src = prims + static_cast<long long>(env_of[p]) * n_prims * 6;
-    for (int i = 0; i < n_prims * 6; ++i) smem[i * stride + tid] = src[i];
+    for (int i = lane; i < n_prims * 6; i += 32) pr[i] = src[i];
+    __syncwarp();
     float hd[6], tl[6];
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
       hd[i] = head[p * 6 + i];
       tl[i] = tail[p * 6 + i];
     }
-    const neo::SceneQuery query{smem + tid, stride, n_prims};
-    neo::lbfgs_solve(x, hd, tl, query, K, max_iters, max_ls, P, &f, &it);
+    const neo::SceneQuery query{pr, 1, n_prims};
+    neo::lbfgs_solve(x, hd, tl, query, K, max_iters, max_ls, P, ring, lane,
+                     &f, &it);
   }
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < kNV; ++i) x_out[p * kNV + i] = x[i];
-  f_out[p] = f;
-  it_out[p] = it;
+    for (int i = 0; i < kNV; ++i) x_out[p * kNV + i] = x[i];
+    f_out[p] = f;
+    it_out[p] = it;
+  }
 }
 
 }  // namespace
@@ -76,9 +96,10 @@ extern "C" int neo_lbfgs_scene_solve(const void* x0, const void* head,
   neo::SolveParams P;
   static_assert(sizeof(neo::SolveParams) == 11 * sizeof(float), "layout");
   memcpy(&P, host_params, sizeof(P));
-  const size_t smem = static_cast<size_t>(n_prims) * 6 * kBlock * sizeof(float);
+  const size_t smem = static_cast<size_t>(neo::kWarpFloats + 6 * n_prims) *
+                      kWarps * sizeof(float);
   const dim3 block(kBlock);
-  const dim3 grid((n_problems + kBlock - 1) / kBlock);
+  const dim3 grid((n_problems + kWarps - 1) / kWarps);
   lbfgs_scene_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x0), static_cast<const float*>(head),
       static_cast<const float*>(tail), static_cast<const float*>(prims),

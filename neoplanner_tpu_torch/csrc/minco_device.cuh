@@ -1,7 +1,8 @@
 // Device helpers shared by the port's kernels: the MINCO basis constants, the
-// banded Givens-QR solve (B5, and the forward/transposed solves inside B1),
-// and the footprint SDF over a scene's primitives (B1's collision term and
-// B3's closed-loop metric).
+// banded Givens-QR solve in two forms (one thread's: B5, B2s and B7; one
+// warp's: the forward and transposed solves inside B1 and B6), and the
+// footprint SDF over a scene's primitives (B1's collision term and B3's
+// closed-loop metric).
 //
 // Counterparts of neoplanner_tpu/plan/costs_pallas.py `_solve_entries` (:124)
 // and `_scene_min_dist` (:153), and of ops/minco_pallas.py `_make_kernel`.
@@ -28,6 +29,34 @@ __device__ __forceinline__ float sgn(float v) {
   return static_cast<float>((v > 0.0f) - (v < 0.0f));
 }
 
+// The Givens steps below, and the B2 device code that calls them
+// (objective.cuh), write every add that takes a product as an explicit
+// __fmaf_rn / __fadd_rn: the compiler may fuse a plain multiply and add
+// differently in different kernels, and the thread and warp forms of the
+// solve must round alike in every kernel that inlines them.
+
+// One Givens rotation's (cs, sn) from the pivot a_cc and the entry a_rc.
+__device__ __forceinline__ void givens(float a_cc, float a_rc, float* cs,
+                                       float* sn) {
+  const float denom = sqrtf(__fmaf_rn(a_cc, a_cc, __fmul_rn(a_rc, a_rc)));
+  const bool safe = denom > 1e-20f;
+  // divide unconditionally (by 1 where unsafe) and select: no branch
+  const float q = 1.0f / (safe ? denom : 1.0f);
+  const float inv = safe ? q : 0.0f;
+  *cs = safe ? __fmul_rn(a_cc, inv) : 1.0f;
+  *sn = __fmul_rn(a_rc, inv);
+}
+
+// Rows c and r of a rotation: (cs rc + sn rr, cs rr - sn rc).
+__device__ __forceinline__ float rot_c(float cs, float sn, float rc,
+                                       float rr) {
+  return __fmaf_rn(cs, rc, __fmul_rn(sn, rr));
+}
+__device__ __forceinline__ float rot_r(float cs, float sn, float rc,
+                                       float rr) {
+  return __fmaf_rn(cs, rr, __fmul_rn(-sn, rc));
+}
+
 // Solve the banded system held in rows[N][N + D] (A | b) in place by Givens
 // QR, then back-substitute into x[N][D]. A has LBW sub-diagonals; QR fills
 // the upper band to FILL. Only band entries are touched: the rotation at
@@ -41,24 +70,19 @@ __device__ __forceinline__ void banded_givens_solve(float (&rows)[N][N + D],
   for (int c = 0; c < N; ++c) {
 #pragma unroll
     for (int r = c + 1; r < cmin(c + LBW + 1, N); ++r) {
-      const float a_cc = rows[c][c];
-      const float a_rc = rows[r][c];
-      const float denom = sqrtf(a_cc * a_cc + a_rc * a_rc);
-      const bool safe = denom > 1e-20f;
-      const float inv = safe ? 1.0f / denom : 0.0f;
-      const float cs = safe ? a_cc * inv : 1.0f;
-      const float sn = a_rc * inv;
+      float cs, sn;
+      givens(rows[c][c], rows[r][c], &cs, &sn);
 #pragma unroll
       for (int j = c; j < cmin(c + FILL + 1, N); ++j) {
         const float rc = rows[c][j], rr = rows[r][j];
-        rows[c][j] = cs * rc + sn * rr;
-        rows[r][j] = cs * rr - sn * rc;
+        rows[c][j] = rot_c(cs, sn, rc, rr);
+        rows[r][j] = rot_r(cs, sn, rc, rr);
       }
 #pragma unroll
       for (int j = N; j < N + D; ++j) {
         const float rc = rows[c][j], rr = rows[r][j];
-        rows[c][j] = cs * rc + sn * rr;
-        rows[r][j] = cs * rr - sn * rc;
+        rows[c][j] = rot_c(cs, sn, rc, rr);
+        rows[r][j] = rot_r(cs, sn, rc, rr);
       }
     }
   }
@@ -69,17 +93,104 @@ __device__ __forceinline__ void banded_givens_solve(float (&rows)[N][N + D],
       float acc = rows[c][N + d];
 #pragma unroll
       for (int j = c + 1; j < cmin(c + FILL + 1, N); ++j)
-        acc = acc - rows[c][j] * x[j][d];
+        acc = __fmaf_rn(-rows[c][j], x[j][d], acc);
       x[c][d] = acc / rows[c][c];
     }
   }
 }
 
+// Column c's pass of warp_givens_solve; GUARD for the last LBW columns,
+// whose rotations stop at row N - 1 (the others need no test per rotation).
+template <int N, int D, int LBW, int FILL, bool GUARD>
+__device__ __forceinline__ void givens_column(float* sys, float* diag,
+                                              float* own, int lane, int c) {
+  constexpr int S = N + 1;
+  __syncwarp();  // column c's rows as the previous columns left them
+  const float* pc = sys + c * S;
+  float a_cc = pc[c], own_c = own[c], a_r[LBW], own_r[LBW];
+#pragma unroll
+  for (int t = 0; t < LBW; ++t) {
+    const bool in = !GUARD || c + 1 + t < N;
+    a_r[t] = in ? pc[c + 1 + t] : 0.0f;
+    own_r[t] = in ? own[c + 1 + t] : 0.0f;
+  }
+#pragma unroll
+  for (int t = 0; t < LBW; ++t) {
+    if (!GUARD || c + 1 + t < N) {
+      float cs, sn;
+      givens(a_cc, a_r[t], &cs, &sn);
+      a_cc = rot_c(cs, sn, a_cc, a_r[t]);
+      const float nr = rot_r(cs, sn, own_c, own_r[t]);
+      own_c = rot_c(cs, sn, own_c, own_r[t]);
+      own_r[t] = nr;
+    }
+  }
+  const bool band = lane < N + D && lane > c && (lane <= c + FILL || lane >= N);
+  if (band) {
+    own[c] = own_c;
+#pragma unroll
+    for (int t = 0; t < LBW; ++t)
+      if (!GUARD || c + 1 + t < N) own[c + 1 + t] = own_r[t];
+  }
+  if (lane == c) diag[c] = own_c;
+}
+
+// banded_givens_solve for one warp, on the system held by columns in the
+// warp's shared memory: column j (j < N: A's; N + d: right-hand side d) at
+// sys[j * (N + 1) + row], lane j owning column j (the odd stride puts a row
+// of 32 columns in 32 banks). Column c's pass loads A[c][c] and the LBW
+// entries below it, and each lane its own column's rows c .. c + LBW, then
+// runs the column's rotations in registers — A[c][c] carried on every lane,
+// the owner's own update bit for bit — and each lane in the band
+// [c, c + FILL] or holding a right-hand side writes its rows back: the
+// thread form's rotations of the same entries, in the same order. The
+// owner of column c writes only the diagonal, to diag[c] (its entries below
+// the diagonal are never read again), so no lane writes column c while
+// another may still be loading it, and one sync per column suffices. Lanes
+// 0 .. D-1 then back-substitute one right-hand side each into sol[N][D],
+// the last FILL values in registers. The loops run at run time, so the
+// code stays a few hundred instructions: unrolled over (c, r) the two
+// solves were thousands, fetched anew at each evaluation.
+template <int N, int D, int LBW, int FILL>
+__device__ __forceinline__ void warp_givens_solve(float* sys, float* diag,
+                                                  int lane, float* sol) {
+  static_assert(N + D <= 32 && LBW < N, "one column per lane");
+  constexpr int S = N + 1;
+  float* own = sys + (lane < N + D ? lane : N + D - 1) * S;
+  int c = 0;
+#pragma unroll 1
+  for (; c < N - LBW; ++c)
+    givens_column<N, D, LBW, FILL, false>(sys, diag, own, lane, c);
+#pragma unroll 1
+  for (; c < N; ++c)
+    givens_column<N, D, LBW, FILL, true>(sys, diag, own, lane, c);
+  __syncwarp();
+  if (lane < D) {
+    float xw[FILL];  // x[c + 1 .. c + FILL] of this right-hand side
+#pragma unroll
+    for (int t = 0; t < FILL; ++t) xw[t] = 0.0f;
+#pragma unroll 1
+    for (int c = N - 1; c >= 0; --c) {
+      float acc = sys[(N + lane) * S + c];
+#pragma unroll
+      for (int t = 0; t < FILL; ++t)
+        if (c + 1 + t < N) acc = __fmaf_rn(-sys[(c + 1 + t) * S + c], xw[t], acc);
+      const float xc = acc / diag[c];
+      sol[c * D + lane] = xc;
+#pragma unroll
+      for (int t = FILL - 1; t > 0; --t) xw[t] = xw[t - 1];
+      xw[0] = xc;
+    }
+  }
+  __syncwarp();
+}
+
 // Minimum footprint SDF over one env's primitives at (px, py), and with
 // GRAD the gradient of the argmin primitive (mapping/scene.sample). The
 // primitives are six floats each [cx, cy, hx, hy, is_cyl, active], element
-// e of primitive k at pr[(6 * k + e) * stride] — a thread's slice of a
-// block's shared-memory table. Ties keep the first primitive, as argmin.
+// e of primitive k at pr[(6 * k + e) * stride]: stride 1 for a warp's own
+// table in shared memory (B1), the block size for a thread's slice of a
+// block's table (B2s). Ties keep the first primitive, as argmin.
 template <bool GRAD>
 __device__ __forceinline__ float scene_min_dist(const float* pr, int stride,
                                                 int n_prims, float px,
@@ -99,8 +210,8 @@ __device__ __forceinline__ float scene_min_dist(const float* pr, int stride,
     const float dx = px - cx, dy = py - cy;
     const float qx = fabsf(dx) - hx, qy = fabsf(dy) - hy;
     const float qxp = fmaxf(qx, 0.0f), qyp = fmaxf(qy, 0.0f);
-    const float nrm = sqrtf(qxp * qxp + qyp * qyp);
-    const float r = sqrtf(dx * dx + dy * dy);
+    const float nrm = sqrtf(__fmaf_rn(qxp, qxp, __fmul_rn(qyp, qyp)));
+    const float r = sqrtf(__fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
     const float dk = is_cyl ? r - hx : nrm + fminf(fmaxf(qx, qy), 0.0f);
     if (dk < dis) {
       dis = dk;

@@ -1,7 +1,15 @@
-// B2: the MINCO objective and its hand adjoint, as __device__ code for one
-// problem per thread, over any distance query. Inlined into B1
-// (lbfgs_scene.cu, the scene SDF) and B6 (lbfgs_grid.cu, the bilinear ESDF
-// window taps); there is no launch of its own.
+// B2: the MINCO objective and its hand adjoint, as __device__ code over any
+// distance query, in two forms that call the same pieces:
+// - warp_objective, one problem per warp: the form that B1
+//   (lbfgs_scene.cu, the scene SDF) and B6 (lbfgs_grid.cu, the bilinear
+//   ESDF window taps) run inside their L-BFGS loop;
+// - objective, one problem per thread: the form of B2s and B7
+//   (objective_eval.cu, one evaluation per launch).
+// The per-sample terms (polynomial, hinges, distance query and per-sample
+// cotangents), the energy quadrature, the system entries and the adjoint's
+// gradient are one function each, shared by both forms, so the two cannot
+// drift apart. They differ only in how the samples are spread and how the
+// two banded solves are done. There is no launch of its own.
 //
 // A query is a type with
 //   template <bool GRAD> float dist(float px, float py, float* gx, float* gy)
@@ -9,14 +17,14 @@
 //
 // Replaces the device functions of neoplanner_tpu/plan/costs_pallas.py:
 // `_system_entries` (:90), `_solve_entries` (:124, here
-// neo::banded_givens_solve), `_scene_min_dist` (:153), `common_fwd` (:234),
-// `fwd_nocoll` (:302), `valgrad_poly` (:330), `scene_valgrad_values` (:483)
-// and `scene_value` (:499).
+// neo::banded_givens_solve and neo::warp_givens_solve), `_scene_min_dist`
+// (:153), `common_fwd` (:234), `fwd_nocoll` (:302), `valgrad_poly` (:330),
+// `scene_valgrad_values` (:483) and `scene_value` (:499).
 //
 // The TPU form keeps (S, 512-lane) sample arrays in VMEM and reduces them at
-// the end; here one thread streams over the M*K samples and accumulates the
-// value, the duration cotangents and the coefficient cotangents as it goes,
-// so nothing per-sample is stored. The adjoint is the reference's hand
+// the end; here the samples are streamed, and the value, the duration
+// cotangents and the coefficient cotangents accumulated as they go, so
+// nothing per sample is stored. The adjoint is the reference's hand
 // gradient (expert_planner.py:345-537): per-sample penalty cotangents, the
 // transposed banded solve lam = A^-T cbar, waypoint gradients from the
 // b-rows, dA/dT through d beta_k/dT = beta_{k+1}, and the sigmoid tau chain.
@@ -36,10 +44,80 @@ struct SolveParams {
   float t_min, t_max, v_max, safe_dis, w_e, w_t, w_f, w_c, ftol, gtol, c1;
 };
 
+// The weighted sum of the cost terms.
+__device__ __forceinline__ float weighted(const SolveParams& P, float energy,
+                                          float time_cost, float feas,
+                                          float coll) {
+  return __fmaf_rn(P.w_c, coll,
+                   __fmaf_rn(P.w_f, feas,
+                             __fmaf_rn(P.w_e, energy,
+                                       __fmul_rn(P.w_t, time_cost))));
+}
+
 __device__ __forceinline__ void powers6(float t, float (&p)[6]) {
   p[0] = 1.0f;
 #pragma unroll
-  for (int i = 1; i < 6; ++i) p[i] = p[i - 1] * t;
+  for (int i = 1; i < 6; ++i) p[i] = __fmul_rn(p[i - 1], t);
+}
+
+// The piece durations T and their sigmoids from the decision vector's taus.
+__device__ __forceinline__ void durations(const float (&x)[kNV],
+                                          const SolveParams& P,
+                                          float (&sig)[kM], float (&T)[kM]) {
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const float s = 1.0f / __fadd_rn(1.0f, expf(-x[kDim * kNW + m]));
+    sig[m] = s;
+    T[m] = __fmaf_rn(P.t_max - P.t_min, s, P.t_min);
+  }
+}
+
+// put(r, c, v) for every nonzero entry of A(T) (minco.build_system).
+template <class Put>
+__device__ __forceinline__ void system_entries(const float (&T)[kM],
+                                               Put&& put) {
+  put(0, 0, 1.0f);
+  put(1, 1, 1.0f);
+  put(2, 2, 2.0f);
+#pragma unroll
+  for (int i = 0; i < kM - 1; ++i) {
+    float p[6];
+    powers6(T[i], p);
+    const int c0 = 6 * i, base = 6 * i + 3;
+#pragma unroll
+    for (int rr = 0; rr < 6; ++rr) {
+      // derivative order of row rr: 0, 0, 1, 2, 3, 4 (arithmetic, so that
+      // the j loop's bounds fold and every index stays a constant)
+      const int k = rr > 0 ? rr - 1 : 0;
+#pragma unroll
+      for (int j = k; j < 6; ++j)
+        put(base + rr, c0 + j, __fmul_rn(falling(k, j), p[j - k]));
+      if (rr >= 1) put(base + rr, c0 + 6 + rr - 1, -falling(rr - 1, rr - 1));
+    }
+  }
+  float p[6];
+  powers6(T[kM - 1], p);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int j = k; j < 6; ++j)
+      put(kNS - 3 + k, kNS - 6 + j, __fmul_rn(falling(k, j), p[j - k]));
+}
+
+// put(r, bx, by) for every nonzero row of the forward right-hand side: the
+// head and tail states and the intermediate waypoints.
+template <class Put>
+__device__ __forceinline__ void rhs_entries(const float (&x)[kNV],
+                                            const float (&head)[6],
+                                            const float (&tail)[6],
+                                            Put&& put) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    put(k, head[k * kDim], head[k * kDim + 1]);
+    put(kNS - 3 + k, tail[k * kDim], tail[k * kDim + 1]);
+  }
+#pragma unroll
+  for (int i = 0; i < kNW; ++i) put(6 * i + 3, x[i], x[kNW + i]);
 }
 
 // A(T) (or its transpose) into the left 18 columns of rows; rhs untouched.
@@ -50,100 +128,40 @@ __device__ __forceinline__ void build_system(const float (&T)[kM],
   for (int i = 0; i < kNS; ++i)
 #pragma unroll
     for (int j = 0; j < kNS; ++j) rows[i][j] = 0.0f;
-  auto put = [&](int r, int c, float v) {
+  system_entries(T, [&](int r, int c, float v) {
     if (TRANSPOSE)
       rows[c][r] = v;
     else
       rows[r][c] = v;
-  };
-  put(0, 0, 1.0f);
-  put(1, 1, 1.0f);
-  put(2, 2, 2.0f);
-  constexpr int ks[6] = {0, 0, 1, 2, 3, 4};
-#pragma unroll
-  for (int i = 0; i < kM - 1; ++i) {
-    float p[6];
-    powers6(T[i], p);
-    const int c0 = 6 * i, base = 6 * i + 3;
-#pragma unroll
-    for (int rr = 0; rr < 6; ++rr) {
-      const int k = ks[rr];
-#pragma unroll
-      for (int j = k; j < 6; ++j) put(base + rr, c0 + j, falling(k, j) * p[j - k]);
-      if (rr >= 1) put(base + rr, c0 + 6 + rr - 1, -falling(rr - 1, rr - 1));
-    }
-  }
-  float p[6];
-  powers6(T[kM - 1], p);
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int j = k; j < 6; ++j)
-      put(kNS - 3 + k, kNS - 6 + j, falling(k, j) * p[j - k]);
+  });
 }
 
-// The scene SDF query: one env's primitives, a thread's slice of the
-// block's shared-memory table (see scene_min_dist).
-struct SceneQuery {
-  const float* pr;
-  int stride, n_prims;
-  template <bool GRAD>
-  __device__ __forceinline__ float dist(float px, float py, float* gx,
-                                        float* gy) const {
-    return scene_min_dist<GRAD>(pr, stride, n_prims, px, py, gx, gy);
-  }
-};
+// A(T) (or its transpose) by columns, as warp_givens_solve holds it: this
+// lane's column of the matrix, zeros on the lanes past it.
+template <bool TRANSPOSE>
+__device__ __forceinline__ void build_columns(const float (&T)[kM], int lane,
+                                              float (&col)[kNS]) {
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) col[i] = 0.0f;
+  system_entries(T, [&](int r, int c, float v) {
+    if (TRANSPOSE)
+      col[c] = lane == r ? v : col[c];
+    else
+      col[r] = lane == c ? v : col[r];
+  });
+}
 
-// Weighted objective of decision vector x; with GRAD also its gradient g.
-// head/tail: [pos; vel; acc] x (x, y), row-major.
-template <bool GRAD, class Query>
-__device__ __noinline__ float objective(const float (&x)[kNV],
-                                        const float (&head)[6],
-                                        const float (&tail)[6],
-                                        const Query& query, int K,
-                                        const SolveParams& P,
-                                        float (&g)[kNV]) {
-  float sig[kM], T[kM];
-#pragma unroll
-  for (int m = 0; m < kM; ++m) {
-    const float s = 1.0f / (1.0f + expf(-x[kDim * kNW + m]));
-    sig[m] = s;
-    T[m] = P.t_min + (P.t_max - P.t_min) * s;
-  }
-
-  // ---- forward: coefficients of the banded MINCO system
-  float rows[kNS][kNS + 2];
-  build_system<false>(T, rows);
-#pragma unroll
-  for (int r = 0; r < kNS; ++r) rows[r][kNS] = rows[r][kNS + 1] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int d = 0; d < kDim; ++d) {
-      rows[k][kNS + d] = head[k * kDim + d];
-      rows[kNS - 3 + k][kNS + d] = tail[k * kDim + d];
-    }
-#pragma unroll
-  for (int i = 0; i < kNW; ++i) {
-    rows[6 * i + 3][kNS] = x[i];
-    rows[6 * i + 3][kNS + 1] = x[kNW + i];
-  }
-  float xs[kNS][kDim];  // coeffs: piece m, power j -> xs[6m + j]
-  banded_givens_solve<kNS, kDim, 4, 6>(rows, xs);
-
+// The energy, a 3-point Gauss-Legendre of |jerk|^2 per piece; with GRAD its
+// cotangents are added to Tbar and cbar.
+template <bool GRAD>
+__device__ __forceinline__ float energy_terms(const float (&xs)[kNS][kDim],
+                                              const float (&T)[kM],
+                                              const SolveParams& P,
+                                              float (&Tbar)[kM],
+                                              float (&cbar)[kNS][kDim]) {
   const float gl_nodes[3] = {0.5f - 0.38729833462074170f, 0.5f,
                              0.5f + 0.38729833462074170f};
   const float gl_w[3] = {5.0f / 18.0f, 8.0f / 18.0f, 5.0f / 18.0f};
-  float Tbar[kM];
-  float cbar[kNS][kDim];
-  if (GRAD) {
-#pragma unroll
-    for (int m = 0; m < kM; ++m) Tbar[m] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kNS; ++i) cbar[i][0] = cbar[i][1] = 0.0f;
-  }
-
-  // ---- energy: 3-point Gauss-Legendre of |jerk|^2 per piece
   float energy = 0.0f;
 #pragma unroll
   for (int m = 0; m < kM; ++m) {
@@ -154,111 +172,131 @@ __device__ __noinline__ float objective(const float (&x)[kNV],
       float jx = 0.0f, jy = 0.0f, sx = 0.0f, sy = 0.0f;
 #pragma unroll
       for (int j = 3; j < 6; ++j) {
-        jx = jx + falling(3, j) * pw3[j - 3] * xs[6 * m + j][0];
-        jy = jy + falling(3, j) * pw3[j - 3] * xs[6 * m + j][1];
+        const float b3 = __fmul_rn(falling(3, j), pw3[j - 3]);
+        jx = __fmaf_rn(b3, xs[6 * m + j][0], jx);
+        jy = __fmaf_rn(b3, xs[6 * m + j][1], jy);
         if (GRAD && j >= 4) {
-          sx = sx + falling(4, j) * pw3[j - 4] * xs[6 * m + j][0];
-          sy = sy + falling(4, j) * pw3[j - 4] * xs[6 * m + j][1];
+          const float b4 = __fmul_rn(falling(4, j), pw3[j - 4]);
+          sx = __fmaf_rn(b4, xs[6 * m + j][0], sx);
+          sy = __fmaf_rn(b4, xs[6 * m + j][1], sy);
         }
       }
-      const float jsq = jx * jx + jy * jy;
-      energy = energy + gl_w[q] * T[m] * jsq;
+      const float jsq = __fmaf_rn(jx, jx, __fmul_rn(jy, jy));
+      energy = __fmaf_rn(__fmul_rn(gl_w[q], T[m]), jsq, energy);
       if (GRAD) {
-        Tbar[m] += P.w_e * gl_w[q] *
-                   (jsq + T[m] * 2.0f * (jx * sx + jy * sy) * gl_nodes[q]);
-        const float scale = P.w_e * gl_w[q] * T[m] * 2.0f;
+        const float js = __fmaf_rn(jx, sx, __fmul_rn(jy, sy));
+        const float dt = __fmaf_rn(__fmul_rn(__fmul_rn(T[m], 2.0f), js),
+                                   gl_nodes[q], jsq);
+        Tbar[m] = __fmaf_rn(__fmul_rn(P.w_e, gl_w[q]), dt, Tbar[m]);
+        const float scale = __fmul_rn(__fmul_rn(P.w_e, gl_w[q]),
+                                      __fmul_rn(T[m], 2.0f));
 #pragma unroll
         for (int j = 3; j < 6; ++j) {
-          cbar[6 * m + j][0] += scale * jx * falling(3, j) * pw3[j - 3];
-          cbar[6 * m + j][1] += scale * jy * falling(3, j) * pw3[j - 3];
+          const float b3 = __fmul_rn(falling(3, j), pw3[j - 3]);
+          cbar[6 * m + j][0] = __fmaf_rn(__fmul_rn(scale, jx), b3,
+                                         cbar[6 * m + j][0]);
+          cbar[6 * m + j][1] = __fmaf_rn(__fmul_rn(scale, jy), b3,
+                                         cbar[6 * m + j][1]);
         }
       }
     }
   }
-  float time_cost = 0.0f;
-#pragma unroll
-  for (int m = 0; m < kM; ++m) {
-    time_cost = time_cost + T[m];
-    if (GRAD) Tbar[m] += P.w_t;
-  }
+  return energy;
+}
 
-  // ---- sampled feasibility and collision terms, streamed over samples
-  float feas = 0.0f, coll = 0.0f;
+// What one sample adds to the sums, kept apart so that both forms can add
+// it with the same operations: feas += whv * hv2, coll += whc * hc2, and
+// with the gradient Tbar[m] += tbar and, for each power j of piece m,
+// cbar[6m + j][d] += pp_d * pw[j] + j * pv_d * pw[j - 1] (cbar_add).
+struct SampleTerms {
+  float whv, hv2, whc, hc2;  // the hinge terms: w * h and h^2
+  float tbar;                // the sample's share of Tbar[m]
+  float pp[kDim], pv[kDim];  // position and velocity cotangents
+  float pw[6];               // (T[m] * k / (K - 1))^j
+};
+
+// Sample k of K on a piece of duration Tm with coefficients c[j][d] (power
+// j): its position, velocity (and acceleration), the hinges, the distance
+// query and, with GRAD, the per-sample cotangents.
+template <bool GRAD, class Query>
+__device__ __forceinline__ SampleTerms sample_terms(const float (&c)[6][kDim],
+                                                    float Tm, int k, int K,
+                                                    const Query& query,
+                                                    const SolveParams& P) {
+  SampleTerms t;
   const float inv_km1 = 1.0f / static_cast<float>(K - 1);
-#pragma unroll 1
-  for (int m = 0; m < kM; ++m) {
-#pragma unroll 1
-    for (int k = 0; k < K; ++k) {
-      const float frac = static_cast<float>(k) / static_cast<float>(K - 1);
-      const float omg = (k == 0 || k == K - 1) ? 0.5f : 1.0f;
-      const float w = omg * T[m] / static_cast<float>(K - 1);
-      float pw[6];
-      powers6(T[m] * frac, pw);
-      float px = 0.0f, py = 0.0f, vx = 0.0f, vy = 0.0f, ax = 0.0f, ay = 0.0f;
+  const float frac = static_cast<float>(k) / static_cast<float>(K - 1);
+  const float omg = (k == 0 || k == K - 1) ? 0.5f : 1.0f;
+  const float w = omg * Tm / static_cast<float>(K - 1);
+  powers6(Tm * frac, t.pw);
+  float px = 0.0f, py = 0.0f, vx = 0.0f, vy = 0.0f, ax = 0.0f, ay = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        const float cx = xs[6 * m + j][0], cy = xs[6 * m + j][1];
-        px = px + pw[j] * cx;
-        py = py + pw[j] * cy;
-        if (j >= 1) {
-          vx = vx + falling(1, j) * pw[j - 1] * cx;
-          vy = vy + falling(1, j) * pw[j - 1] * cy;
-        }
-        if (GRAD && j >= 2) {
-          ax = ax + falling(2, j) * pw[j - 2] * cx;
-          ay = ay + falling(2, j) * pw[j - 2] * cy;
-        }
-      }
-      const float hv = fmaxf(vx * vx + vy * vy - P.v_max * P.v_max, 0.0f);
-      const float hv2 = hv * hv;
-      feas += w * hv * hv2;
-      float gsx = 0.0f, gsy = 0.0f;
-      const float dis = query.template dist<GRAD>(px, py, &gsx, &gsy);
-      const float hc = fmaxf(P.safe_dis - dis, 0.0f);
-      const float hc2 = hc * hc;
-      coll += w * hc * hc2;
-      if (GRAD) {
-        const float g_s = P.w_c * w * 3.0f * hc2;
-        const float ppx = -g_s * gsx, ppy = -g_s * gsy;
-        const float chcw = P.w_c * hc * hc2;
-        const float e_s = P.w_f * w * 3.0f * hv2;
-        const float pvx = e_s * 2.0f * vx, pvy = e_s * 2.0f * vy;
-        Tbar[m] += (omg * inv_km1) * (P.w_f * hv * hv2 + chcw) +
-                   (ppx * vx + ppy * vy + pvx * ax + pvy * ay) * frac;
-#pragma unroll
-        for (int j = 0; j < 6; ++j) {
-          cbar[6 * m + j][0] += ppx * pw[j];
-          cbar[6 * m + j][1] += ppy * pw[j];
-          if (j >= 1) {
-            cbar[6 * m + j][0] += falling(1, j) * pvx * pw[j - 1];
-            cbar[6 * m + j][1] += falling(1, j) * pvy * pw[j - 1];
-          }
-        }
-      }
+  for (int j = 0; j < 6; ++j) {
+    const float cx = c[j][0], cy = c[j][1];
+    px = __fmaf_rn(t.pw[j], cx, px);
+    py = __fmaf_rn(t.pw[j], cy, py);
+    if (j >= 1) {
+      const float b1 = __fmul_rn(falling(1, j), t.pw[j - 1]);
+      vx = __fmaf_rn(b1, cx, vx);
+      vy = __fmaf_rn(b1, cy, vy);
+    }
+    if (GRAD && j >= 2) {
+      const float b2 = __fmul_rn(falling(2, j), t.pw[j - 2]);
+      ax = __fmaf_rn(b2, cx, ax);
+      ay = __fmaf_rn(b2, cy, ay);
     }
   }
-  const float f =
-      P.w_e * energy + P.w_t * time_cost + P.w_f * feas + P.w_c * coll;
-  if (!GRAD) return f;
-
-  // ---- adjoint: transposed banded solve lam = A^-T cbar
-  build_system<true>(T, rows);
-#pragma unroll
-  for (int r = 0; r < kNS; ++r) {
-    rows[r][kNS] = cbar[r][0];
-    rows[r][kNS + 1] = cbar[r][1];
+  const float hv = fmaxf(__fsub_rn(__fmaf_rn(vx, vx, __fmul_rn(vy, vy)),
+                                   __fmul_rn(P.v_max, P.v_max)),
+                         0.0f);
+  t.hv2 = __fmul_rn(hv, hv);
+  t.whv = __fmul_rn(w, hv);
+  float gsx = 0.0f, gsy = 0.0f;
+  const float dis = query.template dist<GRAD>(px, py, &gsx, &gsy);
+  const float hc = fmaxf(P.safe_dis - dis, 0.0f);
+  t.hc2 = __fmul_rn(hc, hc);
+  t.whc = __fmul_rn(w, hc);
+  if (GRAD) {
+    const float g_s = __fmul_rn(__fmul_rn(P.w_c, w), __fmul_rn(3.0f, t.hc2));
+    const float ppx = __fmul_rn(-g_s, gsx), ppy = __fmul_rn(-g_s, gsy);
+    const float chcw = __fmul_rn(__fmul_rn(P.w_c, hc), t.hc2);
+    const float e_s = __fmul_rn(__fmul_rn(P.w_f, w), __fmul_rn(3.0f, t.hv2));
+    const float pvx = __fmul_rn(__fmul_rn(e_s, 2.0f), vx);
+    const float pvy = __fmul_rn(__fmul_rn(e_s, 2.0f), vy);
+    const float hinge = __fmaf_rn(__fmul_rn(P.w_f, hv), t.hv2, chcw);
+    const float pdot = __fmaf_rn(
+        pvy, ay, __fmaf_rn(pvx, ax, __fmaf_rn(ppy, vy, __fmul_rn(ppx, vx))));
+    t.tbar = __fmaf_rn(pdot, frac, __fmul_rn(__fmul_rn(omg, inv_km1), hinge));
+    t.pp[0] = ppx;
+    t.pp[1] = ppy;
+    t.pv[0] = pvx;
+    t.pv[1] = pvy;
   }
-  float lam[kNS][kDim];
-  banded_givens_solve<kNS, kDim, 2, 6>(rows, lam);
+  return t;
+}
 
-  // waypoint gradients: the b-row cotangents
+// One sample's share of cbar[6m + j][d]: c + pp * pw_j, then + (j * pv) *
+// pw_jm1 for j >= 1, each a fused multiply-add whose rounding both forms
+// share.
+__device__ __forceinline__ float cbar_add(float c, float pp, float pv,
+                                          float pw_j, float pw_jm1, int j) {
+  c = __fmaf_rn(pp, pw_j, c);
+  return j >= 1 ? __fmaf_rn(__fmul_rn(static_cast<float>(j), pv), pw_jm1, c)
+                : c;
+}
+
+// The gradient g from the adjoint lam = A^-T cbar: the waypoints' b-row
+// cotangents, Abar = -lam xs^T into Tbar through d beta_k / dT = beta_{k+1},
+// and the sigmoid tau chain.
+__device__ __forceinline__ void adjoint_gradient(
+    const float (&lam)[kNS][kDim], const float (&xs)[kNS][kDim],
+    const float (&T)[kM], const float (&sig)[kM], float (&Tbar)[kM],
+    const SolveParams& P, float (&g)[kNV]) {
 #pragma unroll
   for (int i = 0; i < kNW; ++i) {
     g[i] = lam[6 * i + 3][0];
     g[kNW + i] = lam[6 * i + 3][1];
   }
-  // Abar = -lam x^T into T through d beta_k / dT = beta_{k+1}
-  constexpr int ks[6] = {0, 0, 1, 2, 3, 4};
 #pragma unroll
   for (int i = 0; i < kM; ++i) {
     float p[6];
@@ -271,21 +309,327 @@ __device__ __noinline__ float objective(const float (&x)[kNV],
 #pragma unroll
     for (int rr = 0; rr < 6; ++rr) {
       if (rr >= n_rows) break;
-      const int k = last ? rr : ks[rr];
+      const int k = last ? rr : (rr > 0 ? rr - 1 : 0);
 #pragma unroll
       for (int j = k + 1; j < 6; ++j) {
-        const float dA = falling(k + 1, j) * p[j - k - 1];
-        const float lx = lam[base + rr][0] * xs[c0 + j][0] +
-                         lam[base + rr][1] * xs[c0 + j][1];
-        acc = acc - dA * lx;
+        const float dA = __fmul_rn(falling(k + 1, j), p[j - k - 1]);
+        const float lx = __fmaf_rn(lam[base + rr][0], xs[c0 + j][0],
+                                   __fmul_rn(lam[base + rr][1],
+                                             xs[c0 + j][1]));
+        acc = __fmaf_rn(-dA, lx, acc);
       }
     }
     Tbar[i] += acc;
   }
-  // tau chain
 #pragma unroll
   for (int m = 0; m < kM; ++m)
-    g[kDim * kNW + m] = Tbar[m] * (P.t_max - P.t_min) * sig[m] * (1.0f - sig[m]);
+    g[kDim * kNW + m] = __fmul_rn(__fmul_rn(Tbar[m], P.t_max - P.t_min),
+                                  __fmul_rn(sig[m], 1.0f - sig[m]));
+}
+
+// The scene SDF query: one env's primitives in shared memory, read as
+// scene_min_dist lays them out.
+struct SceneQuery {
+  const float* pr;
+  int stride, n_prims;
+  template <bool GRAD>
+  __device__ __forceinline__ float dist(float px, float py, float* gx,
+                                        float* gy) const {
+    return scene_min_dist<GRAD>(pr, stride, n_prims, px, py, gx, gy);
+  }
+};
+
+// Weighted objective of decision vector x, one problem per thread (B2s,
+// B7); with GRAD also its gradient g. head/tail: [pos; vel; acc] x (x, y),
+// row-major. One thread streams over all M*K samples and runs both banded
+// solves on its own copy of the system.
+template <bool GRAD, class Query>
+__device__ __noinline__ float objective(const float (&x)[kNV],
+                                        const float (&head)[6],
+                                        const float (&tail)[6],
+                                        const Query& query, int K,
+                                        const SolveParams& P,
+                                        float (&g)[kNV]) {
+  float sig[kM], T[kM];
+  durations(x, P, sig, T);
+
+  // ---- forward: coefficients of the banded MINCO system
+  float rows[kNS][kNS + 2];
+  build_system<false>(T, rows);
+#pragma unroll
+  for (int r = 0; r < kNS; ++r) rows[r][kNS] = rows[r][kNS + 1] = 0.0f;
+  rhs_entries(x, head, tail, [&](int r, float bx, float by) {
+    rows[r][kNS] = bx;
+    rows[r][kNS + 1] = by;
+  });
+  float xs[kNS][kDim];  // coeffs: piece m, power j -> xs[6m + j]
+  banded_givens_solve<kNS, kDim, 4, 6>(rows, xs);
+
+  float Tbar[kM];
+  float cbar[kNS][kDim];
+  if (GRAD) {
+#pragma unroll
+    for (int m = 0; m < kM; ++m) Tbar[m] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) cbar[i][0] = cbar[i][1] = 0.0f;
+  }
+  const float energy = energy_terms<GRAD>(xs, T, P, Tbar, cbar);
+  float time_cost = 0.0f;
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    time_cost = time_cost + T[m];
+    if (GRAD) Tbar[m] += P.w_t;
+  }
+
+  // ---- sampled feasibility and collision terms, streamed over samples
+  float feas = 0.0f, coll = 0.0f;
+#pragma unroll 1
+  for (int m = 0; m < kM; ++m) {
+    float c[6][kDim];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      c[j][0] = xs[6 * m + j][0];
+      c[j][1] = xs[6 * m + j][1];
+    }
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      const SampleTerms t = sample_terms<GRAD>(c, T[m], k, K, query, P);
+      feas = __fmaf_rn(t.whv, t.hv2, feas);
+      coll = __fmaf_rn(t.whc, t.hc2, coll);
+      if (GRAD) {
+        Tbar[m] = __fadd_rn(Tbar[m], t.tbar);
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+          for (int d = 0; d < kDim; ++d)
+            cbar[6 * m + j][d] = cbar_add(cbar[6 * m + j][d], t.pp[d],
+                                          t.pv[d], t.pw[j],
+                                          t.pw[j > 0 ? j - 1 : 0], j);
+      }
+    }
+  }
+  const float f = weighted(P, energy, time_cost, feas, coll);
+  if (!GRAD) return f;
+
+  // ---- adjoint: transposed banded solve lam = A^-T cbar
+  build_system<true>(T, rows);
+#pragma unroll
+  for (int r = 0; r < kNS; ++r) {
+    rows[r][kNS] = cbar[r][0];
+    rows[r][kNS + 1] = cbar[r][1];
+  }
+  float lam[kNS][kDim];
+  banded_givens_solve<kNS, kDim, 2, 6>(rows, lam);
+  adjoint_gradient(lam, xs, T, sig, Tbar, P, g);
+  return f;
+}
+
+// A warp's shared-memory scratch for warp_objective: 32 sample records of
+// kTermStride floats (the SampleTerms fields, then the constants 1 and 0);
+// the sums (cbar by row and dimension, Tbar, feas, coll); the banded system
+// by columns, its diagonal and its solution (warp_givens_solve).
+enum : int {
+  kWhv, kHv2, kWhc, kHc2, kTbar, kPp, kPv = kPp + kDim, kPw = kPv + kDim,
+  kOne = kPw + 6, kZero, kTermStride  // 17, odd: one record per lane hits
+};                                    // 32 distinct banks
+constexpr int kSumTbar = 2 * kNS, kSumFeas = kSumTbar + kM,
+              kSumColl = kSumFeas + 1;
+constexpr int kSumOff = 32 * kTermStride;
+constexpr int kSysOff = kSumOff + kSumColl + 1;
+constexpr int kDiagOff = kSysOff + (kNS + kDim) * (kNS + 1);
+constexpr int kSolOff = kDiagOff + kNS;
+constexpr int kScratchFloats = kSolOff + kNS * kDim;
+
+// This lane's column of A(T) (or its transpose) into sys, as
+// warp_givens_solve holds it, after rhs(col) has set the right-hand sides'
+// lanes.
+template <bool TRANSPOSE, class Rhs>
+__device__ __forceinline__ void store_system(const float (&T)[kM], int lane,
+                                             float* sys, Rhs&& rhs) {
+  float col[kNS];
+  build_columns<TRANSPOSE>(T, lane, col);
+  rhs(col);
+  if (lane < kNS + kDim) {
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) sys[lane * (kNS + 1) + i] = col[i];
+  }
+}
+
+// The same objective, one problem per warp (B1, B6); every lane passes the
+// same x, head and tail and gets back the same f and g — the thread form's
+// f and g, bit for bit. The two banded solves run by columns over the
+// lanes (warp_givens_solve: the thread form's rotations). The samples of
+// each piece go over the lanes (lane l takes k = l, l + 32, ...), each
+// writing its SampleTerms to a record in scratch; then one lane per sum —
+// lanes 0-11 cbar[6m + j][d] (j = lane % 6, d = lane / 6), 12 Tbar[m], 13
+// feas, 14 coll — adds the records in sample order with the thread form's
+// fused multiply-adds, starting from the energy's share as the thread form
+// does. So no sum depends on how the samples were spread, and no atomics: a
+// repeat launch reproduces every bit. The energy quadrature and the
+// adjoint's gradient are a few hundred operations on values every lane
+// holds: each lane computes them itself. With have_xs the scratch already
+// holds the coefficients of this x (the previous evaluation was at the
+// same x), and the forward solve is skipped.
+template <bool GRAD, class Query>
+__device__ __forceinline__ float warp_objective(const float (&x)[kNV],
+                                                const float (&head)[6],
+                                                const float (&tail)[6],
+                                                const Query& query, int K,
+                                                const SolveParams& P,
+                                                int lane, float* scratch,
+                                                float (&g)[kNV],
+                                                bool have_xs = false) {
+  float* sums = scratch + kSumOff;
+  float* sys = scratch + kSysOff;
+  float* diag = scratch + kDiagOff;
+  float* sol = scratch + kSolOff;
+  float sig[kM], T[kM];
+  durations(x, P, sig, T);
+  const bool rhs_x = lane == kNS, rhs_y = lane == kNS + 1;
+
+  // ---- forward: coefficients of the banded MINCO system
+  if (!have_xs) {
+    store_system<false>(T, lane, sys, [&](float (&col)[kNS]) {
+      rhs_entries(x, head, tail, [&](int r, float bx, float by) {
+        col[r] = rhs_x ? bx : (rhs_y ? by : col[r]);
+      });
+    });
+    warp_givens_solve<kNS, kDim, 4, 6>(sys, diag, lane, sol);
+  }
+  float xs[kNS][kDim];  // coeffs: piece m, power j -> xs[6m + j]
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) {
+    xs[i][0] = sol[i * kDim];
+    xs[i][1] = sol[i * kDim + 1];
+  }
+
+  // ---- energy: on every lane; with the gradient its share starts the
+  // sums (the thread form adds it first too)
+  float Te[kM], ce[kNS][kDim];
+  if (GRAD) {
+#pragma unroll
+    for (int m = 0; m < kM; ++m) Te[m] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) ce[i][0] = ce[i][1] = 0.0f;
+  }
+  const float energy = energy_terms<GRAD>(xs, T, P, Te, ce);
+  if (GRAD && lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      sums[i * kDim] = ce[i][0];
+      sums[i * kDim + 1] = ce[i][1];
+    }
+#pragma unroll
+    for (int m = 0; m < kM; ++m) sums[kSumTbar + m] = Te[m] + P.w_t;
+  }
+
+  // ---- sampled terms: this lane's sum adds fma(r[f1x], r[f1y], .) and
+  // fma(s2 * r[f2x], r[f2y], .) for each record r (cbar_add's two steps;
+  // Tbar's add is an fma by 1; zeros where a sum has no second step)
+  const int cj = lane % 6, cd = lane / 6;
+  const bool is_cbar = GRAD && lane < 2 * 6, is_tbar = GRAD && lane == 12;
+  int f1x = kZero, f1y = kZero, f2x = kZero, f2y = kZero;
+  float s2 = 0.0f;
+  if (is_cbar) {
+    f1x = kPp + cd;
+    f1y = kPw + cj;
+    if (cj >= 1) {
+      f2x = kPv + cd;
+      f2y = kPw + cj - 1;
+      s2 = static_cast<float>(cj);
+    }
+  } else if (is_tbar) {
+    f1x = kTbar;
+    f1y = kOne;
+  } else if (lane == 13) {
+    f1x = kWhv;
+    f1y = kHv2;
+  } else if (lane == 14) {
+    f1x = kWhc;
+    f1y = kHc2;
+  }
+  float* rec = scratch + lane * kTermStride;
+  rec[kOne] = 1.0f;
+  rec[kZero] = 0.0f;
+  __syncwarp();
+  float carry = 0.0f;  // feas and coll run over all pieces
+#pragma unroll 1
+  for (int m = 0; m < kM; ++m) {
+    float c[6][kDim];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      c[j][0] = sol[(6 * m + j) * kDim];
+      c[j][1] = sol[(6 * m + j) * kDim + 1];
+    }
+    const float Tm = m == 0 ? T[0] : (m == 1 ? T[1] : T[2]);
+    const int slot = is_cbar ? (6 * m + cj) * kDim + cd
+                             : (is_tbar ? kSumTbar + m : -1);
+    float a = slot >= 0 ? sums[slot] : carry;
+#pragma unroll 1
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int n = min(32, K - k0);
+      if (lane < n) {
+        const SampleTerms t = sample_terms<GRAD>(c, Tm, k0 + lane, K, query,
+                                                 P);
+        rec[kWhv] = t.whv;
+        rec[kHv2] = t.hv2;
+        rec[kWhc] = t.whc;
+        rec[kHc2] = t.hc2;
+        if (GRAD) {
+          rec[kTbar] = t.tbar;
+#pragma unroll
+          for (int d = 0; d < kDim; ++d) {
+            rec[kPp + d] = t.pp[d];
+            rec[kPv + d] = t.pv[d];
+          }
+#pragma unroll
+          for (int j = 0; j < 6; ++j) rec[kPw + j] = t.pw[j];
+        }
+      }
+      __syncwarp();
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const float* r = scratch + i * kTermStride;
+        a = __fmaf_rn(r[f1x], r[f1y], a);
+        a = __fmaf_rn(__fmul_rn(s2, r[f2x]), r[f2y], a);
+      }
+      __syncwarp();
+    }
+    if (slot >= 0)
+      sums[slot] = a;
+    else
+      carry = a;
+  }
+  if (lane == 13) sums[kSumFeas] = carry;
+  if (lane == 14) sums[kSumColl] = carry;
+  __syncwarp();
+  const float feas = sums[kSumFeas], coll = sums[kSumColl];
+  float time_cost = 0.0f;
+#pragma unroll
+  for (int m = 0; m < kM; ++m) time_cost = time_cost + T[m];
+  const float f = weighted(P, energy, time_cost, feas, coll);
+  if (!GRAD) return f;
+
+  // ---- adjoint: transposed banded solve lam = A^-T cbar
+  float Tbar[kM];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) Tbar[m] = sums[kSumTbar + m];
+  const int rd = rhs_y ? 1 : 0;
+  store_system<true>(T, lane, sys, [&](float (&col)[kNS]) {
+#pragma unroll
+    for (int r = 0; r < kNS; ++r) {
+      const float b = sums[r * kDim + rd];
+      col[r] = (rhs_x || rhs_y) ? b : col[r];
+    }
+  });
+  warp_givens_solve<kNS, kDim, 2, 6>(sys, diag, lane, sol);
+  float lam[kNS][kDim];
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) {
+    lam[i][0] = sol[i * kDim];
+    lam[i][1] = sol[i * kDim + 1];
+  }
+  adjoint_gradient(lam, xs, T, sig, Tbar, P, g);
   return f;
 }
 

@@ -15,9 +15,10 @@
 // Python wrappers: plan/objective.py; plain versions: plan/costs.objective,
 // with autograd for the gradient.
 //
-// Design: one thread per problem calls the B2 device code that B1 and B6
-// inline, neo::objective<GRAD, Query> (objective.cuh), with the scene query
-// or the window query (window_query.cuh). A null g_out selects the forward
+// Design: one thread per problem calls neo::objective<GRAD, Query>
+// (objective.cuh), the thread form of the B2 device code whose warp form B1
+// and B6 inline (both forms call the same per-sample, energy and adjoint
+// functions), with the scene query or the window query (window_query.cuh). A null g_out selects the forward
 // kernel. B7's chain K1 -> K2 -> K3 was three programs only because the
 // TPU's tiles split the MINCO algebra (flat 512-lane tiles) from the window
 // sampling (env-tiled one-hot MXU matmuls): here one thread streams over its
@@ -25,13 +26,13 @@
 // cotangents as it goes, so the positions, distances and collision
 // cotangents that crossed HBM between K1, K2 and K3 are never stored. The
 // scene kernel stages each thread's primitives in its own slice of shared
-// memory, strided by the block size, as B1 does.
+// memory, strided by the block size.
 //
 // Bound on the H100: operations — per problem ~M*K samples (x 24
 // primitives, or 4 window taps) and one (value) or two (value and
 // gradient) 18x18 banded solves, from ~100 bytes of input. One thread per
-// problem is the simple form; a warp per problem with the samples over its
-// lanes is the faster one.
+// problem is the simple form, kept here; the warp form of B1 and B6 (a
+// warp per problem, the samples over its lanes) is the faster one.
 #include <string.h>
 
 #include "objective.cuh"

@@ -36,18 +36,20 @@ struct WindowQuery {
     const float* w = win + r0 * Ww + c0;
     const float d00 = __ldg(w), d01 = __ldg(w + 1);
     const float d10 = __ldg(w + Ww), d11 = __ldg(w + Ww + 1);
-    const float top = d00 * (1.0f - fc) + d01 * fc;
-    const float bot = d10 * (1.0f - fc) + d11 * fc;
+    // explicit roundings, as objective.cuh's (B6 and B7 must agree)
+    const float top = __fmaf_rn(d01, fc, __fmul_rn(d00, 1.0f - fc));
+    const float bot = __fmaf_rn(d11, fc, __fmul_rn(d10, 1.0f - fc));
     const bool out_map = px < mx0 || py < my0 || px >= mx1 || py >= my1;
     if (GRAD) {
       const bool iny = uraw > 0.0f && uraw < umax;
       const bool inx = vraw > 0.0f && vraw < vmax;
       const float ddu = bot - top;
-      const float ddv = (d01 - d00) * (1.0f - fr) + (d11 - d10) * fr;
+      const float ddv =
+          __fmaf_rn(d11 - d10, fr, __fmul_rn(d01 - d00, 1.0f - fr));
       *gx = (out_map || !inx) ? 0.0f : ddv / res;
       *gy = (out_map || !iny) ? 0.0f : ddu / res;
     }
-    return out_map ? kFar : top * (1.0f - fr) + bot * fr;
+    return out_map ? kFar : __fmaf_rn(bot, fr, __fmul_rn(top, 1.0f - fr));
   }
 };
 

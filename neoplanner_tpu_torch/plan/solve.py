@@ -5,7 +5,7 @@ windows), each with B2 inlined.
 ``solve_scene`` (:349), :func:`solve_grid` that of
 neoplanner_tpu/plan/solve_pallas_grid.py ``solve_grid`` (:315). For CUDA
 tensors they launch ``csrc/lbfgs_scene.cu`` and ``csrc/lbfgs_grid.cu``: one
-thread per problem runs the full solver (``csrc/lbfgs_device.cuh``), with
+warp per problem runs the full solver (``csrc/lbfgs_device.cuh``), with
 the objective and its hand adjoint (``csrc/objective.cuh``, the port of the
 plan/costs_pallas.py device functions) inlined over the scene SDF or the
 bilinear window taps. For CPU tensors they run the plain version:
@@ -21,13 +21,20 @@ forward launch.
 Replaces: plan/solve_pallas.py ``_make_solver_kernel`` (:223) with
 ``lbfgs_in_kernel`` (:49) (B1), plan/solve_pallas_grid.py
 ``_make_grid_solver_kernel`` (:46) (B6), and the costs_pallas.py device
-functions (B2). Bound on the H100: operations and per-thread latency — a
-24-iteration solve is ~100 objective evaluations of ~72 samples (x 24
-primitives, or 4 window taps) in sequence in one thread, from a few hundred
-bytes of input (and a 36 KB window). Design: one thread per problem,
-per-thread early exit (the TPU kernel had to run a 512-lane tile until its
-last lane finished); B1 keeps per-thread primitive slices in shared memory,
-B6 reads the env's window through the cache.
+functions (B2). Bound on the H100: operations and one problem's chain of
+dependent steps — a 24-iteration solve is ~100 objective evaluations in
+sequence, each ~72 samples (x 24 primitives, or 4 window taps) and one or
+two 18x18 banded Givens solves, from a few hundred bytes of input (and a
+36 KB window). Design: one warp per problem, four per block, so that every
+SM has work; the samples of each piece over the lanes, each sum then taken
+in sample order by one lane (so the warp form rounds as the thread form of
+B2s and B7 does, bit for bit), and each Givens rotation one step of the
+lanes that hold its columns in shared memory, which leaves the rotations'
+chain as the serial remainder. Each warp stops at its own convergence (the
+TPU kernel had to run a 512-lane tile until its last lane finished), and a
+skipped problem's warp exits at once. B1 stages the env's primitives in
+the warp's shared memory, B6 reads the env's window through the cache; the
+L-BFGS ring sits in the warp's shared memory.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ from neoplanner_tpu_torch.mapping import scene as scene_map
 from neoplanner_tpu_torch.ops import lbfgs
 from neoplanner_tpu_torch.plan import costs, objective
 
-_BLOCK = 64            # threads per block of the kernel (csrc/lbfgs_scene.cu)
+_WARPS = 4             # problems (warps) per block of csrc/lbfgs_scene.cu
+_WARP_FLOATS = 1169    # a warp's shared memory (lbfgs_device.cuh kWarpFloats)
 _SMEM_LIMIT = 48 * 1024
 # stopping and Armijo constants of plan/expert.solve_one's solves
 FTOL, GTOL, C1 = 1e-10, 1e-8, 1e-4
@@ -54,8 +62,8 @@ def solve_scene(x0: torch.Tensor, head: torch.Tensor, tail: torch.Tensor,
                 pp: PlannerParams, skip=None):
     """Solve P problems: x0 (P, nv), head/tail (P, 3, 2), problem p on the
     scene of env ``env_of[p]``. skip (P,) bool marks problems returned
-    unsolved (x0, iters 0). Returns (x (P, nv), f (P,), iters (P,) int32);
-    f of a skipped problem is not defined."""
+    unsolved (x0, iters 0; the kernel writes f = 0, the plain version
+    leaves f undefined). Returns (x (P, nv), f (P,), iters (P,) int32)."""
     if not x0.is_cuda:
         return _solve_plain(x0, head, tail, scene, env_of, pp, skip)
     return _solve_cuda(x0, head, tail, scene, env_of, pp, skip)
@@ -109,7 +117,7 @@ def launch_solver(x0, head, tail, prims, env_of, skip, out, pp) -> None:
     dev = x0.device
     P = x0.shape[0]
     E, n_prims = prims.shape[:2]
-    if n_prims * 6 * _BLOCK * 4 > _SMEM_LIMIT:
+    if (_WARP_FLOATS + n_prims * 6) * _WARPS * 4 > _SMEM_LIMIT:
         raise ValueError(f"{n_prims} primitives exceed the solver's shared "
                          f"memory ({_SMEM_LIMIT} B per block)")
     for t, name, shape in ((x0, "x0", (P, 7)), (head, "head", (P, 3, 2)),
@@ -142,26 +150,19 @@ def solve_grid(x0: torch.Tensor, head: torch.Tensor, tail: torch.Tensor,
     _check_kernel_params(pp)
     dev = x0.device
     P = x0.shape[0]
-    env_of = env_of.to(torch.int32)
-    skip = (torch.zeros(P, dtype=torch.int32, device=dev) if skip is None
-            else skip.to(torch.int32))
-    # the lazy bank: live problems first, so that skipped ones fill whole
-    # warps that exit at once (all lanes of an env share its flag)
-    order = torch.argsort(skip, stable=True)
-    args = dict(x0=x0[order].to(torch.float32).contiguous(),
-                head=head[order].to(torch.float32).contiguous(),
-                tail=tail[order].to(torch.float32).contiguous(),
+    args = dict(x0=x0.to(torch.float32).contiguous(),
+                head=head.to(torch.float32).contiguous(),
+                tail=tail.to(torch.float32).contiguous(),
                 win=window.win.to(torch.float32).contiguous(),
                 worg=window.worg.to(torch.float32).contiguous(),
-                env_of=env_of[order].contiguous(),
-                skip=skip[order].contiguous())
+                env_of=env_of.to(torch.int32).contiguous(),
+                skip=(torch.zeros(P, dtype=torch.int32, device=dev)
+                      if skip is None else skip.to(torch.int32).contiguous()))
     out = (torch.empty_like(args["x0"]),
            torch.empty(P, dtype=torch.float32, device=dev),
            torch.empty(P, dtype=torch.int32, device=dev))
     launch_grid_solver(**args, out=out, pp=pp)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(P, device=dev)
-    return tuple(o[inv] for o in out)
+    return out
 
 
 def launch_grid_solver(x0, head, tail, win, worg, env_of, skip, out,

@@ -477,6 +477,117 @@ def test_grid_solver_kernel_matches_plain(cuda_device):
 
 
 
+def _solver_case(which, n):
+    """n problems on two envs for B1 (the scene of _worlds(2, seed=7)) or
+    B6 (96-cell windows of two lite maps with boxes ahead): (x0, head,
+    tail, the map, env_of, the fused solver)."""
+    if which == "scene":
+        x0, head, tail = _boundary(n, seed=1)
+        return x0, head, tail, scene.build(_worlds(2, seed=7),
+                                           MapParams(**MAPP)), \
+            torch.arange(n) % 2, solve.solve_scene
+    occ = torch.zeros((2, 192, 256))
+    rng = np.random.default_rng(9)
+    for e in range(2):
+        for _ in range(8):                     # 0.4-1.2 m boxes ahead
+            r, c = rng.integers(60, 130), rng.integers(60, 140)
+            h, w = rng.integers(4, 12, size=2)
+            occ[e, r:r + h, c:c + w] = 1.0
+    emap = esdf.build(occ, ORIGIN, 0.1, 2.0, lite=True)
+    x0, head, tail = _boundary(n, seed=1, start=(3.0, 0.0))
+    window = expert.make_plan_window(emap, head[:2], tail[:2],
+                                     PlannerParams())
+    return x0, head, tail, window, torch.arange(n) % 2, solve.solve_grid
+
+
+def _assert_basin(got, want):
+    """The cost basin of chip_smoke.py: median relative f difference <=
+    1e-4, mean f within 1%."""
+    f_k, f_p = got[1].cpu(), want[1]
+    rel = (f_k - f_p).abs() / f_p.abs().clamp(min=1.0)
+    assert float(rel.median()) <= 1e-4, rel
+    assert abs(float(f_k.mean()) / float(f_p.mean()) - 1.0) <= 1e-2
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+def test_solver_kernel_skips_and_is_order_free(cuda_device, which):
+    """One warp per problem, no atomics: a skipped problem returns x0, f =
+    0 and iters 0; each live problem's (x, f, iters) is the same bit for
+    bit whether or not its neighbours are skipped, and after a permutation
+    of the problems (24 iterations)."""
+    x0, head, tail, pmap, env_of, fused = (
+        a.to(cuda_device) if isinstance(a, torch.Tensor)
+        else _map_to(a, cuda_device) if dataclasses.is_dataclass(a) else a
+        for a in _solver_case(which, 64))
+    pp = PlannerParams(samples_per_piece=24, max_iters=24, max_ls=4)
+    base = fused(x0, head, tail, pmap, env_of, pp)
+    assert int(base[2].min()) > 0
+    skip = torch.arange(64, device=cuda_device) % 3 == 1
+    got = fused(x0, head, tail, pmap, env_of, pp, skip=skip)
+    assert torch.equal(got[0][skip], x0[skip])
+    assert torch.equal(got[1][skip], torch.zeros_like(got[1][skip]))
+    assert torch.equal(got[2][skip], torch.zeros_like(got[2][skip]))
+    for g, b in zip(got, base):
+        assert torch.equal(g[~skip], b[~skip])
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(64)).to(
+        cuda_device)
+    got = fused(x0[perm], head[perm], tail[perm], pmap, env_of[perm], pp)
+    for g, b in zip(got, base):
+        assert torch.equal(g, b[perm])
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+@pytest.mark.parametrize("K", [32, 11])
+def test_solver_kernel_planner_defaults_and_odd_k(cuda_device, which, K):
+    """PlannerParams()'s K = 32 and max_ls = 8, and K = 11 (M*K = 33, not
+    a multiple of the warp's 32 lanes): one iteration within 1e-3 relative
+    on f of the plain version. (At 24 iterations 64 problems are too few
+    for the cost basin's mean-f rule: roundoff sends single solves to
+    other basins, and one of them moves the mean of 64 by 1%.)"""
+    x0, head, tail, pmap, env_of, fused = _solver_case(which, 64)
+    dev_args = [a.to(cuda_device) for a in (x0, head, tail)]
+    pmap_d, env_d = _map_to(pmap, cuda_device), env_of.to(cuda_device)
+    pp1 = dataclasses.replace(PlannerParams(), samples_per_piece=K,
+                              max_iters=1)
+    assert pp1.max_ls == 8
+    want = fused(x0, head, tail, pmap, env_of, pp1)
+    got = fused(*dev_args, pmap_d, env_d, pp1)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+def test_solver_kernel_start_value_matches_objective_kernel(cuda_device,
+                                                            which):
+    """The warp form of the objective (inside B1 / B6) and its thread form
+    (B2s / B7) take every sum in the same order with the same roundings:
+    at max_iters = 0 the solver returns its start point's value, the
+    objective kernel's value bit for bit."""
+    from neoplanner_tpu_torch.plan import objective
+    x0, head, tail, pmap, env_of, fused = (
+        a.to(cuda_device) if isinstance(a, torch.Tensor)
+        else _map_to(a, cuda_device) if dataclasses.is_dataclass(a) else a
+        for a in _solver_case(which, 64))
+    for K in (24, 32, 11, 40):
+        pp = PlannerParams(samples_per_piece=K, max_iters=0)
+        got = fused(x0, head, tail, pmap, env_of, pp)
+        assert torch.equal(got[0], x0) and int(got[2].max()) == 0
+        f, _ = objective.objective_valgrad(x0, head, tail, pmap, env_of, pp)
+        assert torch.equal(got[1], f), (got[1] - f).abs().max()
+
+
+def test_grid_solver_kernel_cost_basin(cuda_device):
+    """24 iterations of B6 on 64 problems over the windows of two lite
+    maps, held to the plain version's cost basin as B1 is."""
+    x0, head, tail, window, env_of, _ = _solver_case("grid", 64)
+    pp = PlannerParams(samples_per_piece=24, max_iters=24, max_ls=4)
+    want = solve.solve_grid(x0, head, tail, window, env_of, pp)
+    got = solve.solve_grid(*(a.to(cuda_device) for a in (x0, head, tail)),
+                           _map_to(window, cuda_device),
+                           env_of.to(cuda_device), pp)
+    _assert_basin(got, want)
+
+
 # ---- B2s and B7: one objective evaluation per problem
 
 
