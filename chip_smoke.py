@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of NEO-Planner on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against CHECKOUT]
 
 Phases, one short line each:
 1. the card (name and power limit from nvidia-smi) and the kernels' build
@@ -74,9 +74,10 @@ Phases, one short line each:
    problems and 6144 candidates on the vision path's windows and (after
    phase 12) on windows of the gt+grid maps, with samples past the window
    and past the map; values within 5e-4, gradients within 2e-3 of each
-   problem's largest component; and solve.solve_per_eval against B1 and
-   B6 on their problems (one iteration, 24 in the cost basin, one solve
-   of each timed and one per-eval solve under torch.profiler);
+   problem's largest component; each launch's grid (blocks x warps, one
+   warp per problem) beside its time; and solve.solve_per_eval against B1
+   and B6 on their problems (one iteration, 24 in the cost basin, one
+   solve of each timed and one per-eval solve under torch.profiler);
 19. small loops (B = 16, 2 segments) of the 'expert' and 'warmstart'
    planners with the per-evaluation solve on the scene and gt+grid paths,
    on the card against the CPU;
@@ -92,10 +93,18 @@ and power limit, and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them.
 The script needs one GPU and exits non-zero without a result when there is
 none or when the package is missing.
+
+--against CHECKOUT (another commit's tree, e.g. unpacked by git archive)
+also builds that tree's neoplanner_tpu_torch/csrc in this process and, at
+each objective check of phase 18, launches its B2s / B7 on the same inputs:
+it prints the elements of f and g whose bits differ from this tree's and
+both kernels' medians in turns (other, this, this, other). Nothing is held
+against a tolerance there.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -268,7 +277,11 @@ def rel(a, b):
     return ((a - b).abs() / b.abs().clamp(min=1.0)).cpu().numpy()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", default=None, help="another checkout whose "
+                    "objective kernels phase 18 compares with this one's")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -308,6 +321,12 @@ def main() -> int:
     nvcc_s = _cuda.build_seconds or 0.0
     say(f"build: nvcc {nvcc_s:.1f} s (0: library already built), load "
         f"{time.perf_counter() - t_start:.1f} s")
+    other = None
+    if args.against:
+        from pathlib import Path
+        other, other_s = _cuda.load_from(
+            Path(args.against).resolve() / "neoplanner_tpu_torch" / "csrc")
+        say(f"against {args.against}: nvcc {other_s or 0.0:.1f} s")
 
     # the flagship configuration (bench.py:101-142)
     pp = PlannerParams(max_iters=24, samples_per_piece=24, retry_num=2,
@@ -604,6 +623,10 @@ def main() -> int:
         if max(s_c, s_f) > 5e-4 or g_gate > 2e-3 or n_coll == 0:
             raise AssertionError(f"objective_{kind} {label} disagrees with "
                                  f"its plain version")
+        if other is not None:
+            against(kind, label, map_args, (
+                (f"objective_{kind}_fwd", xc, hc, tc, ec, f_c, None),
+                (f"objective_{kind}_valgrad", x, head, tail, e1, f_v, g_v)))
         if not record_it:
             return
         io_c = P * L * (7 + 12 + 1 + 1) * 4
@@ -628,6 +651,67 @@ def main() -> int:
                    x, head, tail, pmap, env_of.long(), pp), 3),
                float(np.sum(objective_flops(K, dfl, True))),
                io_v + map_bytes, on="ratio")
+        W = objective.WARPS
+        say(f"objective_{kind} grids: fwd {-(-P * L // W)} blocks x {W} "
+            f"warps ({record[f'objective_{kind}_fwd']['ms']:.3f} ms), "
+            f"valgrad {-(-P // W)} x {W} "
+            f"({record[f'objective_{kind}_valgrad']['ms']:.3f} ms)")
+
+    def against(kind, label, map_args, calls):
+        """--against: the other checkout's B2s / B7 and this tree's on each
+        of calls [(name, x, head, tail, env_of, f, g)], whose f and g hold
+        this tree's results from its wrapper: the elements whose bits
+        differ, then each kernel's time, both through their C entries (the
+        same host path) and 20 launches back to back between two events
+        (so that the host's enqueueing hides behind the card's work), the
+        median of 5 such runs, in turns (other, this, this, other), on all
+        rows and on their first two thirds. On a bank of three lanes an env
+        these are the sizes of the expert loop's two launches: its lazy
+        bank solves batch_num = 3 lanes of every env, then retry_num = 2."""
+        K = pp.samples_per_piece
+        for name, x_, h_, t_, e_, f_, g_ in calls:
+            outs = {}
+            for lib in (other, _cuda.load()):
+                outs[lib] = (torch.empty_like(f_),
+                             None if g_ is None else torch.empty_like(g_))
+            if kind == "scene":
+                sizes = (map_args[0].shape[1],)
+            else:
+                sizes = tuple(map_args[0].shape[1:])
+
+            def call(lib, n):
+                entry = (lib.neo_objective_scene if kind == "scene"
+                         else lib.neo_objective_grid)
+                f_o, g_o = outs[lib]
+                _cuda.check(entry(
+                    _cuda.ptr(x_), _cuda.ptr(h_), _cuda.ptr(t_),
+                    *map(_cuda.ptr, map_args), _cuda.ptr(e_),
+                    _cuda.ptr(f_o), None if g_o is None else _cuda.ptr(g_o),
+                    n, *sizes, K, objective._params(pp),
+                    _cuda.stream_ptr(dev)), name)
+
+            def n_diff(a, b):
+                return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            P_ = x_.shape[0]
+            for lib in outs:
+                call(lib, P_)
+            torch.cuda.synchronize()
+            (f_o, g_o), (f_m, g_m) = outs.values()
+            line = (f"f differs on {n_diff(f_o, f_)} of {f_.numel()}")
+            if g_ is not None:
+                line += f", g on {n_diff(g_o, g_)} of {g_.numel()}"
+            if n_diff(f_m, f_) or (g_ is not None and n_diff(g_m, g_)):
+                raise AssertionError(f"{name}: its C entry and its wrapper "
+                                     f"disagree")
+            line += " (bits)"
+            for n in (P_, 2 * P_ // 3):
+                ms = [median_ms(torch, lambda: [call(lib, n)
+                                                for _ in range(20)], 5) / 20
+                      for lib in (other, _cuda.load(), _cuda.load(), other)]
+                line += (f"; {n} rows ms other {ms[0]:.4f} / this "
+                         f"{ms[1]:.4f} / this {ms[2]:.4f} / other "
+                         f"{ms[3]:.4f}")
+            say(f"{name} {label} against {args.against}: {line}")
 
     def per_eval_check(name, pmap, x0_, head_, tail_, env_, fused,
                        accept_map, cost_pp):
@@ -692,13 +776,17 @@ def main() -> int:
             wall = (time.perf_counter() - t0) * 1e3
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-        obj = sum(e.time_range.elapsed_us() for e in kern
-                  if "objective_" in e.name) / 1e3
+        obj = [e for e in kern if "objective_" in e.name]
+        # the value-and-gradient kernels, by demangled or mangled name
+        obj_g = sum(e.time_range.elapsed_us() for e in obj
+                    if "<true>" in e.name or "ILb1E" in e.name) / 1e3
+        obj_ms = sum(e.time_range.elapsed_us() for e in obj) / 1e3
         if kern:
             say(f"solve_per_eval {name} under torch.profiler: {wall:.1f} ms "
                 f"wall, {len(kern)} device events busy {busy:.2f} ms (idle "
                 f"share {1.0 - busy / wall:.3f}), of which the objective "
-                f"kernels {obj:.2f} ms")
+                f"kernels {obj_ms:.2f} ms ({len(obj)} launches; value and "
+                f"gradient {obj_g:.2f} ms, value {obj_ms - obj_g:.2f} ms)")
         else:
             say(f"solve_per_eval {name} device time under torch.profiler: "
                 f"not measured (no device events recorded)")

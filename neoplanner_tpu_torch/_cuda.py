@@ -121,12 +121,12 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _sources():
-    return sorted(_SRC.glob("*.cu")), sorted(_SRC.glob("*.cuh"))
+def _sources(src: Path = _SRC):
+    return sorted(src.glob("*.cu")), sorted(src.glob("*.cuh"))
 
 
-def library_path() -> Path:
-    cu, cuh = _sources()
+def library_path(src: Path = _SRC) -> Path:
+    cu, cuh = _sources(src)
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
@@ -134,17 +134,17 @@ def library_path() -> Path:
     return _BUILD / f"libneoplanner_kernels_{h.hexdigest()[:16]}.so"
 
 
-def load():
-    """Build (first use) and load the kernel library; returns the CDLL."""
-    global _lib, build_seconds
-    if _lib is not None:
-        return _lib
+def load_from(src: Path):
+    """Build (first use) and load the kernels of the sources in src: this
+    package's csrc/, or that of another checkout, to compare a kernel with
+    its earlier version in one process. Returns (the CDLL, nvcc seconds or
+    None where the library was built before)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need an NVIDIA GPU")
-    so = library_path()
+    so, seconds = library_path(src), None
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
-        cu, _ = _sources()
+        cu, _ = _sources(src)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, cu)]
         t0 = time.perf_counter()
@@ -152,15 +152,22 @@ def load():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        build_seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    return lib, seconds
+
+
+def load():
+    """Build (first use) and load the kernel library; returns the CDLL."""
+    global _lib, build_seconds
+    if _lib is None:
+        _lib, build_seconds = load_from(_SRC)
+    return _lib
 
 
 def check(err: int, name: str) -> None:

@@ -15,7 +15,7 @@
 // solves, from a few hundred bytes of input. Design: one warp per problem,
 // kWarps problems per block, so that B = 1024 problems keep 1024 warps on
 // all 132 SMs. A piece's samples go over the lanes, and each sum is taken
-// in sample order by one lane (objective.cuh: the thread form's roundings);
+// in sample order by one lane (objective.cuh warp_objective, as in B2s);
 // each Givens rotation is one step of the lanes that hold its columns; the
 // serial remainder is the rotations' chain, one square root and divide per
 // rotation (62 forward, 33 transposed), which takes most of a solve; the
@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(kBlock, 2)
       hd[i] = head[p * 6 + i];
       tl[i] = tail[p * 6 + i];
     }
-    const neo::SceneQuery query{pr, 1, n_prims};
+    const neo::SceneQuery query{pr, n_prims};
     neo::lbfgs_solve(x, hd, tl, query, K, max_iters, max_ls, P, ring, lane,
                      &f, &it);
   }

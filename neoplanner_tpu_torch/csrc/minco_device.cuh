@@ -1,8 +1,8 @@
 // Device helpers shared by the port's kernels: the MINCO basis constants, the
-// banded Givens-QR solve in two forms (one thread's: B5, B2s and B7; one
-// warp's: the forward and transposed solves inside B1 and B6), and the
-// footprint SDF over a scene's primitives (B1's collision term and B3's
-// closed-loop metric).
+// banded Givens-QR solve in two forms (one thread's: B5; one warp's: the
+// forward and transposed solves of the objective inside B1, B6, B2s and
+// B7), and the footprint SDF over a scene's primitives (the collision term
+// of B1 and B2s, and B3's closed-loop metric).
 //
 // Counterparts of neoplanner_tpu/plan/costs_pallas.py `_solve_entries` (:124)
 // and `_scene_min_dist` (:153), and of ops/minco_pallas.py `_make_kernel`.
@@ -32,8 +32,8 @@ __device__ __forceinline__ float sgn(float v) {
 // The Givens steps below, and the B2 device code that calls them
 // (objective.cuh), write every add that takes a product as an explicit
 // __fmaf_rn / __fadd_rn: the compiler may fuse a plain multiply and add
-// differently in different kernels, and the thread and warp forms of the
-// solve must round alike in every kernel that inlines them.
+// differently in different kernels, and the objective must round alike in
+// every kernel that inlines it.
 
 // One Givens rotation's (cs, sn) from the pivot a_cc and the entry a_rc.
 __device__ __forceinline__ void givens(float a_cc, float a_rc, float* cs,
@@ -142,10 +142,10 @@ __device__ __forceinline__ void givens_column(float* sys, float* diag,
 // entries below it, and each lane its own column's rows c .. c + LBW, then
 // runs the column's rotations in registers — A[c][c] carried on every lane,
 // the owner's own update bit for bit — and each lane in the band
-// [c, c + FILL] or holding a right-hand side writes its rows back: the
-// thread form's rotations of the same entries, in the same order. The
-// owner of column c writes only the diagonal, to diag[c] (its entries below
-// the diagonal are never read again), so no lane writes column c while
+// [c, c + FILL] or holding a right-hand side writes its rows back:
+// banded_givens_solve's rotations of the same entries, in the same order.
+// The owner of column c writes only the diagonal, to diag[c] (its entries
+// below the diagonal are never read again), so no lane writes column c while
 // another may still be loading it, and one sync per column suffices. Lanes
 // 0 .. D-1 then back-substitute one right-hand side each into sol[N][D],
 // the last FILL values in registers. The loops run at run time, so the
@@ -189,8 +189,8 @@ __device__ __forceinline__ void warp_givens_solve(float* sys, float* diag,
 // GRAD the gradient of the argmin primitive (mapping/scene.sample). The
 // primitives are six floats each [cx, cy, hx, hy, is_cyl, active], element
 // e of primitive k at pr[(6 * k + e) * stride]: stride 1 for a warp's own
-// table in shared memory (B1), the block size for a thread's slice of a
-// block's table (B2s). Ties keep the first primitive, as argmin.
+// table in shared memory (B1, B2s), the block size for a thread's slice of
+// a block's table (B3). Ties keep the first primitive, as argmin.
 template <bool GRAD>
 __device__ __forceinline__ float scene_min_dist(const float* pr, int stride,
                                                 int n_prims, float px,

@@ -1,15 +1,12 @@
 // B2: the MINCO objective and its hand adjoint, as __device__ code over any
-// distance query, in two forms that call the same pieces:
-// - warp_objective, one problem per warp: the form that B1
-//   (lbfgs_scene.cu, the scene SDF) and B6 (lbfgs_grid.cu, the bilinear
-//   ESDF window taps) run inside their L-BFGS loop;
-// - objective, one problem per thread: the form of B2s and B7
-//   (objective_eval.cu, one evaluation per launch).
-// The per-sample terms (polynomial, hinges, distance query and per-sample
-// cotangents), the energy quadrature, the system entries and the adjoint's
-// gradient are one function each, shared by both forms, so the two cannot
-// drift apart. They differ only in how the samples are spread and how the
-// two banded solves are done. There is no launch of its own.
+// distance query: warp_objective, one problem per warp. B1 (lbfgs_scene.cu,
+// the scene SDF) and B6 (lbfgs_grid.cu, the bilinear ESDF window taps) run
+// it inside their L-BFGS loop, B2s and B7 (objective_eval.cu) once per
+// launch, so the fused and the per-evaluation solvers evaluate the same
+// objective bit for bit. The per-sample terms (polynomial, hinges, distance
+// query and per-sample cotangents), the energy quadrature, the system
+// entries and the adjoint's gradient are one function each. There is no
+// launch of its own.
 //
 // A query is a type with
 //   template <bool GRAD> float dist(float px, float py, float* gx, float* gy)
@@ -120,22 +117,6 @@ __device__ __forceinline__ void rhs_entries(const float (&x)[kNV],
   for (int i = 0; i < kNW; ++i) put(6 * i + 3, x[i], x[kNW + i]);
 }
 
-// A(T) (or its transpose) into the left 18 columns of rows; rhs untouched.
-template <bool TRANSPOSE>
-__device__ __forceinline__ void build_system(const float (&T)[kM],
-                                             float (&rows)[kNS][kNS + 2]) {
-#pragma unroll
-  for (int i = 0; i < kNS; ++i)
-#pragma unroll
-    for (int j = 0; j < kNS; ++j) rows[i][j] = 0.0f;
-  system_entries(T, [&](int r, int c, float v) {
-    if (TRANSPOSE)
-      rows[c][r] = v;
-    else
-      rows[r][c] = v;
-  });
-}
-
 // A(T) (or its transpose) by columns, as warp_givens_solve holds it: this
 // lane's column of the matrix, zeros on the lanes past it.
 template <bool TRANSPOSE>
@@ -204,10 +185,10 @@ __device__ __forceinline__ float energy_terms(const float (&xs)[kNS][kDim],
   return energy;
 }
 
-// What one sample adds to the sums, kept apart so that both forms can add
-// it with the same operations: feas += whv * hv2, coll += whc * hc2, and
-// with the gradient Tbar[m] += tbar and, for each power j of piece m,
-// cbar[6m + j][d] += pp_d * pw[j] + j * pv_d * pw[j - 1] (cbar_add).
+// What one sample adds to the sums, which warp_objective adds in sample
+// order, one fused multiply-add a step: feas += whv * hv2, coll += whc *
+// hc2, and with the gradient Tbar[m] += tbar and, for each power j of piece
+// m, cbar[6m + j][d] += pp_d * pw[j], then += (j * pv_d) * pw[j - 1].
 struct SampleTerms {
   float whv, hv2, whc, hc2;  // the hinge terms: w * h and h^2
   float tbar;                // the sample's share of Tbar[m]
@@ -275,16 +256,6 @@ __device__ __forceinline__ SampleTerms sample_terms(const float (&c)[6][kDim],
   return t;
 }
 
-// One sample's share of cbar[6m + j][d]: c + pp * pw_j, then + (j * pv) *
-// pw_jm1 for j >= 1, each a fused multiply-add whose rounding both forms
-// share.
-__device__ __forceinline__ float cbar_add(float c, float pp, float pv,
-                                          float pw_j, float pw_jm1, int j) {
-  c = __fmaf_rn(pp, pw_j, c);
-  return j >= 1 ? __fmaf_rn(__fmul_rn(static_cast<float>(j), pv), pw_jm1, c)
-                : c;
-}
-
 // The gradient g from the adjoint lam = A^-T cbar: the waypoints' b-row
 // cotangents, Abar = -lam xs^T into Tbar through d beta_k / dT = beta_{k+1},
 // and the sigmoid tau chain.
@@ -327,102 +298,17 @@ __device__ __forceinline__ void adjoint_gradient(
                                   __fmul_rn(sig[m], 1.0f - sig[m]));
 }
 
-// The scene SDF query: one env's primitives in shared memory, read as
-// scene_min_dist lays them out.
+// The scene SDF query: one env's primitives in the warp's shared memory,
+// [n_prims][6] (scene_min_dist at stride 1).
 struct SceneQuery {
   const float* pr;
-  int stride, n_prims;
+  int n_prims;
   template <bool GRAD>
   __device__ __forceinline__ float dist(float px, float py, float* gx,
                                         float* gy) const {
-    return scene_min_dist<GRAD>(pr, stride, n_prims, px, py, gx, gy);
+    return scene_min_dist<GRAD>(pr, 1, n_prims, px, py, gx, gy);
   }
 };
-
-// Weighted objective of decision vector x, one problem per thread (B2s,
-// B7); with GRAD also its gradient g. head/tail: [pos; vel; acc] x (x, y),
-// row-major. One thread streams over all M*K samples and runs both banded
-// solves on its own copy of the system.
-template <bool GRAD, class Query>
-__device__ __noinline__ float objective(const float (&x)[kNV],
-                                        const float (&head)[6],
-                                        const float (&tail)[6],
-                                        const Query& query, int K,
-                                        const SolveParams& P,
-                                        float (&g)[kNV]) {
-  float sig[kM], T[kM];
-  durations(x, P, sig, T);
-
-  // ---- forward: coefficients of the banded MINCO system
-  float rows[kNS][kNS + 2];
-  build_system<false>(T, rows);
-#pragma unroll
-  for (int r = 0; r < kNS; ++r) rows[r][kNS] = rows[r][kNS + 1] = 0.0f;
-  rhs_entries(x, head, tail, [&](int r, float bx, float by) {
-    rows[r][kNS] = bx;
-    rows[r][kNS + 1] = by;
-  });
-  float xs[kNS][kDim];  // coeffs: piece m, power j -> xs[6m + j]
-  banded_givens_solve<kNS, kDim, 4, 6>(rows, xs);
-
-  float Tbar[kM];
-  float cbar[kNS][kDim];
-  if (GRAD) {
-#pragma unroll
-    for (int m = 0; m < kM; ++m) Tbar[m] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kNS; ++i) cbar[i][0] = cbar[i][1] = 0.0f;
-  }
-  const float energy = energy_terms<GRAD>(xs, T, P, Tbar, cbar);
-  float time_cost = 0.0f;
-#pragma unroll
-  for (int m = 0; m < kM; ++m) {
-    time_cost = time_cost + T[m];
-    if (GRAD) Tbar[m] += P.w_t;
-  }
-
-  // ---- sampled feasibility and collision terms, streamed over samples
-  float feas = 0.0f, coll = 0.0f;
-#pragma unroll 1
-  for (int m = 0; m < kM; ++m) {
-    float c[6][kDim];
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      c[j][0] = xs[6 * m + j][0];
-      c[j][1] = xs[6 * m + j][1];
-    }
-#pragma unroll 1
-    for (int k = 0; k < K; ++k) {
-      const SampleTerms t = sample_terms<GRAD>(c, T[m], k, K, query, P);
-      feas = __fmaf_rn(t.whv, t.hv2, feas);
-      coll = __fmaf_rn(t.whc, t.hc2, coll);
-      if (GRAD) {
-        Tbar[m] = __fadd_rn(Tbar[m], t.tbar);
-#pragma unroll
-        for (int j = 0; j < 6; ++j)
-#pragma unroll
-          for (int d = 0; d < kDim; ++d)
-            cbar[6 * m + j][d] = cbar_add(cbar[6 * m + j][d], t.pp[d],
-                                          t.pv[d], t.pw[j],
-                                          t.pw[j > 0 ? j - 1 : 0], j);
-      }
-    }
-  }
-  const float f = weighted(P, energy, time_cost, feas, coll);
-  if (!GRAD) return f;
-
-  // ---- adjoint: transposed banded solve lam = A^-T cbar
-  build_system<true>(T, rows);
-#pragma unroll
-  for (int r = 0; r < kNS; ++r) {
-    rows[r][kNS] = cbar[r][0];
-    rows[r][kNS + 1] = cbar[r][1];
-  }
-  float lam[kNS][kDim];
-  banded_givens_solve<kNS, kDim, 2, 6>(rows, lam);
-  adjoint_gradient(lam, xs, T, sig, Tbar, P, g);
-  return f;
-}
 
 // A warp's shared-memory scratch for warp_objective: 32 sample records of
 // kTermStride floats (the SampleTerms fields, then the constants 1 and 0);
@@ -455,21 +341,22 @@ __device__ __forceinline__ void store_system(const float (&T)[kM], int lane,
   }
 }
 
-// The same objective, one problem per warp (B1, B6); every lane passes the
-// same x, head and tail and gets back the same f and g — the thread form's
-// f and g, bit for bit. The two banded solves run by columns over the
-// lanes (warp_givens_solve: the thread form's rotations). The samples of
-// each piece go over the lanes (lane l takes k = l, l + 32, ...), each
+// The weighted objective of decision vector x, one problem per warp (B1,
+// B6, B2s, B7); with GRAD also its gradient g. head/tail: [pos; vel; acc]
+// x (x, y), row-major. Every lane passes the same x, head and tail and gets
+// back the same f and g. The two banded solves run by columns over the
+// lanes (warp_givens_solve: banded_givens_solve's rotations). The samples
+// of each piece go over the lanes (lane l takes k = l, l + 32, ...), each
 // writing its SampleTerms to a record in scratch; then one lane per sum —
 // lanes 0-11 cbar[6m + j][d] (j = lane % 6, d = lane / 6), 12 Tbar[m], 13
-// feas, 14 coll — adds the records in sample order with the thread form's
-// fused multiply-adds, starting from the energy's share as the thread form
-// does. So no sum depends on how the samples were spread, and no atomics: a
-// repeat launch reproduces every bit. The energy quadrature and the
-// adjoint's gradient are a few hundred operations on values every lane
-// holds: each lane computes them itself. With have_xs the scratch already
-// holds the coefficients of this x (the previous evaluation was at the
-// same x), and the forward solve is skipped.
+// feas, 14 coll — adds the records in sample order with fused
+// multiply-adds, starting from the energy's share. So no sum depends on
+// how the samples were spread, and no atomics: a repeat launch reproduces
+// every bit. The energy quadrature and the adjoint's gradient are a few
+// hundred operations on values every lane holds: each lane computes them
+// itself. With have_xs the scratch already holds the coefficients of this
+// x (the previous evaluation was at the same x), and the forward solve is
+// skipped.
 template <bool GRAD, class Query>
 __device__ __forceinline__ float warp_objective(const float (&x)[kNV],
                                                 const float (&head)[6],
@@ -504,7 +391,7 @@ __device__ __forceinline__ float warp_objective(const float (&x)[kNV],
   }
 
   // ---- energy: on every lane; with the gradient its share starts the
-  // sums (the thread form adds it first too)
+  // sums
   float Te[kM], ce[kNS][kDim];
   if (GRAD) {
 #pragma unroll
@@ -523,9 +410,10 @@ __device__ __forceinline__ float warp_objective(const float (&x)[kNV],
     for (int m = 0; m < kM; ++m) sums[kSumTbar + m] = Te[m] + P.w_t;
   }
 
-  // ---- sampled terms: this lane's sum adds fma(r[f1x], r[f1y], .) and
-  // fma(s2 * r[f2x], r[f2y], .) for each record r (cbar_add's two steps;
-  // Tbar's add is an fma by 1; zeros where a sum has no second step)
+  // ---- sampled terms: this lane's sum adds fma(r[f1x], r[f1y], .) and,
+  // with the gradient, fma(s2 * r[f2x], r[f2y], .) for each record r
+  // (cbar's two steps; Tbar's add is an fma by 1; zeros where a sum has no
+  // second step: fma(0, 0, a) is a, for feas and coll never -0)
   const int cj = lane % 6, cd = lane / 6;
   const bool is_cbar = GRAD && lane < 2 * 6, is_tbar = GRAD && lane == 12;
   int f1x = kZero, f1y = kZero, f2x = kZero, f2y = kZero;
@@ -591,7 +479,7 @@ __device__ __forceinline__ float warp_objective(const float (&x)[kNV],
       for (int i = 0; i < n; ++i) {
         const float* r = scratch + i * kTermStride;
         a = __fmaf_rn(r[f1x], r[f1y], a);
-        a = __fmaf_rn(__fmul_rn(s2, r[f2x]), r[f2y], a);
+        if (GRAD) a = __fmaf_rn(__fmul_rn(s2, r[f2x]), r[f2y], a);
       }
       __syncwarp();
     }

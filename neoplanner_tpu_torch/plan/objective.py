@@ -12,11 +12,12 @@ solvers do.
 
 For CUDA tensors :func:`objective_fwd` and :func:`objective_valgrad` launch
 ``csrc/objective_eval.cu`` (the value alone, or the value and its hand
-adjoint); for CPU tensors they take the plain version, plan/costs.objective
-with the gradient from autograd. :func:`objective_vjp` is the objective as
-the L-BFGS loop differentiates it: its forward takes the value and the
-gradient together and its backward scales that gradient, so
-``ops/lbfgs.value_and_grad`` costs one evaluation. It is differentiable in
+adjoint), one warp per problem; for CPU tensors they take the plain
+version, plan/costs.objective with the gradient from autograd.
+:func:`objective_vjp` is the objective as the L-BFGS loop differentiates
+it: its forward takes the value and the gradient together and its backward
+scales that gradient, so ``ops/lbfgs.value_and_grad`` costs one
+evaluation. It is differentiable in
 x only (the JAX package's ``obj_x_only`` contract, costs_pallas.py:715-722):
 the boundary states and the map get no gradient.
 """
@@ -32,8 +33,11 @@ from neoplanner_tpu_torch.mapping import scene as scene_map
 from neoplanner_tpu_torch.ops import lbfgs
 from neoplanner_tpu_torch.plan import costs
 
-_BLOCK = 64            # threads per block (csrc/objective_eval.cu)
-_SMEM_LIMIT = 48 * 1024
+WARPS = 4              # problems (warps) per block, csrc/objective_eval.cu
+_SCRATCH_FLOATS = 1019  # a warp's scratch (csrc/objective.cuh kScratchFloats)
+_SMEM_LIMIT = 232448    # an H100 block's shared memory, opted in past 48 KB
+# the scene kernel stages each warp's primitive table beside its scratch
+MAX_PRIMS = (_SMEM_LIMIT // (4 * WARPS) - _SCRATCH_FLOATS) // 6
 
 
 def objective_fwd(x: torch.Tensor, head: torch.Tensor, tail: torch.Tensor,
@@ -152,9 +156,9 @@ def launch_scene(x, head, tail, prims, env_of, f, g, pp) -> None:
     E, n_prims = prims.shape[:2]
     _require_io(x, head, tail, env_of, f, g, dev)
     _cuda.require(prims, "prims", (E, n_prims, 6), torch.float32, dev)
-    if n_prims * 6 * _BLOCK * 4 > _SMEM_LIMIT:
+    if n_prims > MAX_PRIMS:
         raise ValueError(f"{n_prims} primitives exceed the objective's "
-                         f"shared memory ({_SMEM_LIMIT} B per block)")
+                         f"shared memory ({MAX_PRIMS} per env)")
     if x.shape[0] == 0:
         return
     lib = _cuda.load()

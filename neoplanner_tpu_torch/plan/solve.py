@@ -27,10 +27,10 @@ sequence, each ~72 samples (x 24 primitives, or 4 window taps) and one or
 two 18x18 banded Givens solves, from a few hundred bytes of input (and a
 36 KB window). Design: one warp per problem, four per block, so that every
 SM has work; the samples of each piece over the lanes, each sum then taken
-in sample order by one lane (so the warp form rounds as the thread form of
-B2s and B7 does, bit for bit), and each Givens rotation one step of the
-lanes that hold its columns in shared memory, which leaves the rotations'
-chain as the serial remainder. Each warp stops at its own convergence (the
+in sample order by one lane (the objective of B2s and B7, which run one
+warp per problem too: the same bits), and each Givens rotation one step of
+the lanes that hold its columns in shared memory, which leaves the
+rotations' chain as the serial remainder. Each warp stops at its own convergence (the
 TPU kernel had to run a 512-lane tile until its last lane finished), and a
 skipped problem's warp exits at once. B1 stages the env's primitives in
 the warp's shared memory, B6 reads the env's window through the cache; the

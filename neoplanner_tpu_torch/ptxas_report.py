@@ -44,6 +44,17 @@ def _demangle(names):
     return list(names)
 
 
+def _without_parameters(name: str) -> str:
+    """A demangled kernel name without its parameter list, its template
+    arguments kept (objective_scene_kernel<(bool)1>, not ..._kernel<)."""
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0 and i > 0 and name[i - 1] != " ":
+            return name[:i]
+    return name
+
+
 def _instructions(lib: Path):
     """{mangled kernel name: SASS instruction count} of a built library."""
     tool = shutil.which("cuobjdump") or str(Path(_cuda._nvcc()).parent
@@ -84,7 +95,7 @@ def report(csrc: Path):
     counts = _instructions(out_dir / "lib.so")
     for row, name in zip(rows, _demangle([r[0] for r in rows])):
         row.append(counts.get(row[0], 0))
-        row[0] = name.split("(")[0]
+        row[0] = _without_parameters(name)
     return rows
 
 

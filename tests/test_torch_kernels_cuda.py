@@ -559,9 +559,9 @@ def test_solver_kernel_planner_defaults_and_odd_k(cuda_device, which, K):
 @pytest.mark.parametrize("which", ["scene", "grid"])
 def test_solver_kernel_start_value_matches_objective_kernel(cuda_device,
                                                             which):
-    """The warp form of the objective (inside B1 / B6) and its thread form
-    (B2s / B7) take every sum in the same order with the same roundings:
-    at max_iters = 0 the solver returns its start point's value, the
+    """The solver kernels (B1 / B6) and the objective kernels (B2s / B7)
+    run the same warp form of the objective, with the same roundings: at
+    max_iters = 0 the solver returns its start point's value, the
     objective kernel's value bit for bit."""
     from neoplanner_tpu_torch.plan import objective
     x0, head, tail, pmap, env_of, fused = (
@@ -693,3 +693,117 @@ def test_per_eval_solve_matches_fused_kernel(cuda_device, which):
     (gx,) = torch.autograd.grad(f, x, w)
     _, g = objective.objective_valgrad(x0, head, tail, pmap, env_of, pp)
     assert torch.equal(gx, w[:, None] * g)
+
+
+def _objective_on(which, dev, idx=None):
+    """_objective_case's problems (those of idx, if given) on dev."""
+    x0, head, tail, pmap, env_of = _objective_case(which)
+    if idx is not None:
+        x0, head, tail, env_of = x0[idx], head[idx], tail[idx], env_of[idx]
+    return ([a.contiguous().to(dev) for a in (x0, head, tail)]
+            + [_map_to(pmap, dev), env_of.to(dev)])
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+@pytest.mark.parametrize("P", [1, 5, 4 * 16 + 3])
+def test_objective_kernel_ragged_batch(cuda_device, which, P):
+    """P problems, a block with one warp busy, one not full, and a last
+    block of 3 of its 4 warps: each problem's f and g equal, bit for bit,
+    those of the same problem in a launch of the whole case (a warp reads
+    and writes only its own problem), and the values agree with the plain
+    version within 5e-4 (test_objective_kernel_matches_plain's bound)."""
+    from neoplanner_tpu_torch.plan import objective
+    assert P % objective.WARPS != 0
+    pp = PlannerParams(samples_per_piece=24)
+    full = _objective_on(which, cuda_device)
+    n = full[0].shape[0]
+    idx = torch.arange(P) % n
+    part = _objective_on(which, cuda_device, idx)
+    f_all, g_all = objective.objective_valgrad(*full, pp)
+    f, g = objective.objective_valgrad(*part, pp)
+    f_v = objective.objective_fwd(*part, pp)
+    torch.cuda.synchronize()
+    on = idx.to(cuda_device)
+    assert torch.equal(_bits(f), _bits(f_all[on]))
+    assert torch.equal(_bits(g), _bits(g_all[on]))
+    assert torch.equal(_bits(f_v), _bits(f_all[on]))
+    want = objective.objective_fwd(*_objective_on(which, "cpu", idx), pp)
+    np.testing.assert_allclose(f.cpu().numpy(), want.numpy(), rtol=5e-4,
+                               atol=5e-4)
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+def test_objective_kernel_empty_batch(cuda_device, which):
+    """P = 0 returns empty outputs and launches nothing."""
+    from neoplanner_tpu_torch.plan import objective
+    pp = PlannerParams(samples_per_piece=24)
+    args = _objective_on(which, cuda_device, torch.arange(0))
+    before = dict(_cuda.launches)
+    f = objective.objective_fwd(*args, pp)
+    f_g, g = objective.objective_valgrad(*args, pp)
+    torch.cuda.synchronize()
+    assert f.shape == (0,) and f_g.shape == (0,) and g.shape == (0, 7)
+    assert _cuda.launches == before
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+def test_objective_kernel_repeats_bits(cuda_device, which):
+    """No sum takes atomics: a repeat launch of either kernel gives the
+    same bits, and at the same x the value kernel's f is the value and
+    gradient kernel's f, bit for bit (the line search's value of a point
+    is the one its accepted evaluation returns)."""
+    from neoplanner_tpu_torch.plan import objective
+    pp = PlannerParams(samples_per_piece=24)
+    args = _objective_on(which, cuda_device)
+    f1, g1 = objective.objective_valgrad(*args, pp)
+    f2, g2 = objective.objective_valgrad(*args, pp)
+    v1 = objective.objective_fwd(*args, pp)
+    v2 = objective.objective_fwd(*args, pp)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(f1), _bits(f2))
+    assert torch.equal(_bits(g1), _bits(g2))
+    assert torch.equal(_bits(v1), _bits(v2))
+    assert torch.equal(_bits(v1), _bits(f1))
+
+
+def test_objective_scene_kernel_primitive_cap(cuda_device):
+    """The scene kernel stages each warp's primitive table in shared
+    memory: at 32 primitives (the one-thread kernel's cap) and at the cap
+    itself (past 48 KB a block, so the launch raises the kernel's shared
+    memory limit) it runs, and the extra primitives, active but 1 km away,
+    leave every f and g bit for bit as on the unpadded scene; one past the
+    cap raises before a launch."""
+    from neoplanner_tpu_torch.plan import objective
+    pp = PlannerParams(samples_per_piece=24)
+    x0, head, tail, pmap, env_of = _objective_on("scene", cuda_device)
+    f0, g0 = objective.objective_valgrad(x0, head, tail, pmap, env_of, pp)
+    E, K = pmap.active.shape
+    assert K < 32
+
+    def padded(n):
+        extra = n - K
+        far = torch.full((E, extra, 2), 1000.0, device=cuda_device)
+        return scene.SceneMap(
+            torch.cat([pmap.centers, far], 1),
+            torch.cat([pmap.half, torch.full_like(far, 0.5)], 1),
+            torch.cat([pmap.is_cyl, torch.zeros((E, extra), dtype=torch.bool,
+                                                device=cuda_device)], 1),
+            torch.cat([pmap.active, torch.ones((E, extra), dtype=torch.bool,
+                                               device=cuda_device)], 1))
+    for n in (32, objective.MAX_PRIMS):
+        f, g = objective.objective_valgrad(x0, head, tail, padded(n), env_of,
+                                           pp)
+        v = objective.objective_fwd(x0, head, tail, padded(n), env_of, pp)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(f), _bits(f0)), n
+        assert torch.equal(_bits(g), _bits(g0)), n
+        assert torch.equal(_bits(v), _bits(f0)), n
+    before = dict(_cuda.launches)
+    with pytest.raises(ValueError, match="primitives exceed"):
+        objective.objective_fwd(x0, head, tail,
+                                padded(objective.MAX_PRIMS + 1), env_of, pp)
+    assert _cuda.launches == before
