@@ -96,10 +96,12 @@ none or when the package is missing.
 
 --against CHECKOUT (another commit's tree, e.g. unpacked by git archive)
 also builds that tree's neoplanner_tpu_torch/csrc in this process and, at
-each objective check of phase 18, launches its B2s / B7 on the same inputs:
-it prints the elements of f and g whose bits differ from this tree's and
-both kernels' medians in turns (other, this, this, other). Nothing is held
-against a tolerance there.
+each objective check of phase 18, launches its B2s / B7 on the same inputs,
+and at phases 6, 12 and 13 its B9 fused (the vision grids), B9 exact and
+B9 banded (the default map's ground-truth and fused grids): it prints the
+elements (f and g, or field cells) whose bits differ from this tree's and
+both kernels' medians in turns (other, this, this, other), both through
+their C entries. Nothing is held against a tolerance there.
 """
 
 from __future__ import annotations
@@ -280,7 +282,8 @@ def rel(a, b):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None, help="another checkout whose "
-                    "objective kernels phase 18 compares with this one's")
+                    "B9 and objective kernels phases 6, 12, 13 and 18 "
+                    "compare with this one's")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -657,15 +660,21 @@ def main(argv=None) -> int:
             f"valgrad {-(-P // W)} x {W} "
             f"({record[f'objective_{kind}_valgrad']['ms']:.3f} ms)")
 
+    def in_turns(call):
+        """call(lib)'s time in ms for the other checkout's library and this
+        tree's, in turns (other, this, this, other): 20 launches back to
+        back between two events (so that the host's enqueueing hides behind
+        the card's work), the median of 5 such runs."""
+        return [median_ms(torch, lambda: [call(lib) for _ in range(20)], 5)
+                / 20 for lib in (other, _cuda.load(), _cuda.load(), other)]
+
     def against(kind, label, map_args, calls):
         """--against: the other checkout's B2s / B7 and this tree's on each
         of calls [(name, x, head, tail, env_of, f, g)], whose f and g hold
         this tree's results from its wrapper: the elements whose bits
         differ, then each kernel's time, both through their C entries (the
-        same host path) and 20 launches back to back between two events
-        (so that the host's enqueueing hides behind the card's work), the
-        median of 5 such runs, in turns (other, this, this, other), on all
-        rows and on their first two thirds. On a bank of three lanes an env
+        same host path), in turns (``in_turns``), on all rows and on their
+        first two thirds. On a bank of three lanes an env
         these are the sizes of the expert loop's two launches: its lazy
         bank solves batch_num = 3 lanes of every env, then retry_num = 2."""
         K = pp.samples_per_piece
@@ -705,13 +714,35 @@ def main(argv=None) -> int:
                                      f"disagree")
             line += " (bits)"
             for n in (P_, 2 * P_ // 3):
-                ms = [median_ms(torch, lambda: [call(lib, n)
-                                                for _ in range(20)], 5) / 20
-                      for lib in (other, _cuda.load(), _cuda.load(), other)]
+                ms = in_turns(lambda lib: call(lib, n))
                 line += (f"; {n} rows ms other {ms[0]:.4f} / this "
                          f"{ms[1]:.4f} / this {ms[2]:.4f} / other "
                          f"{ms[3]:.4f}")
             say(f"{name} {label} against {args.against}: {line}")
+
+    def edt_against(name, label, grid, dtype, extra, params):
+        """--against: the other checkout's B9 kernel and this tree's, both
+        through their C entries (neo_<name>, with the launch's extra int
+        arguments and host params), on grid: the cells whose bits differ,
+        then each kernel's time in turns (``in_turns``)."""
+        B_, H_, W_ = grid.shape
+        outs = {lib: torch.empty(grid.shape, dtype=dtype, device=dev)
+                for lib in (other, _cuda.load())}
+
+        def call(lib):
+            _cuda.check(getattr(lib, f"neo_{name}")(
+                _cuda.ptr(grid), _cuda.ptr(outs[lib]), B_, H_, W_, *extra,
+                _cuda.host_floats(params), _cuda.stream_ptr(dev)), name)
+        for lib in outs:
+            call(lib)
+        torch.cuda.synchronize()
+        word = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        o, m = (t.view(word) for t in outs.values())
+        n = int((o != m).sum())
+        ms = in_turns(call)
+        say(f"{name} {label} against {args.against}: {n} of {o.numel()} "
+            f"cells differ (bits); ms other {ms[0]:.4f} / this {ms[1]:.4f} "
+            f"/ this {ms[2]:.4f} / other {ms[3]:.4f}")
 
     def per_eval_check(name, pmap, x0_, head_, tail_, env_, fused,
                        accept_map, cost_pp):
@@ -1179,6 +1210,11 @@ def main(argv=None) -> int:
            lo.numel() * EDT_CELL_OPS, lo.numel() * (4 + 2))
     say(f"edt_trunc_lite: {n_diff} cells differ over {BV + 64} grids "
         f"(tol 0: bit-exact)")
+    if other is not None:
+        edt_against("edt_trunc_lite", "vision grids B=512", lo,
+                    torch.bfloat16, (edt.radius_cells(
+                        mapp_v.edt_truncation, mapp_v.resolution),),
+                    [thr, mapp_v.resolution, mapp_v.edt_truncation])
 
     # ---- B6 (+B2): first-lane solves on windows of the rebuilt maps
     emap = esdf.ESDFMap(esdf=field, origin=torch.tensor(
@@ -1478,6 +1514,11 @@ def main(argv=None) -> int:
     ms_fused = median_ms(torch, lambda: edt.launch_edt_exact(
         occ_fused, field_x, 0.5, mapp_d.resolution), 20)
     say(f"edt_exact on the fused grids: {ms_fused:.3f} ms")
+    if other is not None:
+        for label, grid in (("ground-truth grids", occ_gt),
+                            ("fused grids", occ_fused)):
+            edt_against("edt_exact", f"{label} B=512", grid, torch.float32,
+                        (), [0.5, mapp_d.resolution, edt.FAR])
 
     # ---- B7 on windows of the gt+grid path's full-profile maps: BV
     # problems from the origin, every 8th ending 12 m ahead (beyond its
@@ -1515,6 +1556,12 @@ def main(argv=None) -> int:
            median_ms(torch, lambda: edt._truncated_plain(
                occ_gt > 0.5, mapp_d.resolution, 2.0), 3),
            occ_gt.numel() * EDT_CELL_OPS, occ_gt.numel() * (4 + 4))
+    if other is not None:
+        for label, grid in (("ground-truth grids", occ_gt),
+                            ("fused grids", occ_fused)):
+            edt_against("edt_banded", f"{label} B=512", grid, torch.float32,
+                        (edt.radius_cells(2.0, mapp_d.resolution),),
+                        [0.5, mapp_d.resolution, 2.0])
 
     # ---- (c) B8 v1 at B = BV: the default map with the 4 m camera (114-cell
     # windows that follow the drones; every 8th drone by the map's corner,

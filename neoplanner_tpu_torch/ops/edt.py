@@ -23,7 +23,8 @@ correctly rounded sqrt, so kernels and plain versions agree bit for bit.
 
 For CUDA tensors each entry point launches its kernel: ``csrc/edt_exact.cu``
 (B9 exact), the f32 entry of ``csrc/edt_trunc.cu`` (B9 banded) and its bf16
-entry (B9 fused); for CPU tensors it runs the pass chain below.
+entry (B9 fused), three instances of one template (``csrc/edt.cuh``); for
+CPU tensors it runs the pass chain below.
 
 Replaces: edt_pallas.py ``_pass2_kernel`` (:32) via ``pass2`` (:119),
 ``_make_banded_kernel`` (:56) via ``pass2_banded`` (:98), and
@@ -41,10 +42,12 @@ from neoplanner_tpu_torch import _cuda
 
 _BIG = 1e9
 FAR = 1e4                     # empty-map distance in meters (esdf.py:66)
-_TILE = 16                    # output rows per block (csrc/edt_trunc.cu)
-_STRIP = 32                   # columns per block (csrc/edt_exact.cu)
-_MAX_ROW = 1024               # cells per row it loads at once
-_SMEM_MAX = 227 * 1024        # shared memory a block can use on the H100
+# the kernels' shape limits (csrc/edt.cuh)
+_EXACT_MAX = 1024             # B9 exact: H and W
+_TRUNC_MAX_W = 8192           # B9 fused / banded: W, and R below
+_TRUNC_MAX_R = 4095           # R^2 + d^2 stays exact in f32
+_TILE_ROWS = 256              # output rows of a truncated tile
+_SMEM_MAX = 232448            # shared memory a block can use on the H100
 
 
 def radius_cells(max_dist: float, resolution: float) -> int:
@@ -191,10 +194,23 @@ def rebuild_truncated_lite(logodds: torch.Tensor, thr: float,
     return out
 
 
-def _check_band(W: int, radius: int) -> None:
-    if (_TILE + 2 * radius) * W * 3 + 1 > _SMEM_MAX:
-        raise ValueError(f"a {W}-cell row tile with a {radius}-row halo "
-                         f"exceeds the kernel's shared memory")
+def _smem_bytes(rows: int, W: int, warps: int = 1) -> int:
+    """csrc/edt.cuh ``edt_smem_words`` in bytes: a block's bits of its
+    staged rows and each warp's row records and envelope bits."""
+    nwp = ((W + 31) // 32) | 1
+    return 4 * (rows * nwp + warps * (rows + 32 * ((rows + 31) // 32)))
+
+
+def _check_band(H: int, W: int, radius: int) -> None:
+    if W > _TRUNC_MAX_W or radius > _TRUNC_MAX_R:
+        raise ValueError(f"the truncated kernels take rows of up to "
+                         f"{_TRUNC_MAX_W} cells and radii of up to "
+                         f"{_TRUNC_MAX_R} cells (got W={W}, R={radius})")
+    tiles = -(-H // _TILE_ROWS)
+    rows = min(H, -(-H // max(tiles, 1)) + 2 * radius)
+    if tiles > 65535 or _smem_bytes(rows, W) > _SMEM_MAX:
+        raise ValueError(f"a tile of {rows} rows of {W} cells exceeds the "
+                         f"truncated kernels' shared memory")
 
 
 def launch_edt(logodds, out, thr: float, resolution: float,
@@ -206,8 +222,8 @@ def launch_edt(logodds, out, thr: float, resolution: float,
     _cuda.require(logodds, "logodds", (B, H, W), torch.float32, dev)
     _cuda.require(out, "out", (B, H, W), torch.bfloat16, dev)
     radius = radius_cells(max_dist, resolution)
-    _check_band(W, radius)
-    if B == 0:
+    _check_band(H, W, radius)
+    if logodds.numel() == 0:
         return
     lib = _cuda.load()
     err = lib.neo_edt_trunc_lite(
@@ -227,8 +243,8 @@ def launch_edt_banded(grid, out, thr: float, resolution: float,
     _cuda.require(grid, "grid", (B, H, W), torch.float32, dev)
     _cuda.require(out, "out", (B, H, W), torch.float32, dev)
     radius = radius_cells(max_dist, resolution)
-    _check_band(W, radius)
-    if B == 0:
+    _check_band(H, W, radius)
+    if grid.numel() == 0:
         return
     lib = _cuda.load()
     err = lib.neo_edt_banded(
@@ -246,13 +262,10 @@ def launch_edt_exact(grid, out, thr: float, resolution: float) -> None:
     B, H, W = grid.shape
     _cuda.require(grid, "grid", (B, H, W), torch.float32, dev)
     _cuda.require(out, "out", (B, H, W), torch.float32, dev)
-    if H * _STRIP * 8 > _SMEM_MAX:
-        raise ValueError(f"a {H}-row column strip exceeds the exact "
-                         f"kernel's shared memory")
-    if W > _MAX_ROW:
-        raise ValueError(f"the exact kernel takes rows of up to {_MAX_ROW} "
-                         f"cells (got {W})")
-    if B == 0:
+    if H > _EXACT_MAX or W > _EXACT_MAX:
+        raise ValueError(f"the exact kernel takes grids of up to "
+                         f"{_EXACT_MAX} x {_EXACT_MAX} cells (got {H} x {W})")
+    if grid.numel() == 0:
         return
     lib = _cuda.load()
     err = lib.neo_edt_exact(

@@ -449,6 +449,130 @@ def test_edt_banded_kernel_matches_plain(cuda_device, max_dist):
     assert _cuda.launches["edt_banded"] == before + 6
 
 
+def _edge_grids(H, W, seed):
+    """(B, H, W) f32 occupancy at the design's edges: sparse and dense
+    random envs, one occupied cell at each corner, a full row and a full
+    column, an all-occupied env and an empty one."""
+    rng = np.random.default_rng(seed)
+    envs = [rng.uniform(0, 1, size=(H, W)) < d for d in (0.003, 0.05, 0.4)]
+    for i, j in ((0, 0), (0, W - 1), (H - 1, 0), (H - 1, W - 1)):
+        g = np.zeros((H, W), bool)
+        g[i, j] = True
+        envs.append(g)
+    row = np.zeros((H, W), bool)
+    row[H // 2] = True
+    col = np.zeros((H, W), bool)
+    col[:, W // 3] = True
+    envs += [row, col, np.ones((H, W), bool), np.zeros((H, W), bool)]
+    return _t(np.stack(envs).astype(np.float32))
+
+
+def _b9_kernels(occ, dev, res, max_dist):
+    """B9 exact, banded and fused on occ (B, H, W) against their plain
+    versions on the CPU, bit for bit (fused on log-odds +-1 of occ)."""
+    assert torch.equal(edt.edt(occ.to(dev), res).cpu(), edt.edt(occ, res))
+    assert torch.equal(edt.edt_truncated(occ.to(dev), res, max_dist).cpu(),
+                       edt.edt_truncated(occ, res, max_dist))
+    lo = occ * 2.0 - 1.0
+    assert torch.equal(
+        edt.rebuild_truncated_lite(lo.to(dev), 0.0, res, max_dist).cpu(),
+        edt.rebuild_truncated_lite(lo, 0.0, res, max_dist))
+
+
+@pytest.mark.parametrize("H, W", [(1, 1), (1, 31), (1, 32), (1, 33),
+                                  (1, 1024), (908, 1), (908, 31), (908, 33),
+                                  (37, 1024), (908, 1024), (1024, 1024)])
+def test_edt_exact_kernel_edge_shapes(cuda_device, H, W):
+    """B9 exact bit for bit at widths around a word (1, 31, 32, 33), the
+    widest rows (1024), one row, 908 and 1024 rows, on the edge grids."""
+    occ = _edge_grids(H, W, seed=H * 7 + W)
+    if H * W > 100_000:     # the plain version's min-plus is O(H^2 W)
+        occ = occ[[1, 6]]
+    assert torch.equal(edt.edt(occ.to(cuda_device), 0.1).cpu(),
+                       edt.edt(occ, 0.1))
+
+
+@pytest.mark.parametrize("R", [1, 31, 32, 33, 40])
+@pytest.mark.parametrize("H, W", [(64, 100), (300, 101)])
+def test_edt_truncated_kernels_radius_at_word_edges(cuda_device, R, H, W):
+    """B9 banded and B9 fused bit for bit at radii around a word boundary,
+    on 16-byte-aligned rows (W = 100) and unaligned ones (W = 101), and on
+    300 rows (two tiles with an R-row halo); res 0.25 so that max_dist / res
+    is R exactly. B9 exact on the same grids too."""
+    res = 0.25
+    assert edt.radius_cells(R * res, res) == R
+    _b9_kernels(_edge_grids(H, W, seed=R), cuda_device, res, R * res)
+
+
+@pytest.mark.parametrize("H, W", [(1, 1), (7, 33), (192, 256), (256, 448)])
+def test_edt_kernels_edge_grids(cuda_device, H, W):
+    """All three B9 kernels on the edge grids: corners, a full row and
+    column, all-occupied, and empty (FAR for exact, max_dist truncated)."""
+    occ = _edge_grids(H, W, seed=11)
+    _b9_kernels(occ, cuda_device, 0.1, 2.0)
+    empty = edt.edt(occ[-1:].to(cuda_device), 0.1)
+    assert bool((empty == edt.FAR).all())
+    assert bool((edt.edt_truncated(occ[-1:].to(cuda_device), 0.1, 2.0)
+                 == 2.0).all())
+
+
+def test_edt_kernels_one_env_inside_a_batch(cuda_device):
+    """Each env of a batch of 67 equals the same env launched alone (B = 1),
+    bit for bit, for all three B9 kernels."""
+    rng = np.random.default_rng(21)
+    occ = _t((rng.uniform(0, 1, size=(67, 96, 136)) < 0.02).astype(
+        np.float32)).to(cuda_device)
+    runs = (lambda g: edt.edt(g, 0.1),
+            lambda g: edt.edt_truncated(g, 0.1, 2.0),
+            lambda g: edt.rebuild_truncated_lite(g * 2.0 - 1.0, 0.0, 0.1,
+                                                 2.0))
+    for run in runs:
+        full = run(occ)
+        for k in (0, 33, 66):
+            assert torch.equal(run(occ[k:k + 1].contiguous()), full[k:k + 1])
+
+
+def test_edt_kernels_unaligned_rows(cuda_device):
+    """A grid whose data starts 4 bytes past a 16-byte boundary (W = 64:
+    every row unaligned) reads as its aligned copy, bit for bit."""
+    rng = np.random.default_rng(22)
+    H, W = 50, 64
+    flat = torch.from_numpy((rng.uniform(0, 1, size=3 * H * W + 1) < 0.05)
+                            .astype(np.float32)).to(cuda_device)
+    view = flat[1:].view(3, H, W)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    copy = view.clone()
+    assert torch.equal(edt.edt(view, 0.1), edt.edt(copy, 0.1))
+    assert torch.equal(edt.edt_truncated(view, 0.1, 2.0),
+                       edt.edt_truncated(copy, 0.1, 2.0))
+    assert torch.equal(edt.edt(view, 0.1).cpu(), edt.edt(view.cpu(), 0.1))
+
+
+def test_edt_kernels_refuse_past_limits(cuda_device):
+    """Past the stated limits each wrapper raises before any launch; B = 0
+    launches nothing and returns an empty field."""
+    before = dict(_cuda.launches)
+    for shape in ((1, 1025, 8), (1, 8, 1025)):
+        with pytest.raises(ValueError):
+            edt.edt(torch.zeros(shape, device=cuda_device), 0.1)
+    with pytest.raises(ValueError):       # W past 8192
+        edt.edt_truncated(torch.zeros((1, 4, 8193), device=cuda_device),
+                          0.1, 0.5)
+    with pytest.raises(ValueError):       # R past 4095
+        edt.edt_truncated(torch.zeros((1, 4, 8), device=cuda_device),
+                          0.1, 409.7)
+    with pytest.raises(ValueError):       # a tile past the shared memory
+        edt.rebuild_truncated_lite(
+            torch.zeros((1, 2256, 4096), device=cuda_device), 0.0, 0.1, 100.0)
+    assert _cuda.launches == before
+    for fn in (lambda g: edt.edt(g, 0.1),
+               lambda g: edt.edt_truncated(g, 0.1, 2.0),
+               lambda g: edt.rebuild_truncated_lite(g, 0.0, 0.1, 2.0)):
+        assert fn(torch.zeros((0, 40, 40), device=cuda_device)).shape == (
+            0, 40, 40)
+    assert _cuda.launches == before
+
+
 # ---- B6 (+B2): L-BFGS on ESDF windows
 
 
