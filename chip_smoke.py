@@ -97,11 +97,17 @@ none or when the package is missing.
 --against CHECKOUT (another commit's tree, e.g. unpacked by git archive)
 also builds that tree's neoplanner_tpu_torch/csrc in this process and, at
 each objective check of phase 18, launches its B2s / B7 on the same inputs,
-and at phases 6, 12 and 13 its B9 fused (the vision grids), B9 exact and
-B9 banded (the default map's ground-truth and fused grids): it prints the
-elements (f and g, or field cells) whose bits differ from this tree's and
-both kernels' medians in turns (other, this, this, other), both through
-their C entries. Nothing is held against a tolerance there.
+at phases 6, 12 and 13 its B9 fused (the vision grids), B9 exact and B9
+banded (the default map's ground-truth and fused grids), at phase 2 its B4
+(the scene frames, B = 1024, 160 x 120, and the same frames with every
+third primitive a cylinder) and B3 (spr = 60, B = 1024), at
+phase 6 its B10 (spr = 60 and a 10-substep chunk from i0 = 30, B = 512) and
+at phase 9 its B4 at row stride 4 (512 x 5 poses): it prints the elements
+(f and g, field cells, pixels, or the state, trace and tick elements) whose
+bits differ from this tree's and both kernels' medians in turns (other,
+this, this, other), both through their C entries, and for B4, B3 and B10
+the shape's bound (B4's from the survivors of its tiles' cull). Nothing is
+held against a tolerance there.
 """
 
 from __future__ import annotations
@@ -237,6 +243,25 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def render_work(kept, rows: int, width: int, n_prims: int,
+                tile: tuple[int, int]):
+    """B4's operations and bytes on this run's inputs. kept is
+    raycast.tile_cull's (E, [F,] TY, TX, K) survivors of the tiles (TILE_H,
+    TILE_W); a pixel costs 60 operations (its ray, the ground plane, the
+    depth) and 35 for each primitive it tests, the survivors of its tile.
+    The bytes read each pose and each env's table of n_prims once and write
+    each pixel."""
+    th, tw = tile
+    h = np.minimum(th, rows - np.arange(0, rows, th))
+    w = np.minimum(tw, width - np.arange(0, width, tw))
+    per_tile = kept.sum(-1).double().cpu().numpy()
+    flops = float((h[:, None] * w[None, :] * (60 + 35 * per_tile)).sum())
+    n_pose = int(np.prod(kept.shape[:-3]))
+    nbytes = (n_pose * (3 + 4 + rows * width)
+              + kept.shape[0] * n_prims * 8) * 4
+    return flops, nbytes
+
+
 def givens_flops(lbw: int, n: int = 18, d: int = 2, fill: int = 6) -> int:
     """Floating-point operations of one band-restricted Givens solve."""
     f = 0
@@ -282,8 +307,8 @@ def rel(a, b):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None, help="another checkout whose "
-                    "B9 and objective kernels phases 6, 12, 13 and 18 "
-                    "compare with this one's")
+                    "B3, B4, B10, B9 and objective kernels phases 2, 6, 9, "
+                    "12, 13 and 18 compare with this one's")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -744,6 +769,36 @@ def main(argv=None) -> int:
             f"cells differ (bits); ms other {ms[0]:.4f} / this {ms[1]:.4f} "
             f"/ this {ms[2]:.4f} / other {ms[3]:.4f}")
 
+    def entry_against(name, label, entry, fill, want, work):
+        """--against: the other checkout's kernel and this tree's, both
+        through their C entries, lib.<entry>(*fill(buffers)) writing into
+        float32 buffers shaped as want, this tree's wrapper's outputs on
+        the same inputs (which its C entry must give bit for bit): the
+        elements whose bits differ, then each kernel's time in turns
+        (``in_turns``) and the bound of work = (operations, bytes)."""
+        bufs = {lib: [torch.empty_like(t) for t in want]
+                for lib in (other, _cuda.load())}
+        # the arguments built once, so that the timer sees the launches
+        argv = {lib: fill(bufs[lib]) for lib in bufs}
+
+        def call(lib):
+            _cuda.check(getattr(lib, entry)(*argv[lib]), name)
+        for lib in bufs:
+            call(lib)
+        torch.cuda.synchronize()
+        (o, m), n = bufs.values(), 0
+        for a, b, w in zip(o, m, want):
+            if not torch.equal(b.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"{name}: its C entry and its wrapper "
+                                     f"disagree")
+            n += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        ms = in_turns(call)
+        b_ms, b_by = bound(*work)
+        say(f"{name} {label} against {args.against}: {n} of "
+            f"{sum(a.numel() for a in o)} elements differ (bits); ms other "
+            f"{ms[0]:.4f} / this {ms[1]:.4f} / this {ms[2]:.4f} / other "
+            f"{ms[3]:.4f}; bound {b_ms:.4f} ms ({b_by})")
+
     def per_eval_check(name, pmap, x0_, head_, tail_, env_, fused,
                        accept_map, cost_pp):
         """solve.solve_per_eval (the PyTorch loop over B2s / B7) against the
@@ -858,8 +913,18 @@ def main(argv=None) -> int:
         f"(tol 1e-3: edge grazes)")
     if frac_off > 1e-3:
         raise AssertionError("render_depth disagrees with its plain version")
-    pix = B * cam.height * cam.width
-    flops = pix * (60 + 35 * float(worlds.active.sum()) / B)
+    tile = (raycast.TILE_H, raycast.TILE_W)
+    kept = raycast.tile_cull(worlds, pos, quat, cam)
+    work = render_work(kept, cam.height, cam.width, prims8.shape[1], tile)
+    # the dense work, every pixel against every live primitive, as the TPU
+    # kernel does it: printed beside the bound, not as it
+    dense = (B * cam.height * cam.width
+             * (60 + 35 * float(worlds.active.sum()) / B))
+    say(f"render_depth: {float(kept.sum(-1).float().mean()):.3f} primitives "
+        f"a tile survive the cull, of {float(worlds.active.sum()) / B:.3f} "
+        f"live ({tuple(kept.shape[1:3])} tiles a frame); bound "
+        f"{bound(*work)[0]:.4f} ms on the survivors, "
+        f"{bound(dense, work[1])[0]:.4f} ms on the dense work")
     # held above to the share of pixels off (an edge graze flips a ray from
     # hit to miss); the largest difference is recorded as it is
     report("render_depth", (float(diff.max()), frac_off), 1e-3,
@@ -867,7 +932,27 @@ def main(argv=None) -> int:
                pos, quat, prims8, depth, cam), 20),
            median_ms(torch, lambda: raycast.render_depth(
                worlds, pos, quat, cam), 5),
-           flops, B * (3 + 4 + 24 * 8) * 4 + pix * 4, on="rel")
+           *work, on="rel")
+    cam_params = _cuda.host_floats([cam.fx, cam.fy, cam.min_range,
+                                    cam.max_range, cam.height])
+    if other is not None:
+        def render_fill(prims_):
+            return lambda o: (
+                _cuda.ptr(pos), _cuda.ptr(quat), _cuda.ptr(prims_),
+                _cuda.ptr(o[0]), B, 1, prims_.shape[1], cam.width,
+                cam.height, 1, cam_params, _cuda.stream_ptr(dev))
+        entry_against("render_depth", "scene frames B=1024",
+                      "neo_render_depth", render_fill(prims8), [depth], work)
+        # the same frames with every third primitive a cylinder
+        prims_c = prims8.clone()
+        prims_c[:, 1::3, 6] = 1.0
+        worlds_c = worlds.replace(shape=prims_c[..., 6].to(worlds.shape.dtype))
+        depth_c = raycast.render_depth_auto(worlds_c, pos, quat, cam)
+        entry_against("render_depth", "scene frames with cylinders B=1024",
+                      "neo_render_depth", render_fill(prims_c), [depth_c],
+                      render_work(raycast.tile_cull(worlds_c, pos, quat, cam),
+                                  cam.height, cam.width, prims_c.shape[1],
+                                  tile))
 
     # ---- B3: one tracking segment of B envs
     def track_inputs(n, state):
@@ -896,13 +981,21 @@ def main(argv=None) -> int:
     want = torch.cat([wd.pos, wd.vel, wd.yaw[:, None], wd.quat, wmpos, wmet,
                       wreach[:, None].float(), wsteps[:, None].float()], 1)
     err = max(err_line(tout, want), err_line(trace, wtrace))
+    work = (B * 60 * 200 + B * 10 * 20 * float(n_active.mean()),
+            B * (60 * 6 + 22 + 24 * 6 + 18 + 60 * 15) * 4)
     report("track_segment", err, 1e-3,
            median_ms(torch, lambda: track.launch_tracker(
                cmds, st_packed, prims6, tout, trace, pp, mp, sp), 20),
            median_ms(torch, lambda: track._track_plain(
-               st, cmds, pp, mp, sp), 5),
-           B * 60 * 200 + B * 10 * 20 * float(n_active.mean()),
-           B * (60 * 6 + 22 + 24 * 6 + 18 + 60 * 15) * 4)
+               st, cmds, pp, mp, sp), 5), *work)
+    if other is not None:
+        entry_against("track_segment", "spr=60 B=1024", "neo_track_segment",
+                      lambda o: (
+                          _cuda.ptr(cmds), _cuda.ptr(st_packed),
+                          _cuda.ptr(prims6), _cuda.ptr(o[0]),
+                          _cuda.ptr(o[1]), B, prims6.shape[1], 60, 0,
+                          track._params(pp, mp, sp), _cuda.stream_ptr(dev)),
+                      [tout, trace], work)
 
     # ---- B1 (+B2): the first-lane L-BFGS solve of B problems. One
     # iteration must agree to roundoff (1e-3 relative on f). Over 24
@@ -1316,12 +1409,32 @@ def main(argv=None) -> int:
                       wreach[:, None].float(), wsteps[:, None].float()], 1)
     err = max(err_line(gout, want), err_line(gtrace, wtrace),
               err_line(gticks, wticks))
+    def grid_work(spr_):
+        return (BV * spr_ * 200,
+                BV * (spr_ * 6 + 22 + 18 + spr_ * 15 + spr_) * 4)
     report("track_segment_grid", err, 1e-3,
            median_ms(torch, lambda: track.launch_tracker_grid(
                cmds_v, stv_packed, gout, gtrace, gticks, pp, mp, sp), 20),
            median_ms(torch, lambda: track._track_grid_plain(
-               st_v, cmds_v, pp, mp, sp), 5),
-           BV * 60 * 200, BV * (60 * 6 + 22 + 18 + 60 * 15 + 60) * 4)
+               st_v, cmds_v, pp, mp, sp), 5), *grid_work(60))
+    if other is not None:
+        def grid_fill(c_, spr_, i0_):
+            return lambda o: (
+                _cuda.ptr(c_), _cuda.ptr(stv_packed), _cuda.ptr(o[0]),
+                _cuda.ptr(o[1]), _cuda.ptr(o[2]), BV, spr_, i0_,
+                track._params(pp, mp, sp), _cuda.stream_ptr(dev))
+        entry_against("track_segment_grid", "spr=60 B=512",
+                      "neo_track_segment_grid", grid_fill(cmds_v, 60, 0),
+                      [gout, gtrace, gticks], grid_work(60))
+        cmds_c = cmds_v[:, 30:40].contiguous()
+        c_outs = (torch.empty_like(gout), torch.empty((BV, 10, 5, 3),
+                                                      device=dev),
+                  torch.empty((BV, 10), device=dev))
+        track.launch_tracker_grid(cmds_c, stv_packed, *c_outs, pp, mp, sp,
+                                  i0=30)
+        entry_against("track_segment_grid", "10-substep chunk i0=30 B=512",
+                      "neo_track_segment_grid", grid_fill(cmds_c, 10, 30),
+                      c_outs, grid_work(10))
 
     # ---- the vision loops (one fused frame per segment)
     small_loop("vision", 16, 6, lambda g, n: scenegen.generate_batch(g, n, wp),
@@ -1369,6 +1482,14 @@ def main(argv=None) -> int:
     frac_off = float(((depth5 - want).abs() > 1e-3).float().mean())
     ms_s = median_ms(torch, lambda: raycast.render_depth_auto(
         worlds_v, pos5, quat5, cam, row_stride=RS), 20)
+    kept = raycast.tile_cull(worlds_v, pos5, quat5, cam, RS)
+    work_s = render_work(kept, depth5.shape[2], cam.width,
+                         worlds_v.active.shape[1],
+                         (raycast.TILE_H, raycast.TILE_W))
+    say(f"render_depth row stride {RS}: "
+        f"{float(kept.sum(-1).float().mean()):.3f} primitives a tile "
+        f"survive the cull ({tuple(kept.shape[2:4])} tiles a frame); bound "
+        f"{bound(*work_s)[0]:.4f} ms ({bound(*work_s)[1]})")
     say(f"render_depth row stride {RS}, {BV} x {F5} poses: shape "
         f"{tuple(depth5.shape)}, {frac_off:.2e} of pixels off by > 1e-3 m "
         f"(tol 1e-3), max abs {float((depth5 - want).abs().max()):.3g}; "
@@ -1376,6 +1497,15 @@ def main(argv=None) -> int:
     if frac_off > 1e-3:
         raise AssertionError("render_depth at row stride 4 disagrees with "
                              "its plain version")
+    if other is not None:
+        prims_v8 = raycast.pack_prims(worlds_v)
+        entry_against("render_depth", f"row stride {RS}, {BV} x {F5} poses",
+                      "neo_render_depth", lambda o: (
+                          _cuda.ptr(pos5), _cuda.ptr(quat5),
+                          _cuda.ptr(prims_v8), _cuda.ptr(o[0]), BV * F5, F5,
+                          prims_v8.shape[1], cam.width, depth5.shape[2], RS,
+                          cam_params, _cuda.stream_ptr(dev)),
+                      [depth5], work_s)
 
     # ---- B8 v3: the five frames onto the fused grids, one clip per frame
     lo_s = st_s.logodds.contiguous()

@@ -17,9 +17,13 @@ against its own env's primitives.
 Replaces: neoplanner_tpu/sense/raycast_pallas.py ``_make_kernel`` (:72) with
 ``_pack_prims`` (:179) and ``_base_dirs`` (:249). Bound on the H100:
 operations — ~30 flops per pixel and primitive against 4 bytes written per
-pixel. Design: one thread per pixel, one block per 256-pixel tile of one
-env, the env's primitive table in shared memory so that the branch on the
-primitive's shape is uniform across the block.
+pixel. Design: one thread per pixel, one block per TILE_W x TILE_H tile of
+the output images of up to eight poses. A warp per pose first culls its
+env's primitives against the cone of the tile's corner rays
+(:func:`tile_cull` is that predicate's plain form, for the tests) and
+keeps the survivors' pixel-free terms in shared memory; each pixel then
+tests only those, with the dense test's arithmetic, so the image is the
+same bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +36,13 @@ from neoplanner_tpu_torch.core import frames
 from neoplanner_tpu_torch.core.types import SHAPE_CYLINDER, BoxWorld
 
 _INF = 1e9
+TILE_W, TILE_H = 8, 32   # a block's tile of output pixels (csrc/raycast.cu)
+# the cull's roundoff margin: CULL_REL of the coordinates' scale L, plus
+# CULL_TANGENT L^2 / r for a cylinder (csrc/raycast.cu kCullRel, kCullTangent)
+CULL_REL, CULL_TANGENT = 1e-4, 1e-5
+# B4 keeps up to 32 B of survivors per primitive in a block's shared memory
+# (an H100's 232,448 B, less 1 KB for the tile's own offsets)
+MAX_PRIMS = (232448 - 1024) // 32
 
 
 def ray_dirs_camera(cam: CameraParams, row_stride: int = 1,
@@ -133,6 +144,89 @@ def render_depth(world: BoxWorld, pos: torch.Tensor, quat: torch.Tensor,
     return z.reshape((B, F, H, W) if multi else (B, H, W))
 
 
+def _tile_offsets(cam: CameraParams, row_stride: int):
+    """Optical-frame offsets (x of the first and last column, y of the first
+    and last output row) of every tile: four (TY, TX) float32 tensors."""
+    rows = out_rows(cam, row_stride)
+    c0 = torch.arange(0, cam.width, TILE_W)
+    r0 = torch.arange(0, rows, TILE_H)
+    c1 = torch.clamp(c0 + TILE_W, max=cam.width) - 1
+    r1 = torch.clamp(r0 + TILE_H, max=rows) - 1
+
+    def col_x(c):
+        return ((c.float() + 0.5) - cam.width / 2) / cam.fx
+
+    def row_y(r):
+        return ((row_stride // 2 + r * row_stride).float() + 0.5
+                - cam.height / 2) / cam.fy
+    ty, tx = r0.shape[0], c0.shape[0]
+    return (col_x(c0).expand(ty, tx), col_x(c1).expand(ty, tx),
+            row_y(r0)[:, None].expand(ty, tx),
+            row_y(r1)[:, None].expand(ty, tx))
+
+
+def tile_cull(world: BoxWorld, pos: torch.Tensor, quat: torch.Tensor,
+              cam: CameraParams, row_stride: int = 1) -> torch.Tensor:
+    """Plain form of B4's per-tile cull: (B, TY, TX, K), or (B, F, TY, TX,
+    K) for pos (B, F, 3), True where primitive k of the pose's env is live
+    and may be hit by a ray of the TILE_H x TILE_W tile (ty, tx). Every ray
+    of a tile is a positive combination of its four corner rays D_i (the
+    unnormalised body rays (1, -x, -y) rotated by the pose), so a primitive
+    wholly outside one face of their cone, by more than a roundoff margin,
+    is hit by none of them. The faces are the corner pairs' cross products,
+    each turned toward the other two corners (dropped where those straddle
+    it), and the corner rays' sum where every corner lies in front of it.
+    A tile whose cone may hold the vertical culls no cylinder (their
+    quadratic takes a_safe there). The kernel computes this predicate; only
+    the tests call this form."""
+    multi = pos.dim() == 3
+    if not multi:
+        pos, quat = pos[:, None], quat[:, None]
+    xa, xb, ya, yb = _tile_offsets(cam, row_stride)             # (TY, TX)
+    xs = torch.stack([xa, xb, xb, xa], -1)                       # (TY, TX, 4)
+    ys = torch.stack([ya, ya, yb, yb], -1)
+    body = torch.stack([torch.ones_like(xs), -xs, -ys], -1).to(pos.device)
+    D = frames.quat_rotate(quat[:, :, None, None, None, :],
+                           body)                          # (B, F, TY, TX, 4, 3)
+    faces = []
+    for i in range(4):
+        n = torch.linalg.cross(D[..., i, :], D[..., (i + 1) % 4, :], dim=-1)
+        s1 = (n * D[..., (i + 2) % 4, :]).sum(-1)
+        s2 = (n * D[..., (i + 3) % 4, :]).sum(-1)
+        sgn = torch.where((s1 >= 0) & (s2 >= 0), 1.0,
+                          torch.where((s1 <= 0) & (s2 <= 0), -1.0, 0.0))
+        faces.append(sgn[..., None] * n)
+    front = D.sum(-2)
+    ok = ((front[..., None, :] * D).sum(-1) >= 0).all(-1)
+    faces.append(front * ok[..., None])
+    N = torch.stack(faces, -2)                            # (B, F, TY, TX, 5, 3)
+    l1 = N.abs().sum(-1)
+    up = (N[..., 2] >= -1e-3 * l1).all(-1)
+    down = (-N[..., 2] >= -1e-3 * l1).all(-1)
+    cyl_ok = ~up & ~down                                    # (B, F, TY, TX)
+
+    c = world.centers.to(pos.dtype)[:, None]                    # (B, 1, K, 3)
+    h = world.half_sizes.to(pos.dtype).abs()[:, None]
+    is_cyl = (world.shape == SHAPE_CYLINDER)[:, None]            # (B, 1, K)
+    rel = c - pos[:, :, None]                                    # (B, F, K, 3)
+    L = (rel.abs().sum(-1) + c.abs().sum(-1) + pos.abs().sum(-1)[..., None]
+         + h.sum(-1))
+    margin = CULL_REL * L + torch.where(is_cyl, CULL_TANGENT * L * L
+                                       / h[..., 0], 0.0)
+    Nk = N[..., None, :]                               # (B, F, TY, TX, 5, 1, 3)
+    hk = h[:, :, None, None, None]                     # (B, 1, 1, 1, 1, K, 3)
+    sup = torch.where(
+        is_cyl[:, :, None, None, None],
+        hk[..., 0] * torch.sqrt(Nk[..., 0] ** 2 + Nk[..., 1] ** 2)
+        + Nk[..., 2].abs() * hk[..., 2],
+        (Nk.abs() * hk).sum(-1))
+    s = (Nk * rel[:, :, None, None, None]).sum(-1) + sup
+    outside = (s < -margin[:, :, None, None, None] * l1[..., None]).any(-2)
+    can = ~is_cyl[:, :, None, None] | cyl_ok[..., None]
+    keep = world.active[:, None, None, None] & ~(outside & can)
+    return keep if multi else keep[:, 0]
+
+
 def pack_prims(world: BoxWorld) -> torch.Tensor:
     """(B, K, 8) float32 [cx, cy, cz, hx, hy, hz, is_cyl, active]."""
     f32 = torch.float32
@@ -170,6 +264,9 @@ def launch_render(pos, quat, prims, depth, cam: CameraParams,
         raise ValueError(f"pos: shape {tuple(pos.shape)}, expected ({B}, 3) "
                          f"or ({B}, F, 3)")
     n_frames = lead[1] if len(lead) == 2 else 1
+    if K > MAX_PRIMS:
+        raise ValueError(f"{K} primitives exceed the renderer's shared "
+                         f"memory ({MAX_PRIMS} per env)")
     rows = out_rows(cam, row_stride)
     for t, name, shape in ((pos, "pos", lead + (3,)),
                            (quat, "quat", lead + (4,)),

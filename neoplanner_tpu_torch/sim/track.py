@@ -6,9 +6,10 @@ and dynamics, the goal latch, the freeze outside the mission phase, the
 10 Hz weighted metric on the scene SDF and the per-substep trace) for every
 env. ``i0`` is the segment's first substep: the metric ticks where
 (t + i0) % 6 == 0, so a segment tracked in chunks (the sensor-rate loop)
-keeps the cadence of one unchunked segment. For CUDA tensors it launches ``csrc/track.cu`` (one thread per env,
-looping over the substeps); for CPU tensors it runs :func:`_track_plain`,
-the substep loop of neoplanner_tpu/sim/env.py ``_track_segment`` (:295).
+keeps the cadence of one unchunked segment. For CUDA tensors it launches
+``csrc/track.cu`` (one warp per env, looping over the substeps); for CPU
+tensors it runs :func:`_track_plain`, the substep loop of
+neoplanner_tpu/sim/env.py ``_track_segment`` (:295).
 :func:`track_segment_grid` is the same loop for the sensed-grid metric: the
 kernel (B10, or :func:`_track_grid_plain`) runs without a distance query
 and returns the 10 Hz tick mask; the collision term then comes from a
@@ -19,9 +20,14 @@ Replaces: neoplanner_tpu/sim/track_pallas.py ``_make_track_kernel`` (:94),
 with_dis=True via ``track_segment`` (:284) (B3), with_dis=False via
 ``track_segment_grid`` (:322) (B10). Bound on the H100: device memory —
 ~1.4 KB of commands in and 3.6 KB of trace out per env against ~150 flops
-per substep. Design: one thread per env holds the whole drone state in
-registers for the segment; B3's env primitives sit in the thread's slice of
-shared memory.
+per substep, but the substep chain is serial. Design: one warp per env
+reads its commands coalesced into shared memory, its lanes compute the
+command-only terms of all substeps at once, every lane runs the chain on
+the same values, and the lanes store the trace coalesced after it; the
+attitude is computed once, after the chain. B3 reads its env's primitive
+table once into the warp's shared memory, and its lanes split the
+tick-time distance query (a warp min), up to :data:`MAX_PRIMS` primitives
+an env.
 """
 
 from __future__ import annotations
@@ -37,8 +43,11 @@ from neoplanner_tpu_torch.mapping import scene as scene_map
 from neoplanner_tpu_torch.sim import dynamics, missions
 
 METRIC_EVERY = 6   # 60 Hz commands, 10 Hz metric
-_BLOCK = 64        # threads per block of the kernel (csrc/track.cu)
-_SMEM_LIMIT = 48 * 1024
+_WARPS = 4         # envs per block of the kernel, one warp each (csrc/track.cu)
+_STAGE_BYTES = 3840  # a warp's staging of 64 substeps (track.cu Stage)
+_SMEM_LIMIT = 232448         # an H100 block's shared memory, opted in past 48 KB
+# B3 keeps each warp's primitive table (6 floats a primitive) beside its stage
+MAX_PRIMS = (_SMEM_LIMIT - _WARPS * _STAGE_BYTES) // (_WARPS * 6 * 4)
 
 
 def track_segment(state, cmds: torch.Tensor, pp: PlannerParams,
@@ -151,9 +160,9 @@ def launch_tracker(cmds, st, prims, out, trace, pp, mp, sp, i0=0) -> None:
     dev = cmds.device
     B, spr = cmds.shape[:2]
     n_prims = prims.shape[1]
-    if n_prims * 6 * _BLOCK * 4 > _SMEM_LIMIT:
+    if n_prims > MAX_PRIMS:
         raise ValueError(f"{n_prims} primitives exceed the tracker's shared "
-                         f"memory ({_SMEM_LIMIT} B per block)")
+                         f"memory ({MAX_PRIMS} per env)")
     for t, name, shape in ((cmds, "cmds", (B, spr, 3, 2)),
                            (st, "state", (B, 22)),
                            (prims, "prims", (B, n_prims, 6)),

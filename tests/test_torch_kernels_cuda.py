@@ -15,6 +15,9 @@ same inputs. Tolerances are stated per test.
 """
 
 import dataclasses
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,11 +27,12 @@ from neoplanner_tpu_torch.config import (CameraParams, MapParams,
                                          MissionParams, PlannerParams,
                                          SimParams, WorldParams)
 from neoplanner_tpu_torch.core import frames
+from neoplanner_tpu_torch.core.types import BoxWorld
 from neoplanner_tpu_torch.mapping import esdf, fusion, occupancy, scene
 from neoplanner_tpu_torch.ops import edt, minco
 from neoplanner_tpu_torch.plan import costs, expert, solve
 from neoplanner_tpu_torch.sense import raycast
-from neoplanner_tpu_torch.sim import env, track
+from neoplanner_tpu_torch.sim import env, missions, track
 from neoplanner_tpu_torch import _cuda
 from neoplanner_tpu_torch.world import scenegen
 from tests.test_torch_imports import one_torch_thread  # noqa: F401
@@ -187,6 +191,178 @@ def test_render_kernel_strided_poses_match_plain(cuda_device):
     assert float((diff > 1e-4).float().mean()) <= 1e-3
 
 
+def _render_pair(worlds, pos, quat, cam, row_stride, dev):
+    """The plain render on the CPU and B4 on the card, from the same
+    inputs."""
+    want = raycast.render_depth(worlds, pos, quat, cam, row_stride)
+    got = raycast.render_depth_auto(_to(worlds, dev), pos.to(dev),
+                                    quat.to(dev), cam, row_stride).cpu()
+    return got, want
+
+
+@pytest.mark.parametrize("row_stride, frames_per_env", [(1, 1), (4, 3),
+                                                        (1, 2)])
+def test_render_kernel_ragged_tiles(cuda_device, row_stride, frames_per_env):
+    """Frames whose width and height are no multiple of the kernel's tile
+    (raycast.TILE_W x TILE_H): partial tiles at both edges, at row stride
+    1 and 4 and with several poses per env; the pixel rule above."""
+    worlds = _worlds(8, seed=5)
+    shape = worlds.shape.clone()
+    shape[:, 1::3] = 1
+    worlds = worlds.replace(shape=shape)
+    pos, quat = _poses(8 * frames_per_env, seed=6)
+    if frames_per_env > 1:
+        pos = pos.reshape(8, frames_per_env, 3)
+        quat = quat.reshape(8, frames_per_env, 4)
+    cam = CameraParams(width=3 * raycast.TILE_W + 5,
+                       height=2 * raycast.TILE_H * row_stride + 3)
+    got, want = _render_pair(worlds, pos, quat, cam, row_stride, cuda_device)
+    assert got.shape == want.shape
+    assert got.shape[-2:] == (raycast.out_rows(cam, row_stride), cam.width)
+    diff = (got - want).abs()
+    assert float((diff > 1e-4).float().mean()) <= 1e-3
+    assert float((want < cam.max_range).float().mean()) > 0.05
+
+
+def _edge_scenes():
+    """Six one-pose scenes at the identity attitude from (0, 0, 2), three
+    primitive slots each [centers, half sizes, shape, active]: (0) a box
+    across several tiles' edges; (1) a box 1 mm across the top-left corner
+    ray of the tile (1, 10) at 5 m, and a copy 1.5 m to its left; (2) a box
+    and a cylinder behind the camera; (3) no live primitive; (4) a box that
+    holds the camera, and one ahead; (5) cylinders ahead, one straddling
+    tile edges."""
+    cam = CameraParams()
+    col0, row0 = 10 * raycast.TILE_W, raycast.TILE_H
+    d = raycast.ray_dirs_camera(cam)[row0, col0].numpy().astype(np.float64)
+    p = np.array([0.0, 0.0, 2.0]) + 5.0 * d
+    far = [50.0, 50.0, 1.0]
+    scenes = [
+        ([[4.0, 0.3, 1.8], far, far], [[0.5, 1.1, 0.9]] + [[0.5] * 3] * 2,
+         [0, 0, 0], [1, 0, 0]),
+        ([[p[0], p[1] + 0.5 - 1e-3, p[2] + 0.5 - 1e-3],
+          [p[0], p[1] + 2.0 - 1e-3, p[2] + 0.5 - 1e-3], far],
+         [[0.5] * 3] * 3, [0, 0, 0], [1, 1, 0]),
+        ([[-3.0, 0.0, 2.0], [-2.0, 1.0, 1.0], far],
+         [[0.5, 0.5, 1.0], [0.3, 0.3, 1.0], [0.5] * 3], [0, 1, 0], [1, 1, 0]),
+        ([[3.0, 0.0, 2.0], [4.0, 1.0, 1.0], far], [[0.5] * 3] * 3,
+         [0, 1, 0], [0, 0, 0]),
+        ([[0.1, 0.0, 2.1], [3.0, 0.5, 1.5], far],
+         [[1.0, 1.0, 1.0], [0.5, 0.5, 1.5], [0.5] * 3], [0, 0, 0], [1, 1, 0]),
+        ([[3.5, 0.0, 1.5], [5.0, -1.5, 2.0], [4.0, 1.2, 2.5]],
+         [[0.6, 0.6, 1.5], [0.4, 0.4, 2.0], [0.3, 0.3, 0.4]], [1, 1, 1],
+         [1, 1, 1]),
+    ]
+    c, h, sh, act = (np.array([sc[i] for sc in scenes]) for i in range(4))
+    worlds = BoxWorld(centers=_t(c.astype(np.float32)),
+                      half_sizes=_t(h.astype(np.float32)),
+                      active=_t(act.astype(bool)),
+                      shape=_t(sh.astype(np.int32)))
+    n = len(scenes)
+    pos = torch.tensor([[0.0, 0.0, 2.0]]).expand(n, 3).contiguous()
+    quat = torch.tensor([[1.0, 0.0, 0.0, 0.0]]).expand(n, 4).contiguous()
+    return worlds, pos, quat, (row0, col0)
+
+
+def test_render_kernel_edge_scenes(cuda_device):
+    """The edge scenes (_edge_scenes) against the plain version: the pixel
+    rule above over all; the grazed corner pixel to 1e-4 m, on the box; the
+    scenes behind the camera and with no live primitive as the ground
+    alone (bit for bit between their two kernels' frames)."""
+    worlds, pos, quat, (row0, col0) = _edge_scenes()
+    cam = CameraParams()
+    got, want = _render_pair(worlds, pos, quat, cam, 1, cuda_device)
+    diff = (got - want).abs()
+    assert float((diff > 1e-4).float().mean()) <= 1e-3
+    assert float(diff[1, row0, col0]) <= 1e-4
+    assert 4.0 < float(want[1, row0, col0]) < 5.1
+    assert torch.equal(got[2], got[3])
+    for i in (0, 4, 5):   # each scene sees its primitives, not only ground
+        assert float((got[i] < got[3] - 1e-3).float().mean()) > 0.01, i
+
+
+def test_render_kernel_many_primitives(cuda_device):
+    """The scene's primitives scattered over 40, 2000 (a table past a
+    block's default 48 KB) and raycast.MAX_PRIMS slots, the other slots
+    active 1 km away (behind the camera or far ahead, every hit there past
+    max_range): the frames equal the unpadded scene's bit for bit; one slot
+    past the cap raises before any launch."""
+    worlds, pos, quat, base = _render_many_setup(cuda_device)
+    cam = CameraParams()
+    for n, seed in ((40, 1), (2000, 2), (raycast.MAX_PRIMS, 3)):
+        got = raycast.render_depth_auto(_padded_world(worlds, n, seed), pos,
+                                        quat, cam)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), base.view(torch.int32)), n
+    before = dict(_cuda.launches)
+    with pytest.raises(ValueError, match="primitives exceed"):
+        raycast.render_depth_auto(_padded_world(worlds, raycast.MAX_PRIMS + 1,
+                                                4), pos, quat, cam)
+    assert _cuda.launches == before
+
+
+def _render_many_setup(dev):
+    """Four seeded scenes and poses on dev, and their frames."""
+    worlds = _to(_worlds(4, seed=9), dev)
+    pos, quat = _poses(4, seed=9)
+    pos, quat = pos.to(dev), quat.to(dev)
+    return worlds, pos, quat, raycast.render_depth_auto(worlds, pos, quat,
+                                                        CameraParams())
+
+
+def _padded_world(worlds, n, seed):
+    """worlds with their primitives scattered over n slots, in a seeded
+    order, the other slots active boxes 1 km behind or ahead."""
+    dev = worlds.centers.device
+    E, K = worlds.active.shape
+    perm = torch.from_numpy(
+        np.random.default_rng(seed).permutation(n)[:K]).to(dev)
+    side = torch.where(torch.arange(n, device=dev) % 2 == 0, -1000.0, 1000.0)
+    centers = torch.stack([side, torch.zeros_like(side),
+                           torch.full_like(side, 2.0)], -1).expand(
+        E, n, 3).clone()
+    half = torch.full((E, n, 3), 0.5, device=dev)
+    shape = torch.zeros((E, n), dtype=worlds.shape.dtype, device=dev)
+    active = torch.ones((E, n), dtype=torch.bool, device=dev)
+    centers[:, perm] = worlds.centers
+    half[:, perm] = worlds.half_sizes
+    shape[:, perm] = worlds.shape
+    active[:, perm] = worlds.active
+    return BoxWorld(centers=centers, half_sizes=half, active=active,
+                    shape=shape)
+
+
+def _in_a_fresh_process(call):
+    """Run tests/test_torch_kernels_cuda.<call>(torch.device("cuda")) in a
+    new Python process, whose kernels carry no function attribute that an
+    earlier launch of this session set."""
+    root = Path(__file__).resolve().parent.parent
+    code = ("import torch\nfrom tests import test_torch_kernels_cuda as t\n"
+            f"t.{call}(torch.device('cuda'))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, (r.stdout + r.stderr)[-4000:]
+
+
+def _render_smem_window(dev):
+    """192 primitives: eight poses' survivors' tables fill the default
+    48 KB of dynamic shared memory exactly, and the block's static pose
+    terms take it past; the frames equal the unpadded scene's bit for
+    bit."""
+    worlds, pos, quat, base = _render_many_setup(dev)
+    got = raycast.render_depth_auto(_padded_world(worlds, 192, 5), pos, quat,
+                                    CameraParams())
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), base.view(torch.int32))
+
+
+def test_render_kernel_past_48kb_with_static_shared_memory(cuda_device):
+    """B4 where its dynamic shared memory alone fits the default 48 KB and
+    the static share takes the block past it, as the first launch of the
+    kernel in its process."""
+    _in_a_fresh_process("_render_smem_window")
+
+
 # ---- B3 and B10: tracking
 
 
@@ -240,6 +416,145 @@ def test_track_kernels_from_substep_30_match_plain(cuda_device, grid):
     got = fn(_to(st, cuda_device), cmds.to(cuda_device), pp, mp, sp, i0=30)
     _assert_track_match(want, got)
     assert bool(want[1].any()) and float(want[3][:, 0].min()) > 0.0
+
+
+def _edge_track_state(n, grid, dev=None):
+    """n envs (n not a multiple of the kernel's warps a block), each in one
+    of five cases by n % 5: (0) flying to a far goal; (1) a goal 0.3 m
+    ahead, reached mid-segment; (2) taking off (moving, no metric); (3)
+    hovering and (4) done, frozen out of the mission phase with their
+    attitude kept; env 3 enters with reached set."""
+    pp, mp = PlannerParams(), MissionParams()
+    mapp = MapParams(**MAPP, edt_truncation=2.0, fusion="2d_dense")
+    kw = dict(sensing="depth", plan_map="grid") if grid else {}
+    rng = np.random.default_rng(n)
+    goal = np.where((np.arange(n) % 5 == 1)[:, None], [[0.3, 0.0]],
+                    [[20.0, 0.0]]).astype(np.float32)
+    st = env.reset(_worlds(n, seed=8), pp, mp, mapp,
+                   _cuda.make_generator(1, "cpu"), goal=_t(goal), **kw)
+    phase = torch.full((n,), missions.PHASE_MISSION, dtype=torch.int32)
+    phase[np.arange(n) % 5 == 2] = missions.PHASE_TAKEOFF
+    phase[np.arange(n) % 5 == 3] = missions.PHASE_HOVER
+    phase[np.arange(n) % 5 == 4] = missions.PHASE_DONE
+    reached = st.reached.clone()
+    reached[3] = True
+    _, quat = _poses(n, seed=n)
+    st = st.replace(phase=phase, reached=reached,
+                    drone=st.drone.replace(quat=quat, pos=st.drone.pos + _t(
+                        rng.normal(scale=0.05, size=(n, 3)).astype(
+                            np.float32))))
+    return st, pp, mp, SimParams()
+
+
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("n, spr, i0", [(7, 60, 0), (37, 10, 30),
+                                        (37, 10, 0), (13, 60, 0)])
+def test_track_kernels_edge_envs(cuda_device, grid, n, spr, i0):
+    """B3 / B10 on the edge cases of _edge_track_state, from substep i0,
+    over spr substeps, against the plain version at the tolerances above;
+    the frozen envs keep their attitude bit for bit."""
+    st, pp, mp, sp = _edge_track_state(n, grid)
+    cmds = _cmds(n, spr=spr)
+    fn = track.track_segment_grid if grid else track.track_segment
+    want = fn(st, cmds, pp, mp, sp, i0=i0)
+    got = fn(_to(st, cuda_device), cmds.to(cuda_device), pp, mp, sp, i0=i0)
+    _assert_track_match(want, got)
+    frozen = torch.from_numpy(np.isin(np.arange(n) % 5, (3, 4)))
+    assert torch.equal(got[0].quat.cpu()[frozen].view(torch.int32),
+                       st.drone.quat[frozen].view(torch.int32))
+    moving = ~frozen & ~st.reached
+    assert not torch.equal(got[0].quat.cpu()[moving], st.drone.quat[moving])
+    if spr == 60:
+        reached_now = want[1] & ~st.reached
+        assert bool(reached_now[np.arange(n) % 5 == 1].any())
+
+
+def _padded_scene(scene_, n, order_seed):
+    """scene_ with its primitives scattered over n slots, in a seeded
+    order, the other slots active 1 km away."""
+    E, K = scene_.active.shape
+    perm = np.random.default_rng(order_seed).permutation(n)[:K]
+    centers = torch.full((E, n, 2), 1000.0)
+    half = torch.full((E, n, 2), 0.5)
+    is_cyl = torch.zeros((E, n), dtype=torch.bool)
+    active = torch.ones((E, n), dtype=torch.bool)
+    centers[:, perm] = scene_.centers
+    half[:, perm] = scene_.half
+    is_cyl[:, perm] = scene_.is_cyl
+    active[:, perm] = scene_.active
+    return scene.SceneMap(centers, half, is_cyl, active)
+
+
+def test_track_kernel_many_primitives(cuda_device):
+    """B3 past the one-thread kernel's 32 primitives: the scene's
+    primitives scattered over 40, 100 and track.MAX_PRIMS slots (the rest
+    active but 1 km away) give the unpadded scene's outputs bit for bit and
+    agree with the plain version; one slot past the cap raises before any
+    launch. The goal is the paths' block at x = 4, so the collision metric
+    is live."""
+    pp, mp, sp = PlannerParams(), MissionParams(), SimParams()
+    st, box, cmds, base = _track_many_setup(cuda_device)
+    for k, seed in ((40, 1), (100, 2), (track.MAX_PRIMS, 3)):
+        st_k = st.replace(scene=_padded_scene(box, k, seed))
+        got = track.track_segment(_to(st_k, cuda_device),
+                                  cmds.to(cuda_device), pp, mp, sp)
+        for g, b in zip(got[1:], base[1:]):
+            assert torch.equal(g, b), k
+        for f in ("pos", "vel", "quat", "yaw"):
+            assert torch.equal(getattr(got[0], f), getattr(base[0], f)), k
+        if k == 100:
+            _assert_track_match(track.track_segment(st_k, cmds, pp, mp, sp),
+                                got)
+    before = dict(_cuda.launches)
+    st_k = st.replace(scene=_padded_scene(box, track.MAX_PRIMS + 1, 4))
+    with pytest.raises(ValueError, match="primitives exceed"):
+        track.track_segment(_to(st_k, cuda_device), cmds.to(cuda_device),
+                            pp, mp, sp)
+    assert _cuda.launches == before
+
+
+def _track_many_setup(dev):
+    """Six seeded envs with a box on their path (the collision metric is
+    live), their commands, and their segment tracked on dev."""
+    pp, mp, sp = PlannerParams(), MissionParams(), SimParams()
+    n = 6
+    st = env.reset(_worlds(n, seed=8), pp, mp, MapParams(**MAPP),
+                   _cuda.make_generator(1, "cpu"),
+                   goal=torch.tensor([[20.0, 0.0]]).expand(n, 2))
+    sc = st.scene
+    box = scene.SceneMap(
+        torch.cat([sc.centers, torch.tensor([[[1.0, 0.25]]]).expand(
+            n, 1, 2)], 1),
+        torch.cat([sc.half, torch.full((n, 1, 2), 0.3)], 1),
+        torch.cat([sc.is_cyl, torch.zeros((n, 1), dtype=torch.bool)], 1),
+        torch.cat([sc.active, torch.ones((n, 1), dtype=torch.bool)], 1))
+    st = st.replace(scene=box)
+    cmds = _cmds(n)
+    base = track.track_segment(_to(st, dev), cmds.to(dev), pp, mp, sp)
+    assert float(base[3][:, 2].max()) > 0.0
+    return st, box, cmds, base
+
+
+def _track_smem_window(dev):
+    """400 primitives: the warps' tables (38,400 B) fit the default 48 KB
+    of dynamic shared memory and their stages (15,360 B, static) take the
+    block past it; the outputs equal the unpadded scene's bit for bit."""
+    pp, mp, sp = PlannerParams(), MissionParams(), SimParams()
+    st, box, cmds, base = _track_many_setup(dev)
+    got = track.track_segment(
+        _to(st.replace(scene=_padded_scene(box, 400, 5)), dev), cmds.to(dev),
+        pp, mp, sp)
+    for g, b in zip(got[1:], base[1:]):
+        assert torch.equal(g, b)
+    for f in ("pos", "vel", "quat", "yaw"):
+        assert torch.equal(getattr(got[0], f), getattr(base[0], f)), f
+
+
+def test_track_kernel_past_48kb_with_static_shared_memory(cuda_device):
+    """B3 where its dynamic shared memory alone fits the default 48 KB and
+    the static share takes the block past it, as the first launch of the
+    kernel in its process."""
+    _in_a_fresh_process("_track_smem_window")
 
 
 # ---- B1 (+B2): L-BFGS on the scene SDF

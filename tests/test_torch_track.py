@@ -10,6 +10,9 @@ i0 (the chunks of the sensor-rate loop) is held the same way, and six
 chunks of 10 substeps give exactly the unchunked segment.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -184,3 +187,17 @@ def test_cpu_tensor_takes_plain_version():
     before = _cuda.launches["track_segment"]
     _run_both(_states(n=2), _cmds(2))
     assert _cuda.launches["track_segment"] == before
+
+
+def test_primitive_cap_matches_kernel():
+    """track.MAX_PRIMS counts csrc/track.cu's layout: its warps a block and
+    each warp's Stage (whose size the .cu pins with a static_assert)."""
+    src = (Path(track.__file__).parent.parent / "csrc" /
+           "track.cu").read_text()
+    warps = int(re.search(r"constexpr int kWarps = (\d+);", src).group(1))
+    stage = int(re.search(r"static_assert\(sizeof\(Stage\) == (\d+)",
+                          src).group(1))
+    assert (warps, stage) == (track._WARPS, track._STAGE_BYTES)
+    tables = track.MAX_PRIMS * 6 * 4 * warps
+    assert tables + stage * warps <= track._SMEM_LIMIT
+    assert tables + 6 * 4 * warps + stage * warps > track._SMEM_LIMIT
