@@ -26,11 +26,12 @@ Phases, one short line each:
    launch count, which must be above 0 for the path's kernels;
 6. each kernel of the vision path against its plain version on the card at
    B = 512 (examples/profile_vision.py's map, one fused frame per segment):
-   B8 v2 on rendered frames, B9 on the fused grids, B6 on windows of the
-   rebuilt maps (one iteration, 24 iterations against the cost basin with a
-   plain GPU-vs-CPU control, the retry launch timed as B1's, and the lazy
-   bank with rejected first lanes on the card against the CPU), B10 on the
-   sensed maps;
+   B8 v2 on rendered frames (with the share of tile-frames that the
+   cameras reach, by fusion.tile_reach), B9 on the fused grids, B6 on
+   windows of the rebuilt maps (one iteration, 24 iterations against the
+   cost basin with a plain GPU-vs-CPU control, the retry launch timed as
+   B1's, and the lazy bank with rejected first lanes on the card against
+   the CPU), B10 on the sensed maps;
 7. a small vision loop (B = 16, 2 segments) on the card against the CPU;
 8. the vision path: the same NEO loop with depth sensing, fusion, the
    truncated ESDF, grid planning and grid tracking at B = 512, goals at
@@ -40,8 +41,9 @@ Phases, one short line each:
    at B = 512 (examples/profile_vision.py's defaults: six fused frames per
    segment, fusion frames at row stride 4): B8 v3 on five frames per env
    rendered from poses along tracked segments onto grids fused for three
-   segments (differing cells printed, 0 expected), B4 at row stride 4 over
-   those 5 x 512 poses in one launch, B3 and B10 from substep 30;
+   segments (differing cells printed, 0 expected; the share of tile-frames
+   reached printed), B4 at row stride 4 over those 5 x 512 poses in one
+   launch, B3 and B10 from substep 30;
 10. a small sensor-rate loop (B = 16, 2 segments) on the card against the
    CPU, and its one-iteration twin elementwise;
 11. the sensor-rate path: profile_vision's configuration at B = 512
@@ -101,13 +103,16 @@ at phases 6, 12 and 13 its B9 fused (the vision grids), B9 exact and B9
 banded (the default map's ground-truth and fused grids), at phase 2 its B4
 (the scene frames, B = 1024, 160 x 120, and the same frames with every
 third primitive a cylinder) and B3 (spr = 60, B = 1024), at
-phase 6 its B10 (spr = 60 and a 10-substep chunk from i0 = 30, B = 512) and
-at phase 9 its B4 at row stride 4 (512 x 5 poses): it prints the elements
-(f and g, field cells, pixels, or the state, trace and tick elements) whose
-bits differ from this tree's and both kernels' medians in turns (other,
-this, this, other), both through their C entries, and for B4, B3 and B10
-the shape's bound (B4's from the survivors of its tiles' cull). Nothing is
-held against a tolerance there.
+phase 6 its B10 (spr = 60 and a 10-substep chunk from i0 = 30, B = 512)
+and B8 v2 (the replan frame, B = 512), at phase 9 its B4 at row stride 4
+(512 x 5 poses) and B8 v3 (the five strided frames, B = 512), at phase 2
+also its B5 (B = 1024) and at phase 14 its B8 v1 (the 4 m camera's
+114-cell windows, B = 512, both from copies of one grid): it prints the
+elements (f and g, field cells, pixels, grid cells, or the state, trace
+and tick elements) whose bits differ from this tree's and both kernels'
+medians in turns (other, this, this, other), both through their C
+entries, and for B3, B4, B5, B8 and B10 the shape's bound (B4's from the
+survivors of its tiles' cull). Nothing is held against a tolerance there.
 """
 
 from __future__ import annotations
@@ -307,8 +312,8 @@ def rel(a, b):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None, help="another checkout whose "
-                    "B3, B4, B10, B9 and objective kernels phases 2, 6, 9, "
-                    "12, 13 and 18 compare with this one's")
+                    "B3, B4, B5, B8, B10, B9 and objective kernels phases 2, "
+                    "6, 9, 12, 13, 14 and 18 compare with this one's")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -769,14 +774,17 @@ def main(argv=None) -> int:
             f"cells differ (bits); ms other {ms[0]:.4f} / this {ms[1]:.4f} "
             f"/ this {ms[2]:.4f} / other {ms[3]:.4f}")
 
-    def entry_against(name, label, entry, fill, want, work):
+    def entry_against(name, label, entry, fill, want, work, init=None):
         """--against: the other checkout's kernel and this tree's, both
         through their C entries, lib.<entry>(*fill(buffers)) writing into
-        float32 buffers shaped as want, this tree's wrapper's outputs on
-        the same inputs (which its C entry must give bit for bit): the
-        elements whose bits differ, then each kernel's time in turns
-        (``in_turns``) and the bound of work = (operations, bytes)."""
-        bufs = {lib: [torch.empty_like(t) for t in want]
+        float32 buffers shaped as want (copies of init for a kernel that
+        works in place), this tree's wrapper's outputs on the same inputs
+        (which its C entry must give bit for bit): the elements whose bits
+        differ, then each kernel's time in turns (``in_turns``; an in-place
+        kernel goes on from its own output) and the bound of work =
+        (operations, bytes)."""
+        bufs = {lib: [torch.empty_like(t) if init is None else init[i].clone()
+                      for i, t in enumerate(want)]
                 for lib in (other, _cuda.load())}
         # the arguments built once, so that the timer sees the launches
         argv = {lib: fill(bufs[lib]) for lib in bufs}
@@ -891,6 +899,11 @@ def main(argv=None) -> int:
            median_ms(torch, lambda: minco._givens_solve(A, b, 4, 2), 10),
            B * givens_flops(4), nbytes,
            library_ms=median_ms(torch, lambda: torch.linalg.solve(A, b), 10))
+    if other is not None:
+        entry_against("minco_banded_solve", f"B={B}", "neo_minco_banded_solve",
+                      lambda o: (_cuda.ptr(aug), _cuda.ptr(o[0]), B, 4,
+                                 _cuda.stream_ptr(dev)), [out],
+                      (B * givens_flops(4), nbytes))
 
     # ---- B4: depth frames of B drones, 160x120
     def poses(n):
@@ -1274,13 +1287,36 @@ def main(argv=None) -> int:
     tabs, sc8, hit = fusion._inputs(*frames_v[1], cam, mapp_v)
     lo_in = lo.clone()
     H, W = mapp_v.height, mapp_v.width
+    work_v2 = (BV * H * W * 25 + BV * cam.width * 3,
+               BV * (2 * H * W * 4 + cam.width * (4 + 8) + 8 * 4))
     report("fuse_depth_dense", (worst, n_off / max(n_upd, 1)), 1e-4,
            median_ms(torch, lambda: fusion.launch_fuse(
                lo_in, tabs, sc8, hit, out_k, cam, mapp_v), 20),
            median_ms(torch, lambda: fusion._fuse_plain(
                lo_in, tabs, sc8, hit, cam, mapp_v), 5),
-           BV * H * W * 25 + BV * cam.width * 3,
-           BV * (2 * H * W * 4 + cam.width * (4 + 8) + 8 * 4), on="rel")
+           *work_v2, on="rel")
+
+    def kept_share(name, label, tabs_, sc_, mp_):
+        """The share of tile-frames and of the warps' strip-frames that
+        the frames' cameras reach (fusion.tile_reach)."""
+        line = []
+        for th, tw in ((fusion.TILE_H, fusion.TILE_W),
+                       (fusion.WARP_H, fusion.WARP_W)):
+            keep = fusion.tile_reach(tabs_, sc_, cam, mp_, (th, tw))
+            line.append(f"{int(keep.sum())} of {keep.numel()} {th} x {tw} "
+                        f"({float(keep.float().mean()):.4f})")
+        say(f"{name} {label}: the cameras reach " + ", ".join(line)
+            + " tile-frames (fusion.tile_reach)")
+    kept_share("fuse_depth_dense", f"replan frame B={BV}", tabs, sc8, mapp_v)
+    if other is not None:
+        entry_against("fuse_depth_dense", f"replan frame B={BV}",
+                      "neo_fuse_depth_dense", lambda o: (
+                          _cuda.ptr(lo_in), _cuda.ptr(tabs), _cuda.ptr(sc8),
+                          _cuda.ptr(hit), _cuda.ptr(o[0]), BV, H, W,
+                          cam.width,
+                          _cuda.host_floats(fusion._params(cam, mapp_v)),
+                          _cuda.stream_ptr(dev)),
+                      [out_k], work_v2)
 
     # ---- B9: the truncated ESDF of the fused grids, and of random ones
     lo_rand = torch.from_numpy(rng.uniform(-2.0, 2.0, (64, H, W))).float(
@@ -1535,6 +1571,8 @@ def main(argv=None) -> int:
     if n_at_min == 0:
         raise AssertionError("the B8 v3 check never reached a clamp bound")
     w = cam.width
+    work_v3 = (BV * F5 * H * W * 25,
+               BV * (2 * H * W * 4 + F5 * (w * (4 + 4) + 8 * 4)))
     report("fuse_depth_multi", (float(d.max()), int(off.sum()) / max(n_upd,
                                                                      1)),
            1e-4,
@@ -1542,8 +1580,17 @@ def main(argv=None) -> int:
                lo_s, tabs5, sc5, hit5, out5, cam, mapp_s), 20),
            median_ms(torch, lambda: fusion._fuse_multi_plain(
                lo_s, tabs5, sc5, hit5, cam, mapp_s), 5),
-           BV * F5 * H * W * 25,
-           BV * (2 * H * W * 4 + F5 * (w * (4 + 4) + 8 * 4)), on="rel")
+           *work_v3, on="rel")
+    kept_share("fuse_depth_multi", f"{F5} frames at row stride {RS} B={BV}",
+               tabs5, sc5, mapp_s)
+    if other is not None:
+        entry_against("fuse_depth_multi",
+                      f"{F5} frames at row stride {RS} B={BV}",
+                      "neo_fuse_depth_multi", lambda o: (
+                          _cuda.ptr(lo_s), _cuda.ptr(tabs5), _cuda.ptr(sc5),
+                          _cuda.ptr(hit5), _cuda.ptr(o[0]), BV, F5, H, W, w,
+                          _cuda.host_floats(fusion._params(cam, mapp_s)),
+                          _cuda.stream_ptr(dev)), [out5], work_v3)
     # the yardstick inside the port: the same frames as F5 B8 v2 launches
     envs = torch.arange(BV, device=dev)[:, None] * (H * W)
     v2_in = [(tabs5[:, f].contiguous(), sc5[:, f].contiguous(),
@@ -1747,14 +1794,26 @@ def main(argv=None) -> int:
     label, mpw, camw, lo_w, tabs, sc_w, org, hit, worst, frac = win_rows[0]
     out_w = lo_w.clone()
     ch, cw = fusion._window_cells(camw, mpw)
+    work_v1 = (BV * ch * cw * 25 + BV * camw.width * 3,
+               BV * (2 * ch * cw * 4 + camw.width * (4 + 8) + 8 * 4 + 2 * 4))
     report("fuse_depth_window", (worst, frac), 1e-4,
            median_ms(torch, lambda: fusion.launch_fuse_window(
                out_w, tabs, sc_w, org, hit, camw, mpw), 20),
            median_ms(torch, lambda: fusion._fuse_window_plain(
                lo_w, tabs, sc_w, org, hit, camw, mpw), 5),
-           BV * ch * cw * 25 + BV * camw.width * 3,
-           BV * (2 * ch * cw * 4 + camw.width * (4 + 8) + 8 * 4 + 2 * 4),
-           on="rel")
+           *work_v1, on="rel")
+    if other is not None:
+        # in place: both libraries start from copies of lo_w
+        want_w = lo_w.clone()
+        fusion.launch_fuse_window(want_w, tabs, sc_w, org, hit, camw, mpw)
+        entry_against("fuse_depth_window", f"{label} B={BV}",
+                      "neo_fuse_depth_window", lambda o: (
+                          _cuda.ptr(o[0]), _cuda.ptr(tabs), _cuda.ptr(sc_w),
+                          _cuda.ptr(org), _cuda.ptr(hit), BV,
+                          mpw.height, mpw.width, ch, cw, camw.width,
+                          _cuda.host_floats(fusion._params(camw, mpw)),
+                          _cuda.stream_ptr(dev)), [want_w], work_v1,
+                      init=[lo_w])
     label, mpw, camw, lo_w, tabs, sc_w, org, hit, _, _ = win_rows[1]
     out_w2 = lo_w.clone()
     ms_96 = median_ms(torch, lambda: fusion.launch_fuse_window(

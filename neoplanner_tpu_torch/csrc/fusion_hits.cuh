@@ -1,5 +1,6 @@
-// The hit scatter of the single-frame dense fusions (B8 v1 and v2): the
-// port of neoplanner_tpu/mapping/occupancy_pallas.py `_scatter_hits` (:494).
+// The hit scatter of the windowed dense fusion B8 v1: the port of
+// neoplanner_tpu/mapping/occupancy_pallas.py `_scatter_hits` (:494). B8 v2
+// adds its hits in its own pass (csrc/fusion_tile.cuh), with the same bits.
 //
 // hit (n) holds the flat grid index of each image column's hit cell, -1 for
 // none. Each adds l_hit there with an atomic clip-add (min(old + l_hit,

@@ -33,9 +33,15 @@ Replaces: occupancy_pallas.py ``_make_kernel`` (:51) via ``_fuse_call``
 (:121), ``_make_kernel_v2`` (:176) via ``_fuse_call_v2`` (:263), and
 ``_make_kernel_v3`` (:299) via ``_fuse_call_v3`` (:419). Bound on the H100:
 device memory (the grid, or v1's windows, read and written once per call,
-~25 flops per cell and frame). Design, v1 and v2: one thread per cell, the
-carve table in shared memory; the hits are one atomic clip-add per column
-in a second launch. v3: see ``csrc/fusion_multi.cu``.
+~25 flops per cell and frame). Design, v1: one thread per cell, the carve
+table in shared memory; the hits are one atomic clip-add per column in a
+second launch. v2 and v3: one template, ``csrc/fusion_tile.cuh``, a block
+per env and eight TILE_H x TILE_W tiles of cells, each held in registers
+across the frames, carving only the WARP_H x WARP_W strips that a frame's
+camera reaches (:func:`tile_reach` is that test's plain form) and adding
+the tile's hits in the same pass; one launch each. Limits: F frames and
+an image width w whose staging fits a block's shared memory
+(:func:`tile_smem_bytes`; F <= 68 at w = 160), any H and W.
 """
 
 from __future__ import annotations
@@ -49,7 +55,12 @@ from neoplanner_tpu_torch.config import CameraParams, MapParams
 from neoplanner_tpu_torch.core import frames
 from neoplanner_tpu_torch.mapping import occupancy
 
-_MULTI_MAX_WIDTH = 2048   # B8 v3 holds at least one grid row per block
+TILE_W, TILE_H = 32, 32    # B8 v2/v3's tile of cells (csrc/fusion_tile.cuh)
+WARP_W, WARP_H = 16, 8     # a warp's strip of it, the reach test's unit
+REACH_REL = 1e-4           # the reach test's margin (kReachRel there)
+_FRAME_WORDS = 7           # a frame's record in shared memory (kFrameWords)
+_TILES_PER_BLOCK = 8       # a block's tiles (kTilesPerBlock)
+_SMEM_MAX = 232448         # a block's shared memory on the H100, 227 KB
 
 
 def _v2_map(mp: MapParams) -> bool:
@@ -82,6 +93,82 @@ def window_fits(cam: CameraParams, mp: MapParams) -> bool:
         return True
     c = 2 * _reach_cells(cam, mp) + 2
     return c <= 128 or (mp.height <= 128 and mp.width <= 128)
+
+
+def tile_smem_bytes(n_frames: int, w: int) -> int:
+    """Shared memory of a B8 v2/v3 block (fuse_tile_smem_bytes in
+    csrc/fusion_tile.cuh): the hit counters (16 bits a cell and frame), the
+    frames' carve tables, the block's hits, the frames' records and reach
+    flags, the tiles' hit counts."""
+    return 4 * (-(-n_frames // 2) * TILE_W * TILE_H + 2 * n_frames * w
+                + n_frames * (_FRAME_WORDS + _TILES_PER_BLOCK)
+                + _TILES_PER_BLOCK + 1)
+
+
+def _check_tile(n_frames: int, w: int) -> None:
+    if n_frames < 0 or w < 1 or tile_smem_bytes(n_frames, w) > _SMEM_MAX:
+        raise ValueError(
+            f"dense fusion stages every frame in a block's shared memory "
+            f"({_SMEM_MAX} bytes: up to 68 frames at an image width of 160); "
+            f"got {n_frames} frames of width {w}, "
+            f"{tile_smem_bytes(n_frames, w)} bytes")
+
+
+def tile_reach(tabs: torch.Tensor, sc: torch.Tensor, cam: CameraParams,
+               mp: MapParams, tile=(TILE_H, TILE_W)) -> torch.Tensor:
+    """The reach test of B8 v2/v3 in its plain form: (B, [F,] TY, TX), True
+    where frame (tabs (B, [F,] w), sc (B, [F,] 8), as :func:`_inputs` and
+    :func:`_multi_inputs` give them) may carve a cell of tile (ty, tx) of
+    the (H, W) grid, in tiles of tile = (rows, columns) cells (the kernel
+    tests strips of (WARP_H, WARP_W)). By csrc/fusion_tile.cuh's rule a
+    frame cannot where T = max(table) - res is not positive, the tile's
+    cell centres all lie farther than T from the camera, its four corners
+    all lie behind it, or all four lie outside one of the two half-planes
+    that bound the image columns; each with a margin of REACH_REL of the
+    coordinates' scale. The kernel computes this test itself; only the
+    tests and chip_smoke.py call this form."""
+    th, tw = tile
+    dev, f32 = tabs.device, torch.float32
+
+    def c(v):
+        return torch.tensor(v, dtype=f32, device=dev)
+    fx, res, half_w = (c(v) for v in _params(cam, mp)[:3])
+    rel, one, eps6 = c(REACH_REL), c(1.0), c(1e-6)
+    r_lo = torch.arange(0, mp.height, th, device=dev)
+    r_hi = torch.clamp(r_lo + th, max=mp.height) - 1
+    c_lo = torch.arange(0, mp.width, tw, device=dev)
+    c_hi = torch.clamp(c_lo + tw, max=mp.width) - 1
+    s = sc[..., None, None, :]
+    x0, y0, cx, cy, cp, sp = (s[..., i] for i in range(6))     # (..., 1, 1)
+    mx = torch.where(torch.isnan(tabs), -math.inf, tabs).amax(-1)
+    t_max = (mx - res)[..., None, None]
+    xa, xb = x0 + c_lo.to(f32) * res, x0 + c_hi.to(f32) * res   # (..., 1, TX)
+    ya = (y0 + r_lo.to(f32)[:, None] * res)                     # (..., TY, 1)
+    yb = (y0 + r_hi.to(f32)[:, None] * res)
+    L = (((one + x0.abs()) + (y0.abs() + cx.abs()))
+         + (cy.abs() + (c_hi[None, :] + r_hi[:, None]).to(f32) * res.abs()))
+    m = rel * L
+    zero = torch.zeros((), dtype=f32, device=dev)
+    ddx = torch.maximum(torch.maximum(torch.minimum(xa, xb) - cx,
+                                      cx - torch.maximum(xa, xb)), zero)
+    ddy = torch.maximum(torch.maximum(torch.minimum(ya, yb) - cy,
+                                      cy - torch.maximum(ya, yb)), zero)
+    r_far = (t_max + m) + rel * t_max
+    far = (ddx * ddx + ddy * ddy) > r_far * r_far
+    mc = m * (cp.abs() + sp.abs())
+    A = half_w + 0.5
+    Bq = (c(float(cam.width)) - 0.5) - half_w
+    mA, mB = mc * (fx.abs() + A.abs()), mc * (fx.abs() + Bq.abs())
+    behind = left = right = True
+    for i in range(4):
+        dx = (xb if i & 1 else xa) - cx
+        dy = (yb if i & 2 else ya) - cy
+        dcx = cp * dx + sp * dy
+        fy = fx * ((-sp) * dx + cp * dy)
+        behind = behind & (dcx <= eps6 - mc)
+        left = left & ((fy - A * dcx) > mA)
+        right = right & ((fy + Bq * dcx) < -mB)
+    return ~(~(t_max > 0.0) | far | behind | left | right)
 
 
 def _frame_inputs(depth, pos, quat, cam: CameraParams, mp: MapParams,
@@ -311,9 +398,7 @@ def launch_fuse_multi(logodds, tabs, sc, hit, out, cam: CameraParams,
                            (sc, "sc", (B, F, 8))):
         _cuda.require(t, name, shape, torch.float32, dev)
     _cuda.require(hit, "hit", (B, F, w), torch.int32, dev)
-    if W > _MULTI_MAX_WIDTH:
-        raise ValueError(f"multi-frame fusion takes maps up to "
-                         f"{_MULTI_MAX_WIDTH} cells wide (got {W})")
+    _check_tile(F, w)
     if B == 0:
         return
     lib = _cuda.load()
@@ -328,7 +413,8 @@ def launch_fuse_multi(logodds, tabs, sc, hit, out, cam: CameraParams,
 def launch_fuse(logodds, tabs, sc, hit, out, cam: CameraParams,
                 mp: MapParams) -> None:
     """Launch B8 v2 on prepared tensors: logodds (B, H, W), tabs (B, w),
-    sc (B, 8) float32, hit (B, w) int64 (:func:`_inputs`); writes out."""
+    sc (B, 8) float32, hit (B, w) int64 (:func:`_inputs`; an index outside
+    its own env's grid is ignored); writes out."""
     dev = logodds.device
     B, H, W = logodds.shape
     w = cam.width
@@ -337,6 +423,7 @@ def launch_fuse(logodds, tabs, sc, hit, out, cam: CameraParams,
                            (sc, "sc", (B, 8))):
         _cuda.require(t, name, shape, torch.float32, dev)
     _cuda.require(hit, "hit", (B, w), torch.int64, dev)
+    _check_tile(1, w)
     if B == 0:
         return
     lib = _cuda.load()

@@ -700,6 +700,167 @@ def test_multi_fusion_kernel_matches_plain(cuda_device):
         assert float(step.max()) <= 1e-5
 
 
+# ---- B8 v2 and v3 on their tiles (csrc/fusion_tile.cuh)
+
+
+def _tile_case(B, F, H, W, seed, dev, hit_repeats=3):
+    """Random fusion inputs on an (H, W) map of 0.1 m cells: cameras on
+    tile corners (the first cell centre of a 32 x 32 tile, half a cell
+    off it, or a tile edge's midpoint) at yaws along the axes and the yaws
+    that lay a field-of-view edge on one, random tables in [0, 8.2] m
+    (a fifth of the columns 0), a grid uniform in [-4, 5] (past both clamp
+    bounds) with -0.0 on every 7th row and 5th column, and hits: a third
+    of the columns on random cells of the whole grid (most of them in
+    tiles the wedge misses), hit_repeats columns on one cell, one in the
+    last cell of the grid. Returns (mp, cam, lo, tabs, sc, cell) on dev,
+    cell (B, F, w) the hit cell in the env's grid (-1: none)."""
+    rng = np.random.default_rng(seed)
+    mp = MapParams(width=W, height=H, origin_x=-4.0, origin_y=-9.6,
+                   fusion="2d_dense")
+    cam = CameraParams()
+    half_fov = np.arctan((cam.width / 2.0) / cam.fx)
+    yaws = np.array([0.0, np.pi / 2, -np.pi / 2, np.pi, half_fov,
+                     -half_fov, np.pi / 2 + half_fov, np.pi - half_fov])
+    n = B * F
+    ty = rng.integers(0, -(-H // fusion.TILE_H), n)
+    tx = rng.integers(0, -(-W // fusion.TILE_W), n)
+    off = rng.choice([0.0, -0.5, 15.5], size=(n, 2)) * mp.resolution
+    cx = mp.origin_x + (tx * fusion.TILE_W + 0.5) * mp.resolution + off[:, 0]
+    cy = mp.origin_y + (ty * fusion.TILE_H + 0.5) * mp.resolution + off[:, 1]
+    yaw = yaws[rng.integers(0, len(yaws), n)]
+    z = np.zeros(n)
+    sc = np.stack([np.full(n, mp.origin_x + 0.5 * mp.resolution),
+                   np.full(n, mp.origin_y + 0.5 * mp.resolution), cx, cy,
+                   np.cos(yaw), np.sin(yaw), z, z], 1).astype(np.float32)
+    tabs = rng.uniform(0.0, 8.2, (n, cam.width)).astype(np.float32)
+    tabs[rng.random((n, cam.width)) < 0.2] = 0.0
+    cell = np.where(rng.random((n, cam.width)) < 1 / 3,
+                    rng.integers(0, H * W, (n, cam.width)), -1)
+    cell[:, :hit_repeats] = rng.integers(0, H * W, (n, 1))
+    cell[:, -1] = H * W - 1
+    lo = rng.uniform(-4.0, 5.0, (B, H, W)).astype(np.float32)
+    lo[:, ::7, ::5] = -0.0
+    return (mp, cam, _t(lo).to(dev),
+            _t(tabs.reshape(B, F, -1)).to(dev),
+            _t(sc.reshape(B, F, 8)).to(dev),
+            _t(cell.reshape(B, F, -1)).to(dev))
+
+
+def _tile_kernels_off(mp, cam, lo, tabs, sc, cell):
+    """B8 v3 on all F frames and B8 v2 on the first, each against its plain
+    version on the card (the same f32 operations, each rounded once):
+    the cells whose values differ, and each kernel's launches."""
+    B, F = tabs.shape[:2]
+    H, W = lo.shape[1:]
+    before = dict(_cuda.launches)
+    out3 = torch.empty_like(lo)
+    fusion.launch_fuse_multi(lo, tabs, sc, cell.to(torch.int32).contiguous(),
+                             out3, cam, mp)
+    want3 = fusion._fuse_multi_plain(lo, tabs, sc, cell.to(torch.int32), cam,
+                                     mp)
+    envs = torch.arange(B, device=lo.device)[:, None] * (H * W)
+    hit2 = torch.where(cell[:, 0] >= 0, cell[:, 0] + envs, -1).contiguous()
+    t2, s2 = tabs[:, 0].contiguous(), sc[:, 0].contiguous()
+    out2 = torch.empty_like(lo)
+    fusion.launch_fuse(lo, t2, s2, hit2, out2, cam, mp)
+    want2 = fusion._fuse_plain(lo, t2, s2, hit2, cam, mp)
+    torch.cuda.synchronize()
+    runs = {k: _cuda.launches[k] - before[k]
+            for k in ("fuse_depth_multi", "fuse_depth_dense")}
+    return (int((out3 != want3).sum()), int((out2 != want2).sum()), runs,
+            want3, want2)
+
+
+@pytest.mark.parametrize("F, H, W", [(1, 200, 384), (5, 192, 256),
+                                     (68, 200, 128)])
+def test_fusion_tile_kernels_at_reach_edges(cuda_device, F, H, W):
+    """B8 v2 and v3 on cameras at tile corners and edges with axis yaws,
+    hits in tiles the wedge misses, a grid past the clamp bounds holding
+    -0.0; F = 1, 5 and 68 (the launcher's limit at w = 160) on maps whose
+    H is not a multiple of the tile height (200 rows: a last tile of 8).
+    0 cells may differ from the plain versions; v2 is one launch. The
+    carve must have touched cells, and the kept share of tile-frames must
+    be a minority."""
+    mp, cam, lo, tabs, sc, cell = _tile_case(4, F, H, W, 30 + F, cuda_device)
+    off3, off2, runs, want3, want2 = _tile_kernels_off(mp, cam, lo, tabs, sc,
+                                                       cell)
+    assert (off3, off2) == (0, 0)
+    assert runs == {"fuse_depth_multi": 1, "fuse_depth_dense": 1}
+    l_miss = occupancy._l(mp.prob_miss)
+    clipped = torch.clamp(lo, occupancy._l(mp.clamp_min),
+                          occupancy._l(mp.clamp_max))
+    assert int((want2 - clipped <= l_miss / 2).sum()) > 100
+    keep = fusion.tile_reach(tabs, sc, cam, mp)
+    assert 0.0 < float(keep.float().mean()) < 0.6
+
+
+def test_fusion_tile_kernels_count_hits_outside_the_wedge(cuda_device):
+    """Hits on cells of tiles that no frame reaches (the tables all res,
+    so nothing carves), seven on one cell of the last partial tile: both
+    kernels add every hit, v3 as k * l_hit in one clip, v2 as k clipped
+    adds."""
+    mp, cam, lo, tabs, sc, cell = _tile_case(3, 4, 200, 256, 7, cuda_device,
+                                             hit_repeats=7)
+    tabs = torch.full_like(tabs, mp.resolution)
+    assert not bool(fusion.tile_reach(tabs, sc, cam, mp).any())
+    cell[:, :, :7] = 199 * 256 + 250
+    off3, off2, _, want3, want2 = _tile_kernels_off(mp, cam, lo, tabs, sc,
+                                                    cell)
+    assert (off3, off2) == (0, 0)
+    k = int((cell[0, 0] == 199 * 256 + 250).sum())
+    v = min(max(float(lo[0, 199, 250]), occupancy._l(mp.clamp_min)),
+            occupancy._l(mp.clamp_max))
+    assert k >= 7 and float(want2[0, 199, 250]) == pytest.approx(
+        min(v + k * occupancy._l(mp.prob_hit), occupancy._l(mp.clamp_max)),
+        abs=1e-5)
+
+
+def test_fusion_tile_kernels_unaligned_and_ragged(cuda_device):
+    """Scalar loads and stores: a grid whose data starts 4 bytes past a
+    16-byte boundary, and a 37 x 70 map (W % 4 != 0, both tile dimensions
+    ragged); bit for bit against the aligned copy and the plain version."""
+    mp, cam, lo, tabs, sc, cell = _tile_case(2, 3, 96, 128, 9, cuda_device)
+    buf = torch.empty(lo.numel() + 1, device=cuda_device)
+    view = buf[1:].view(lo.shape)
+    view.copy_(lo)
+    cell32 = cell.to(torch.int32).contiguous()
+    outs = []
+    for grid in (lo, view):
+        o = torch.empty(lo.numel() + 1, device=cuda_device)[1:].view(lo.shape)
+        fusion.launch_fuse_multi(grid, tabs, sc, cell32, o, cam, mp)
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    mp, cam, lo, tabs, sc, cell = _tile_case(2, 3, 37, 70, 10, cuda_device)
+    off3, off2, runs, _, _ = _tile_kernels_off(mp, cam, lo, tabs, sc, cell)
+    assert (off3, off2) == (0, 0)
+
+
+def test_fusion_tile_kernels_refuse_past_limits(cuda_device):
+    """69 frames of width 160 (v3) and one frame of width 28,533 (v2) are
+    past a block's shared memory: the wrappers raise before any launch,
+    and the C entry refuses too (cudaErrorInvalidValue)."""
+    mp, cam, lo, tabs, sc, cell = _tile_case(2, 69, 64, 128, 12, cuda_device)
+    before = dict(_cuda.launches)
+    out = torch.empty_like(lo)
+    with pytest.raises(ValueError, match="frames"):
+        fusion.launch_fuse_multi(lo, tabs, sc, cell.to(torch.int32), out,
+                                 cam, mp)
+    wide = CameraParams(width=28533)
+    with pytest.raises(ValueError, match="frames"):
+        fusion.launch_fuse(lo, torch.zeros((2, 28533), device=cuda_device),
+                           sc[:, 0].contiguous(),
+                           torch.full((2, 28533), -1, dtype=torch.int64,
+                                      device=cuda_device), out, wide, mp)
+    assert _cuda.launches == before
+    err = _cuda.load().neo_fuse_depth_multi(
+        _cuda.ptr(lo), _cuda.ptr(tabs), _cuda.ptr(sc),
+        _cuda.ptr(cell.to(torch.int32).contiguous()), _cuda.ptr(out), 2, 69,
+        64, 128, 160, _cuda.host_floats(fusion._params(cam, mp)),
+        _cuda.stream_ptr(cuda_device))
+    assert err != 0
+
+
 # ---- B9 fused: log-odds -> truncated lite ESDF
 
 
