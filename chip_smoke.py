@@ -10,7 +10,9 @@ Phases, one short line each:
    version on the card, at that path's shapes (B = 1024 envs), inputs from a
    numpy seed, TF32 off: max abs/rel error beside the stated tolerance,
    kernel and plain times (CUDA events, medians), the bound from bytes and
-   operations;
+   operations; B5 also on the adjoint's transposed band, its warp's
+   dependent chain, and minco.solve_coeffs whole (the system's build, the
+   concatenation and B5) with its device operations under torch.profiler;
 3. B1 timed at its second launch of a segment, the lazy bank's retry
    lanes (B x retry_num problems, those of the envs whose first lane was
    accepted skipped), beside its first-lane launch; the lazy bank
@@ -58,7 +60,10 @@ Phases, one short line each:
 13. B9 banded on the same grids at edt_truncation = 2.0 (0 expected);
 14. B8 v1 on the default map with a 4 m camera (114-cell windows, every
    8th drone by the map's corner) and on a 120 x 96 map with the 6 m
-   camera, three frames each (differing cells and their quanta printed);
+   camera, three frames each (differing cells and their quanta printed),
+   the share of window tiles and strips the cameras reach
+   (fusion.window_reach), and insert_depth_2d_dense whole on the first
+   shape beside its grid copy and the kernel;
 15. small loops on the default map (B = 16, 2 segments) on the card
    against the CPU: gt+grid (sensing='gt', plan_map='grid', the exact map
    built at the reset) and depth+grid with the '2d_dense' fusion and the
@@ -106,13 +111,15 @@ third primitive a cylinder) and B3 (spr = 60, B = 1024), at
 phase 6 its B10 (spr = 60 and a 10-substep chunk from i0 = 30, B = 512)
 and B8 v2 (the replan frame, B = 512), at phase 9 its B4 at row stride 4
 (512 x 5 poses) and B8 v3 (the five strided frames, B = 512), at phase 2
-also its B5 (B = 1024) and at phase 14 its B8 v1 (the 4 m camera's
-114-cell windows, B = 512, both from copies of one grid): it prints the
-elements (f and g, field cells, pixels, grid cells, or the state, trace
-and tick elements) whose bits differ from this tree's and both kernels'
-medians in turns (other, this, this, other), both through their C
-entries, and for B3, B4, B5, B8 and B10 the shape's bound (B4's from the
-survivors of its tiles' cull). Nothing is held against a tolerance there.
+also its B5 (B = 1024 at both bands, B = 512) and at phase 14 its B8 v1
+(the 4 m camera's 114-cell windows, B = 512, both from copies of one
+grid): it prints the elements (f and g, field cells, pixels, grid cells,
+or the state, trace and tick elements) whose bits differ from this
+tree's and both kernels' medians in turns (other, this, this, other),
+both through their C entries, back to back from the host and as a CUDA
+graph of the launches (the device time), and for B3, B4, B5, B8 and B10
+the shape's bound (B4's from the survivors of its tiles' cull). Nothing
+is held against a tolerance there.
 """
 
 from __future__ import annotations
@@ -381,6 +388,7 @@ def main(argv=None) -> int:
     # other check reads the inputs it read before they were added
     rng_eval = np.random.default_rng(9)
     rng_retry = np.random.default_rng(10)   # the retry launches' seeds
+    rng_b5 = np.random.default_rng(11)      # B5's transposed right sides
     worlds = scenegen.generate_batch(_cuda.make_generator(0), B, wp)
     sc = scene.build(worlds, mapp)
     n_active = sc.active.sum(1).cpu().numpy()
@@ -690,13 +698,46 @@ def main(argv=None) -> int:
             f"valgrad {-(-P // W)} x {W} "
             f"({record[f'objective_{kind}_valgrad']['ms']:.3f} ms)")
 
+    def graph_ms(fn, n=20, reps=5):
+        """fn's device time in ms: n calls captured in one CUDA graph and
+        replayed between two events, the median of reps replays, over n.
+        No host work lies between the launches, so a kernel shorter than
+        its launch's host path is timed as the card runs it (the
+        back-to-back timer then reads the host's ~10-20 us a call)."""
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="relaxed"):
+            for _ in range(n):
+                fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            graph.replay()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e) / n)
+        return float(np.median(times))
+
     def in_turns(call):
         """call(lib)'s time in ms for the other checkout's library and this
         tree's, in turns (other, this, this, other): 20 launches back to
         back between two events (so that the host's enqueueing hides behind
-        the card's work), the median of 5 such runs."""
-        return [median_ms(torch, lambda: [call(lib) for _ in range(20)], 5)
-                / 20 for lib in (other, _cuda.load(), _cuda.load(), other)]
+        the card's work), the median of 5 such runs; then the same turns
+        timed as a CUDA graph of 20 launches (``graph_ms``). Returns the
+        eight times and their text."""
+        libs = (other, _cuda.load(), _cuda.load(), other)
+        ms = [median_ms(torch, lambda: [call(lib) for _ in range(20)], 5)
+              / 20 for lib in libs]
+        ms += [graph_ms(lambda: call(lib)) for lib in libs]
+        return ms, (f"ms other {ms[0]:.4f} / this {ms[1]:.4f} / this "
+                    f"{ms[2]:.4f} / other {ms[3]:.4f}; device (graph) ms "
+                    f"other {ms[4]:.4f} / this {ms[5]:.4f} / this "
+                    f"{ms[6]:.4f} / other {ms[7]:.4f}")
 
     def against(kind, label, map_args, calls):
         """--against: the other checkout's B2s / B7 and this tree's on each
@@ -744,10 +785,8 @@ def main(argv=None) -> int:
                                      f"disagree")
             line += " (bits)"
             for n in (P_, 2 * P_ // 3):
-                ms = in_turns(lambda lib: call(lib, n))
-                line += (f"; {n} rows ms other {ms[0]:.4f} / this "
-                         f"{ms[1]:.4f} / this {ms[2]:.4f} / other "
-                         f"{ms[3]:.4f}")
+                turns = in_turns(lambda lib: call(lib, n))[1]
+                line += f"; {n} rows {turns}"
             say(f"{name} {label} against {args.against}: {line}")
 
     def edt_against(name, label, grid, dtype, extra, params):
@@ -769,10 +808,8 @@ def main(argv=None) -> int:
         word = torch.int16 if dtype == torch.bfloat16 else torch.int32
         o, m = (t.view(word) for t in outs.values())
         n = int((o != m).sum())
-        ms = in_turns(call)
         say(f"{name} {label} against {args.against}: {n} of {o.numel()} "
-            f"cells differ (bits); ms other {ms[0]:.4f} / this {ms[1]:.4f} "
-            f"/ this {ms[2]:.4f} / other {ms[3]:.4f}")
+            f"cells differ (bits); {in_turns(call)[1]}")
 
     def entry_against(name, label, entry, fill, want, work, init=None):
         """--against: the other checkout's kernel and this tree's, both
@@ -786,11 +823,13 @@ def main(argv=None) -> int:
         bufs = {lib: [torch.empty_like(t) if init is None else init[i].clone()
                       for i, t in enumerate(want)]
                 for lib in (other, _cuda.load())}
-        # the arguments built once, so that the timer sees the launches
-        argv = {lib: fill(bufs[lib]) for lib in bufs}
+        # the arguments built once, so that the timer sees the launches; the
+        # last, the stream, read at each call (a graph captures on its own)
+        argv = {lib: fill(bufs[lib])[:-1] for lib in bufs}
 
         def call(lib):
-            _cuda.check(getattr(lib, entry)(*argv[lib]), name)
+            _cuda.check(getattr(lib, entry)(*argv[lib], _cuda.stream_ptr(dev)),
+                        name)
         for lib in bufs:
             call(lib)
         torch.cuda.synchronize()
@@ -800,12 +839,10 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: its C entry and its wrapper "
                                      f"disagree")
             n += int((a.view(torch.int32) != b.view(torch.int32)).sum())
-        ms = in_turns(call)
         b_ms, b_by = bound(*work)
         say(f"{name} {label} against {args.against}: {n} of "
-            f"{sum(a.numel() for a in o)} elements differ (bits); ms other "
-            f"{ms[0]:.4f} / this {ms[1]:.4f} / this {ms[2]:.4f} / other "
-            f"{ms[3]:.4f}; bound {b_ms:.4f} ms ({b_by})")
+            f"{sum(a.numel() for a in o)} elements differ (bits); "
+            f"{in_turns(call)[1]}; bound {b_ms:.4f} ms ({b_by})")
 
     def per_eval_check(name, pmap, x0_, head_, tail_, env_, fused,
                        accept_map, cost_pp):
@@ -899,11 +936,75 @@ def main(argv=None) -> int:
            median_ms(torch, lambda: minco._givens_solve(A, b, 4, 2), 10),
            B * givens_flops(4), nbytes,
            library_ms=median_ms(torch, lambda: torch.linalg.solve(A, b), 10))
+    # the adjoint's transposed band (A^T lam = x_bar, lower bandwidth 2)
+    x_bar = torch.from_numpy(rng_b5.normal(size=(B, 18, 2))).float().to(dev)
+    aug_t = torch.cat([A.transpose(1, 2), x_bar], dim=2).contiguous()
+    out_t = torch.empty((B, 18, 2), device=dev)
+    minco.launch_banded_solve(aug_t, out_t, 2)
+    err_t = err_line(out_t, minco._givens_solve(A.transpose(1, 2), x_bar, 2,
+                                                4))
+    say(f"minco_banded_solve A^T (lower bandwidth 2) B={B}: max abs "
+        f"{err_t[0]:.3g}, rel {err_t[1]:.3g}; tol 1e-3 "
+        f"{'ok' if err_t[0] <= 1e-3 else 'MISS'}")
+    if err_t[0] > 1e-3:
+        raise AssertionError("minco_banded_solve (A^T) disagrees with its "
+                             "plain version")
+    out_512 = torch.empty((BV, 18, 2), device=dev)
+    minco.launch_banded_solve(aug[:BV], out_512, 4)
+    # the warp's dependent chain, which the card cannot beat: each band's
+    # launch timed on the device (graph_ms), and what each rotation that
+    # lower bandwidth 4 adds to 2's costs, in ns and in cycles at the card's
+    # largest SM clock
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    t_b5 = {4: graph_ms(lambda: minco.launch_banded_solve(aug, out, 4)),
+            2: graph_ms(lambda: minco.launch_banded_solve(aug_t, out_t, 2))}
+    t_512 = graph_ms(lambda: minco.launch_banded_solve(aug[:BV], out_512, 4))
+    n_rot = {lbw: sum(min(c + lbw + 1, 18) - c - 1 for c in range(18))
+             for lbw in (4, 2)}
+    per_rot = (t_b5[4] - t_b5[2]) / (n_rot[4] - n_rot[2]) * 1e6
+    say(f"minco_banded_solve device (graph) ms: B={B} lower bandwidth 4 "
+        f"{t_b5[4]:.4f}, 2 {t_b5[2]:.4f}, B={BV} {t_512:.4f}; {n_rot[4]} and "
+        f"{n_rot[2]} rotations a warp, 18 column syncs and 18 divides; each "
+        f"of the {n_rot[4] - n_rot[2]} more at 4 costs {per_rot:.1f} ns "
+        f"({per_rot * clock / 1e3:.0f} cycles at {clock:.0f} MHz), so the "
+        f"chain of {n_rot[4]} takes {n_rot[4] * per_rot / 1e3:.2f} us")
     if other is not None:
-        entry_against("minco_banded_solve", f"B={B}", "neo_minco_banded_solve",
-                      lambda o: (_cuda.ptr(aug), _cuda.ptr(o[0]), B, 4,
-                                 _cuda.stream_ptr(dev)), [out],
-                      (B * givens_flops(4), nbytes))
+        for label, aug_, out_, n_, lbw in (
+                (f"B={B}", aug, out, B, 4),
+                (f"A^T (lower bandwidth 2) B={B}", aug_t, out_t, B, 2),
+                (f"B={BV}", aug[:BV], out_512, BV, 4)):
+            entry_against("minco_banded_solve", label,
+                          "neo_minco_banded_solve",
+                          lambda o, a_=aug_, n_=n_, l_=lbw: (
+                              _cuda.ptr(a_), _cuda.ptr(o[0]), n_, l_,
+                              _cuda.stream_ptr(dev)), [out_],
+                          (n_ * givens_flops(lbw), n_ * (18 * 20 + 18 * 2) * 4))
+    # the wrapper whole: minco.solve_coeffs builds A and b (~100 small
+    # PyTorch ops), concatenates them and launches B5
+    ms_coeffs = median_ms(torch, lambda: minco.solve_coeffs(head, tail, q0,
+                                                            ts0), 20)
+    ms_cat = median_ms(torch, lambda: torch.cat([A, b], dim=2).contiguous(),
+                       20)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    minco.solve_coeffs(head, tail, q0, ts0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        minco.solve_coeffs(head, tail, q0, ts0)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    n_b5 = sum(1 for e in ops if "minco_banded_solve" in e.name)
+    say(f"minco.solve_coeffs B={B}: {ms_coeffs:.3f} ms a call (CUDA events, "
+        f"median of 20; the build, the concatenation and B5); the "
+        f"concatenation alone {ms_cat:.3f} ms, B5 alone "
+        f"{record['minco_banded_solve']['ms']:.3f} ms; under torch.profiler "
+        f"{len(ops)} device operations a call ({n_b5} of them B5), busy "
+        f"{busy:.3f} ms")
 
     # ---- B4: depth frames of B drones, 160x120
     def poses(n):
@@ -1790,8 +1891,10 @@ def main(argv=None) -> int:
             raise AssertionError("fuse_depth_window disagrees with its plain "
                                  "version")
         win_rows.append((label, mpw, camw, lo_w, tabs, sc_w, org, hit,
-                         worst, n_off / max(n_upd, 1)))
-    label, mpw, camw, lo_w, tabs, sc_w, org, hit, worst, frac = win_rows[0]
+                         worst, n_off / max(n_upd, 1),
+                         (depth_w, pos_w, quat_w)))
+    (label, mpw, camw, lo_w, tabs, sc_w, org, hit, worst, frac,
+     frame_w) = win_rows[0]
     out_w = lo_w.clone()
     ch, cw = fusion._window_cells(camw, mpw)
     work_v1 = (BV * ch * cw * 25 + BV * camw.width * 3,
@@ -1802,6 +1905,41 @@ def main(argv=None) -> int:
            median_ms(torch, lambda: fusion._fuse_window_plain(
                lo_w, tabs, sc_w, org, hit, camw, mpw), 5),
            *work_v1, on="rel")
+    # where the kernel's time goes, on the device (graph_ms): the launch as
+    # timed, with nothing to carve and no hit (tables all res, hits -1), and
+    # on the first envs only, one block an SM
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tabs_0, hit_0 = torch.full_like(tabs, mpw.resolution), torch.full_like(
+        hit, -1)
+    out_1 = out_w[:n_sm].clone()
+    t_full = graph_ms(lambda: fusion.launch_fuse_window(
+        out_w, tabs, sc_w, org, hit, camw, mpw))
+    t_bare = graph_ms(lambda: fusion.launch_fuse_window(
+        out_w, tabs_0, sc_w, org, hit_0, camw, mpw))
+    t_one = graph_ms(lambda: fusion.launch_fuse_window(
+        out_1, tabs[:n_sm], sc_w[:n_sm], org[:n_sm], hit[:n_sm], camw, mpw))
+    say(f"fuse_depth_window {label} device (graph) ms: B={BV} {t_full:.4f}; "
+        f"nothing to carve and no hit {t_bare:.4f}; the first {n_sm} envs, "
+        f"a block an SM, {t_one:.4f}; bound {bound(*work_v1)[0]:.4f}")
+    line = []
+    for th, tw in ((fusion.TILE_H, fusion.TILE_W),
+                   (fusion.WARP_H, fusion.WARP_W)):
+        keep = fusion.window_reach(tabs, sc_w, camw, mpw, (th, tw))
+        line.append(f"{int(keep.sum())} of {keep.numel()} {th} x {tw} "
+                    f"({float(keep.float().mean()):.4f})")
+    say(f"fuse_depth_window {label} B={BV}: the cameras reach "
+        + ", ".join(line) + " window tiles and strips (fusion.window_reach)")
+    # the wrapper whole on this shape: the frame's columns, the windows,
+    # the copy of the grid that the kernel then updates in place
+    ms_whole = median_ms(torch, lambda: fusion.insert_depth_2d_dense(
+        lo_w, *frame_w, camw, mpw), 20)
+    ms_clone = median_ms(torch, lambda: lo_w.to(torch.float32).contiguous()
+                         .clone(), 20)
+    say(f"fuse_depth_window {label} B={BV}: insert_depth_2d_dense "
+        f"{ms_whole:.3f} ms a call (CUDA events, median of 20), of which the "
+        f"grid's copy alone {ms_clone:.3f} ms ({lo_w.numel() * 4 / 1e6:.1f} "
+        f"MB read and written) and the kernel "
+        f"{record['fuse_depth_window']['ms']:.3f} ms")
     if other is not None:
         # in place: both libraries start from copies of lo_w
         want_w = lo_w.clone()
@@ -1814,7 +1952,7 @@ def main(argv=None) -> int:
                           _cuda.host_floats(fusion._params(camw, mpw)),
                           _cuda.stream_ptr(dev)), [want_w], work_v1,
                       init=[lo_w])
-    label, mpw, camw, lo_w, tabs, sc_w, org, hit, _, _ = win_rows[1]
+    label, mpw, camw, lo_w, tabs, sc_w, org, hit, _, _, _ = win_rows[1]
     out_w2 = lo_w.clone()
     ms_96 = median_ms(torch, lambda: fusion.launch_fuse_window(
         out_w2, tabs, sc_w, org, hit, camw, mpw), 20)

@@ -1,19 +1,42 @@
 // The tiled dense polar depth fusion shared by B8 v2 (csrc/fusion.cu, one
-// frame per env) and B8 v3 (csrc/fusion_multi.cu, F frames per env): one
-// template, fuse_tile_kernel<kOneClip, Hit>.
+// frame per env), B8 v3 (csrc/fusion_multi.cu, F frames per env) and B8 v1
+// (csrc/fusion_window.cu, one frame per env on a window of the grid): one
+// template, fuse_tile_kernel<kOneClip, Hit, kWindow>.
 //
-// Both port neoplanner_tpu/mapping/occupancy_pallas.py: v2 `_make_kernel_v2`
-// (:176, launched at :263) with the hit scatter `_scatter_hits` (:494), v3
+// All three port neoplanner_tpu/mapping/occupancy_pallas.py: v2
+// `_make_kernel_v2` (:176, launched at :263) and v1 `_make_kernel` (:51,
+// launched at :121) with the hit scatter `_scatter_hits` (:494), v3
 // `_make_kernel_v3` (:299, launched at :419). Per env, frame after frame in
 // order, each cell of the (H, W) log-odds grid
 //   v3 (kOneClip):  cell = clip((cell + carve_f) + float(k_f) * l_hit)
-//   v2:             cell = clip(cell + carve), then k times
+//   v2 and v1:      cell = clip(cell + carve), then k times
 //                   cell = clip(cell + l_hit)
 // where carve_f is l_miss on the cells in front of the frame's per-column
 // carve range (r_cell < r_carve(u) - res at the cell's image column u) and
 // 0 elsewhere, and k_f the number of the frame's columns whose hit falls in
-// the cell. v2's k sequential clip-adds are the bits of the earlier
-// compare-and-swap scatter (csrc/fusion_hits.cuh, which B8 v1 still uses).
+// the cell. The k sequential clip-adds are the bits of the compare-and-swap
+// scatter that v2 and v1 launched before: every add is the same l_hit onto
+// a clipped value, so any order of them gives the same cell.
+//
+// v1 (kWindow) runs this on a (ch, cw) window of each env's grid, at org's
+// [r0, c0], in place: the tiles cover the window, not the grid, and a block
+// takes all of an env's window (kWindowTiles tiles at most), so the table
+// is staged once per env. Its cells take their positions from the window's
+// origin (sc[0], sc[1]: the world centre of the window's cell (0, 0)), and
+// its column index rounds half to even (rintf, jnp.round; v2 takes
+// floor(u + 0.5)): v1 is not v2 restricted to a window. Both roundings
+// keep a cell's column only for u in [-0.5, Wcam - 0.5], the closed strip
+// the reach test's half-planes bound. A window row starts at an arbitrary
+// column, so v1 loads and stores 4 bytes a lane; a lane's four cells run
+// down a column of its strip, two rows apart, so that each load and store
+// of a warp covers two runs of 16 cells of a window row (the row-wise
+// mapping of v2 and v3, eight rows of 16 bytes an instruction, left v1 no
+// faster than the kernel it replaces). Tiles inside the window skip the
+// masks. A hit outside the window (the reference never clips the hits to
+// it) is listed apart and gets its k clipped adds from the env's block
+// after the window's tiles; its cell is no window cell, so no other thread
+// touches it. In place is safe: each window cell is read once, before its
+// one write, by the thread that writes it.
 //
 // Design. A block takes one env and a group of kTilesPerBlock consecutive tiles
 // of kTileH x kTileW cells, in turn; each warp holds a kWarpH x kWarpW strip of
@@ -79,7 +102,10 @@
 // 68 frames at Wcam = 160; v2 Wcam <= 28,532), opted into past 48 KB; H * W
 // below 2^31 cells; n_envs x groups below 2^31 blocks. Any H and W (the
 // last tiles masked; scalar loads where W % 4 != 0 or a pointer is not
-// 16-byte aligned). A hit index outside its env's grid is ignored.
+// 16-byte aligned). A hit index outside its env's grid is ignored. v1: a
+// window of at most kWindowMax x kWindowMax cells inside the grid (org must
+// place it there, as fusion.py's _window_inputs does) and
+// fuse_window_smem_bytes(Wcam) <= 227 KB (Wcam <= 28,523).
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,6 +129,8 @@ constexpr int kHitLoads = 4;       // a thread's hit loads in flight
 constexpr int kFrameWords = 7;     // a frame's record in shared memory
 constexpr size_t kFuseSmemMax = 232448;  // a block's shared memory, 227 KB
 constexpr float kReachRel = 1e-4f;
+constexpr int kWindowMax = 128;    // v1's window side, cells
+constexpr int kWindowTiles = (kWindowMax / kTileH) * (kWindowMax / kTileW);
 static_assert(kCellsPerThread == 4, "one float4 a thread");
 static_assert(kWarpW * kWarpH == 32 * kCellsPerThread, "a lane a segment");
 static_assert(kWarpsX * (kTileH / kWarpH) == kFuseWarps, "a warp a strip");
@@ -126,6 +154,13 @@ inline size_t fuse_tile_smem_bytes(int F, int Wcam) {
               2 * static_cast<size_t>(F) * Wcam +
               static_cast<size_t>(F) * (kFrameWords + kTilesPerBlock) +
               kTilesPerBlock + 1);
+}
+
+// v1's block: as fuse_tile_smem_bytes(1, Wcam) with kWindowTiles tiles and
+// a second list length (the hits outside the window)
+inline size_t fuse_window_smem_bytes(int Wcam) {
+  return 4 * (static_cast<size_t>(kTileCells) + 2 * static_cast<size_t>(Wcam) +
+              (kFrameWords + kWindowTiles) + kWindowTiles + 2);
 }
 
 __device__ __forceinline__ float clip(float v, const FuseParams& P) {
@@ -215,52 +250,104 @@ __device__ __forceinline__ void store_cells(float* __restrict__ out,
   }
 }
 
-// One block per (env, group of kTilesPerBlock consecutive tiles in
-// row-major tile order): blockIdx.x = env * groups + group, tiles_x tiles a
-// grid row. lo/out (B, H, W); tabs (B, F, Wcam) carve range per image
-// column; sc (B, F, 8) [x of column 0's centre, y of row 0's centre, cam x,
-// cam y, cos(yaw), sin(yaw), 0, 0]; hit (B, F, Wcam): v3 the cell
-// row * W + col in the env's grid (int32), v2 env * H * W + row * W + col
-// (int64); negative for none.
-template <bool kOneClip, typename Hit>
+// v1: a lane's four cells down a column of the window, two rows apart, at
+// p + j * step (step = 2 rows); unmasked where the tile lies inside the
+// window (full), else the rows left from p's on and whether p's column is.
+__device__ __forceinline__ void load_column(const float* __restrict__ p,
+                                            int step, bool full,
+                                            int rows_left, bool col_in,
+                                            float (&v)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = full || (col_in && 2 * j < rows_left) ? __ldg(p + j * step) : 0.0f;
+}
+
+__device__ __forceinline__ void store_column(float* __restrict__ p, int step,
+                                             bool full, int rows_left,
+                                             bool col_in,
+                                             const float (&v)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (full || (col_in && 2 * j < rows_left)) p[j * step] = v[j];
+}
+
+// One block per (env, group of kTiles consecutive tiles in row-major tile
+// order): blockIdx.x = env * groups + group, tiles_x tiles a row of the
+// (H, W) region. v2, v3: the region is the grid, lo/out (B, H, W); v1
+// (kWindow): the (H, W) = (ch, cw) window at org (B, 2) int32 [r0, c0] of
+// each env's (grid_h, grid_w) grid, one group, lo = out (in place). tabs
+// (B, F, Wcam) carve range per image column; sc (B, F, 8) [x of the
+// region's column 0's centre, y of its row 0's centre, cam x, cam y,
+// cos(yaw), sin(yaw), 0, 0]; hit (B, F, Wcam): v3 the cell row * W + col in
+// the env's grid (int32), v2 and v1 env * (grid cells) + row * grid width +
+// col (int64); negative for none.
+template <bool kOneClip, typename Hit, bool kWindow>
 __global__ void __launch_bounds__(kFuseBlock, kFuseMinBlocks)
     fuse_tile_kernel(const float* __restrict__ lo,
                      const float* __restrict__ tabs,
                      const float* __restrict__ sc,
-                     const Hit* __restrict__ hit, float* __restrict__ out,
-                     int F, int H, int W, int Wcam, int tiles_x, int tiles,
-                     int groups, FuseParams P) {
+                     const Hit* __restrict__ hit, const int* __restrict__ org,
+                     float* __restrict__ out, int F, int H, int W, int Wcam,
+                     int tiles_x, int tiles, int groups, int grid_h,
+                     int grid_w, FuseParams P) {
+  constexpr int kTiles = kWindow ? kWindowTiles : kTilesPerBlock;
+  // a lane's four cells j: along a row of its strip (row 0, column j; one
+  // 16-byte load where the rows allow it), or, v1, down a column two rows
+  // apart (row 2 j, column 0), so that each scalar load of a warp reads two
+  // runs of 16 cells of a window row
+  constexpr int kDr = kWindow ? 2 : 0, kDc = kWindow ? 0 : 1;
   extern __shared__ __align__(16) uint32_t smem[];
   const int n_words = (F + 1) / 2;
   uint32_t* cnt = smem;                                  // [n_words][cells]
   float* tab = reinterpret_cast<float*>(cnt + n_words * kTileCells);
   int* list = reinterpret_cast<int*>(tab + F * Wcam);   // the group's hits
   FrameRec* rec = reinterpret_cast<FrameRec*>(list + F * Wcam);  // [F]
-  int* reach = reinterpret_cast<int*>(rec + F);  // [kTilesPerBlock][F] warps
-  int* tile_hits = reach + kTilesPerBlock * F;      // [kTilesPerBlock]
-  int* n_list = tile_hits + kTilesPerBlock;
+  int* reach = reinterpret_cast<int*>(rec + F);  // [kTiles][F] warps
+  int* tile_hits = reach + kTiles * F;           // [kTiles]
+  int* n_list = tile_hits + kTiles;
+  int* n_out = n_list + 1;  // v1: hits outside the window, from list's top
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int e = blockIdx.x / groups;
-  const int t0 = (blockIdx.x - e * groups) * kTilesPerBlock;
-  const int n_tiles = min(kTilesPerBlock, tiles - t0);
+  const int t0 = (blockIdx.x - e * groups) * kTiles;
+  const int n_tiles = min(kTiles, tiles - t0);
   // lane l of warp w: row l / 4 of the warp's 8 x 16 strip, columns
-  // 4 (l % 4) .. + 3
-  const int lr = (warp / kWarpsX) * kWarpH + lane / (kWarpW / 4);
-  const int lc = (warp % kWarpsX) * kWarpW + 4 * (lane % (kWarpW / 4));
-  const long long env0 = e * (static_cast<long long>(H) * W);
+  // 4 (l % 4) .. + 3; v1: rows l / 16 + 0, 2, 4, 6, column l % 16
+  const int lr = (warp / kWarpsX) * kWarpH +
+                 (kWindow ? lane / kWarpW : lane / (kWarpW / 4));
+  const int lc = (warp % kWarpsX) * kWarpW +
+                 (kWindow ? lane % kWarpW : 4 * (lane % (kWarpW / 4)));
+  // the env's grid, its row stride, and the region's cell (0, 0) in it
+  const int ld = kWindow ? grid_w : W;
+  const long long grid0 =
+      e * (kWindow ? static_cast<long long>(grid_h) * grid_w
+                   : static_cast<long long>(H) * W);
+  const int r0 = kWindow ? __ldg(org + 2 * e) : 0;
+  const int c0 = kWindow ? __ldg(org + 2 * e + 1) : 0;
+  const long long env0 = grid0 + static_cast<long long>(r0) * ld + c0;
   const bool vec = (W & 3) == 0 &&
                    ((reinterpret_cast<uintptr_t>(lo) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  // v1: this lane's first cell in the window, and two rows' step
+  const long long at0 = env0 + static_cast<long long>(lr) * ld + lc;
+  const int step = 2 * ld;
 
-  // the first tile's cells (their latency hides behind the staging below)
-  int r = (t0 / tiles_x) * kTileH + lr, c = (t0 % tiles_x) * kTileW + lc;
+  // the first tile's cells (their latency hides behind the staging below);
+  // tile (tr, tc) of the region (v1 counts on, rather than divides per tile)
+  int tr = t0 / tiles_x, tc = t0 - tr * tiles_x;
+  int r = tr * kTileH + lr, c = tc * kTileW + lc;
   float v[4];
-  load_cells(lo, env0 + static_cast<long long>(r) * W + c, r < H, W - c, vec,
-             v);
+  if (kWindow)
+    load_column(lo + at0 + tr * kTileH * ld + tc * kTileW, step,
+                (tr + 1) * kTileH <= H && (tc + 1) * kTileW <= W, H - r, c < W,
+                v);
+  else
+    load_cells(lo, env0 + static_cast<long long>(r) * ld + c, r < H, W - c,
+               vec, v);
   for (int i = tid; i < n_words * kTileCells; i += kFuseBlock) cnt[i] = 0u;
-  if (tid < kTilesPerBlock) tile_hits[tid] = 0;
+  if (tid < kTiles) tile_hits[tid] = 0;
   if (tid == 0) *n_list = 0;
+  if (kWindow && tid == 0) *n_out = 0;
   __syncthreads();  // every counter is zero before any hit lands
 
   // each frame's table, scalars and T, and whether it reaches each tile of
@@ -307,12 +394,15 @@ __global__ void __launch_bounds__(kFuseBlock, kFuseMinBlocks)
     if (lane == 0) rec[f] = FrameRec{x0, y0, cx, cy, cp, sp, t_max};
   }
   // the hits that fall in the group's tiles, listed with their frame, tile
-  // and cell, whatever the reach test says
-  const long long base = sizeof(Hit) == 8 ? env0 : 0;  // v2's are global
-  const long long h_lo = static_cast<long long>(t0 / tiles_x) * kTileH * W;
+  // and cell, whatever the reach test says; v1's outside its window listed
+  // apart, from the list's top
+  const long long base = sizeof(Hit) == 8 ? grid0 : 0;  // v2's are global
+  const long long h_lo =
+      kWindow ? 0 : static_cast<long long>(t0 / tiles_x) * kTileH * W;
   const long long h_hi =
-      static_cast<long long>(
-          min(((t0 + n_tiles - 1) / tiles_x + 1) * kTileH, H)) * W;
+      kWindow ? static_cast<long long>(grid_h) * grid_w
+              : static_cast<long long>(
+                    min(((t0 + n_tiles - 1) / tiles_x + 1) * kTileH, H)) * W;
   const Hit* he = hit + static_cast<long long>(e) * F * Wcam;
   for (int i0 = 0; i0 < F * Wcam; i0 += kFuseBlock * kHitLoads) {
     long long h[kHitLoads];
@@ -325,12 +415,19 @@ __global__ void __launch_bounds__(kFuseBlock, kFuseMinBlocks)
     for (int u = 0; u < kHitLoads; ++u) {
       if (h[u] < h_lo || h[u] >= h_hi) continue;
       const int hh = static_cast<int>(h[u]);
-      const int hr = hh / W, hc = hh - hr * W;
+      int hr = hh / ld, hc = hh - hr * ld;
+      if (kWindow) {
+        hr -= r0, hc -= c0;
+        if (hr < 0 || hr >= H || hc < 0 || hc >= W) {
+          list[F * Wcam - 1 - atomicAdd(n_out, 1)] = hh;
+          continue;
+        }
+      }
       const int g = (hr / kTileH) * tiles_x + hc / kTileW - t0;
       if (g < 0 || g >= n_tiles) continue;
       const int f = (i0 + kFuseBlock * u + tid) / Wcam;
       list[atomicAdd(n_list, 1)] =
-          (f * kTilesPerBlock + g) * kTileCells + (hr % kTileH) * kTileW +
+          (f * kTiles + g) * kTileCells + (hr % kTileH) * kTileW +
           hc % kTileW;
       atomicAdd(&tile_hits[g], 1);
     }
@@ -342,28 +439,36 @@ __global__ void __launch_bounds__(kFuseBlock, kFuseMinBlocks)
   for (int g = 0; g < n_tiles; ++g) {
     // the next tile's cells, loaded while this one runs
     const int tn = t0 + g + 1;
-    const int rn = (tn / tiles_x) * kTileH + lr;
-    const int cn = (tn % tiles_x) * kTileW + lc;
+    const int trn = kWindow ? (tc + 1 < tiles_x ? tr : tr + 1) : tn / tiles_x;
+    const int tcn = kWindow ? (tc + 1 < tiles_x ? tc + 1 : 0) : tn % tiles_x;
+    const int rn = trn * kTileH + lr, cn = tcn * kTileW + lc;
     float nv[4];
-    load_cells(lo, env0 + static_cast<long long>(rn) * W + cn,
-               g + 1 < n_tiles && rn < H, W - cn, vec, nv);
+    if (kWindow)
+      load_column(lo + at0 + trn * kTileH * ld + tcn * kTileW, step,
+                  g + 1 < n_tiles && (trn + 1) * kTileH <= H &&
+                      (tcn + 1) * kTileW <= W,
+                  g + 1 < n_tiles ? H - rn : 0, cn < W, nv);
+    else
+      load_cells(lo, env0 + static_cast<long long>(rn) * ld + cn,
+                 g + 1 < n_tiles && rn < H, W - cn, vec, nv);
     const bool hits = tile_hits[g] > 0;  // the same in every thread
     if (hits) {
       for (int i = tid; i < *n_list; i += kFuseBlock) {
         const int x = list[i];
         const int fg = x / kTileCells;
-        if (fg % kTilesPerBlock != g) continue;
-        const int f = fg / kTilesPerBlock;
+        if (fg % kTiles != g) continue;
+        const int f = fg / kTiles;
         atomicAdd(&cnt[(f >> 1) * kTileCells + x % kTileCells],
                   1u << (16 * (f & 1)));
       }
       __syncthreads();
     }
-    float xr[4];
+    float xr[4], yr[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      xr[j] = __fmul_rn(static_cast<float>(c + j), P.res);
-    const float yr = __fmul_rn(static_cast<float>(r), P.res);
+    for (int j = 0; j < 4; ++j) {
+      xr[j] = __fmul_rn(static_cast<float>(c + kDc * j), P.res);
+      yr[j] = __fmul_rn(static_cast<float>(r + kDr * j), P.res);
+    }
     // the frames in order
     for (int f = 0; f < F; ++f) {
       uint32_t k[4] = {0u, 0u, 0u, 0u};
@@ -371,15 +476,18 @@ __global__ void __launch_bounds__(kFuseBlock, kFuseMinBlocks)
         const uint32_t* cf = cnt + (f >> 1) * kTileCells + cell;
         const int sh = 16 * (f & 1);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) k[j] = (cf[j] >> sh) & 0xffffu;
+        for (int j = 0; j < 4; ++j)
+          k[j] = (cf[(kDr * kTileW + kDc) * j] >> sh) & 0xffffu;
       }
       bool carve[4] = {false, false, false, false};
       if ((reach[g * F + f] >> warp) & 1) {
         const FrameRec q = rec[f];
-        const float dy = __fsub_rn(__fadd_rn(q.y0, yr), q.cy);
+        const float dy0 = __fsub_rn(__fadd_rn(q.y0, yr[0]), q.cy);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float dx = __fsub_rn(__fadd_rn(q.x0, xr[j]), q.cx);
+          const float dy =
+              kDr == 0 ? dy0 : __fsub_rn(__fadd_rn(q.y0, yr[j]), q.cy);
           const float dcx = __fadd_rn(__fmul_rn(q.cp, dx),
                                       __fmul_rn(q.sp, dy));
           if (!(dcx > 1e-6f)) continue;
@@ -390,7 +498,7 @@ __global__ void __launch_bounds__(kFuseBlock, kFuseMinBlocks)
                                       __fmul_rn(q.cp, dy));
           const float u = __fsub_rn(
               P.half_w, __fdiv_rn(__fmul_rn(P.fx, dcy), fmaxf(dcx, 1e-6f)));
-          const float uf = floorf(__fadd_rn(u, 0.5f));
+          const float uf = kWindow ? rintf(u) : floorf(__fadd_rn(u, 0.5f));
           if (uf >= 0.0f && uf <= u_max)
             carve[j] = r_cell < __fsub_rn(
                                     tab[f * Wcam + static_cast<int>(uf)],
@@ -413,19 +521,44 @@ __global__ void __launch_bounds__(kFuseBlock, kFuseMinBlocks)
     if (hits) {  // each thread zeroes its own cells' counters
       for (int w = 0; w < n_words; ++w)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) cnt[w * kTileCells + cell + j] = 0u;
+        for (int j = 0; j < 4; ++j)
+          cnt[w * kTileCells + cell + (kDr * kTileW + kDc) * j] = 0u;
       __syncthreads();  // before the next tile's hits land
     }
-    store_cells(out, env0 + static_cast<long long>(r) * W + c, r < H, W - c,
-                vec, v);
+    if (kWindow)
+      store_column(out + at0 + tr * kTileH * ld + tc * kTileW, step,
+                   (tr + 1) * kTileH <= H && (tc + 1) * kTileW <= W, H - r,
+                   c < W, v);
+    else
+      store_cells(out, env0 + static_cast<long long>(r) * ld + c, r < H,
+                  W - c, vec, v);
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[j] = nv[j];
-    r = rn, c = cn;
+    tr = trn, tc = tcn, r = rn, c = cn;
+  }
+  if (kWindow) {
+    // the hits outside the window: the first of equal entries adds all k
+    const int n = *n_out;
+    const int* top = list + F * Wcam - 1;  // entry i at top[-i]
+    for (int i = tid; i < n; i += kFuseBlock) {
+      const int x = top[-i];
+      bool first = true;
+      int k = 0;
+      for (int j = 0; j < n; ++j) {
+        if (top[-j] != x) continue;
+        first = first && j >= i;
+        ++k;
+      }
+      if (!first) continue;
+      float y = out[grid0 + x];
+      for (int m = 0; m < k; ++m) y = clip(__fadd_rn(y, P.l_hit), P);
+      out[grid0 + x] = y;
+    }
   }
 }
 
-// Launch fuse_tile_kernel<kOneClip, Hit> on stream st; returns the launch's
-// error, cudaErrorInvalidValue past the limits.
+// Launch fuse_tile_kernel<kOneClip, Hit, false> (v2, v3) on stream st;
+// returns the launch's error, cudaErrorInvalidValue past the limits.
 template <bool kOneClip, typename Hit>
 cudaError_t launch_fuse_tile(const float* lo, const float* tabs,
                              const float* sc, const Hit* hit, float* out,
@@ -444,13 +577,43 @@ cudaError_t launch_fuse_tile(const float* lo, const float* tabs,
   // all of it dynamic: opted into past the default 48 KB
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fuse_tile_kernel<kOneClip, Hit>,
+        fuse_tile_kernel<kOneClip, Hit, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  fuse_tile_kernel<kOneClip, Hit>
+  fuse_tile_kernel<kOneClip, Hit, false>
       <<<static_cast<unsigned>(groups * n_envs), kFuseBlock, smem, st>>>(
-          lo, tabs, sc, hit, out, F, H, W, Wcam, tiles_x, tiles, groups, P);
+          lo, tabs, sc, hit, nullptr, out, F, H, W, Wcam, tiles_x, tiles,
+          groups, H, W, P);
+  return cudaGetLastError();
+}
+
+// Launch v1, fuse_tile_kernel<false, int64, true>, in place on grid (B, H,
+// W) over the (ch, cw) windows at org, one block per env, on stream st;
+// returns the launch's error, cudaErrorInvalidValue past the limits.
+inline cudaError_t launch_fuse_window(float* grid, const float* tabs,
+                                      const float* sc, const long long* hit,
+                                      const int* org, int n_envs, int H,
+                                      int W, int ch, int cw, int Wcam,
+                                      const FuseParams& P, cudaStream_t st) {
+  if (n_envs <= 0) return cudaSuccess;
+  const size_t smem = fuse_window_smem_bytes(Wcam);
+  if (ch < 1 || cw < 1 || ch > kWindowMax || cw > kWindowMax || ch > H ||
+      cw > W || Wcam < 1 || smem > kFuseSmemMax ||
+      static_cast<long long>(H) * W > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fuse_tile_kernel<false, long long, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int tiles_x = (cw + kTileW - 1) / kTileW;
+  const int tiles = tiles_x * ((ch + kTileH - 1) / kTileH);  // one group
+  fuse_tile_kernel<false, long long, true>
+      <<<static_cast<unsigned>(n_envs), kFuseBlock, smem, st>>>(
+          grid, tabs, sc, hit, org, grid, 1, ch, cw, Wcam, tiles_x, tiles, 1,
+          H, W, P);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 // Device helpers shared by the port's kernels: the MINCO basis constants, the
-// banded Givens-QR solve in two forms (one thread's: B5; one warp's: the
-// forward and transposed solves of the objective inside B1, B6, B2s and
-// B7), and the footprint SDF over a scene's primitives (the collision term
-// of B1 and B2s, and B3's closed-loop metric).
+// banded Givens-QR solve in one warp's form (B5's solve, and the forward
+// and transposed solves of the objective inside B1, B6, B2s and B7), and
+// the footprint SDF over a scene's primitives (the collision term of B1 and
+// B2s, and B3's closed-loop metric).
 //
 // Counterparts of neoplanner_tpu/plan/costs_pallas.py `_solve_entries` (:124)
 // and `_scene_min_dist` (:153), and of ops/minco_pallas.py `_make_kernel`.
@@ -22,8 +22,6 @@ __host__ __device__ constexpr float falling(int k, int j) {
   for (int s = 0; s < k; ++s) out *= static_cast<float>(j - s);
   return out;
 }
-
-__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 __device__ __forceinline__ float sgn(float v) {
   return static_cast<float>((v > 0.0f) - (v < 0.0f));
@@ -55,48 +53,6 @@ __device__ __forceinline__ float rot_c(float cs, float sn, float rc,
 __device__ __forceinline__ float rot_r(float cs, float sn, float rc,
                                        float rr) {
   return __fmaf_rn(cs, rr, __fmul_rn(-sn, rc));
-}
-
-// Solve the banded system held in rows[N][N + D] (A | b) in place by Givens
-// QR, then back-substitute into x[N][D]. A has LBW sub-diagonals; QR fills
-// the upper band to FILL. Only band entries are touched: the rotation at
-// column c changes columns [c, c + FILL] of rows c and r, and entries left
-// of the diagonal are never read again — the same values, for every entry
-// that is read, as the full-row rotation of minco._givens_solve.
-template <int N, int D, int LBW, int FILL>
-__device__ __forceinline__ void banded_givens_solve(float (&rows)[N][N + D],
-                                                    float (&x)[N][D]) {
-#pragma unroll
-  for (int c = 0; c < N; ++c) {
-#pragma unroll
-    for (int r = c + 1; r < cmin(c + LBW + 1, N); ++r) {
-      float cs, sn;
-      givens(rows[c][c], rows[r][c], &cs, &sn);
-#pragma unroll
-      for (int j = c; j < cmin(c + FILL + 1, N); ++j) {
-        const float rc = rows[c][j], rr = rows[r][j];
-        rows[c][j] = rot_c(cs, sn, rc, rr);
-        rows[r][j] = rot_r(cs, sn, rc, rr);
-      }
-#pragma unroll
-      for (int j = N; j < N + D; ++j) {
-        const float rc = rows[c][j], rr = rows[r][j];
-        rows[c][j] = rot_c(cs, sn, rc, rr);
-        rows[r][j] = rot_r(cs, sn, rc, rr);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = N - 1; c >= 0; --c) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      float acc = rows[c][N + d];
-#pragma unroll
-      for (int j = c + 1; j < cmin(c + FILL + 1, N); ++j)
-        acc = __fmaf_rn(-rows[c][j], x[j][d], acc);
-      x[c][d] = acc / rows[c][c];
-    }
-  }
 }
 
 // Column c's pass of warp_givens_solve; GUARD for the last LBW columns,
@@ -135,15 +91,20 @@ __device__ __forceinline__ void givens_column(float* sys, float* diag,
   if (lane == c) diag[c] = own_c;
 }
 
-// banded_givens_solve for one warp, on the system held by columns in the
-// warp's shared memory: column j (j < N: A's; N + d: right-hand side d) at
-// sys[j * (N + 1) + row], lane j owning column j (the odd stride puts a row
-// of 32 columns in 32 banks). Column c's pass loads A[c][c] and the LBW
+// Solve the banded system A x = b (A with LBW sub-diagonals, D right-hand
+// sides) by Givens QR, then back-substitute: for each column c in order,
+// rows c + 1 .. c + LBW rotated into row c, each rotation touching only the
+// band columns [c, c + FILL] (QR fills the upper band to FILL) and the
+// right-hand sides; entries left of the diagonal are never read again. For
+// every entry that is read these are the values of the full-row rotations
+// of ops/minco.py `_givens_solve`, in its order. One warp runs it, on the
+// system held by columns in the warp's shared memory: column j (j < N: A's;
+// N + d: right-hand side d) at sys[j * (N + 1) + row], lane j owning column
+// j (the odd stride puts a row of 32 columns in 32 banks). Column c's pass loads A[c][c] and the LBW
 // entries below it, and each lane its own column's rows c .. c + LBW, then
 // runs the column's rotations in registers — A[c][c] carried on every lane,
 // the owner's own update bit for bit — and each lane in the band
-// [c, c + FILL] or holding a right-hand side writes its rows back:
-// banded_givens_solve's rotations of the same entries, in the same order.
+// [c, c + FILL] or holding a right-hand side writes its rows back.
 // The owner of column c writes only the diagonal, to diag[c] (its entries
 // below the diagonal are never read again), so no lane writes column c while
 // another may still be loading it, and one sync per column suffices. Lanes

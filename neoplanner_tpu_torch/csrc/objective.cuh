@@ -14,7 +14,7 @@
 //
 // Replaces the device functions of neoplanner_tpu/plan/costs_pallas.py:
 // `_system_entries` (:90), `_solve_entries` (:124, here
-// neo::banded_givens_solve and neo::warp_givens_solve), `_scene_min_dist`
+// neo::warp_givens_solve), `_scene_min_dist`
 // (:153), `common_fwd` (:234), `fwd_nocoll` (:302), `valgrad_poly` (:330),
 // `scene_valgrad_values` (:483) and `scene_value` (:499).
 //
@@ -345,7 +345,7 @@ __device__ __forceinline__ void store_system(const float (&T)[kM], int lane,
 // B6, B2s, B7); with GRAD also its gradient g. head/tail: [pos; vel; acc]
 // x (x, y), row-major. Every lane passes the same x, head and tail and gets
 // back the same f and g. The two banded solves run by columns over the
-// lanes (warp_givens_solve: banded_givens_solve's rotations). The samples
+// lanes (warp_givens_solve). The samples
 // of each piece go over the lanes (lane l takes k = l, l + 32, ...), each
 // writing its SampleTerms to a record in scratch; then one lane per sum —
 // lanes 0-11 cbar[6m + j][d] (j = lane % 6, d = lane / 6), 12 Tbar[m], 13

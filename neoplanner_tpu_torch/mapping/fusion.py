@@ -17,7 +17,8 @@ sensor's reach; otherwise the call raises, as the reference's does):
 ``csrc/fusion_window.cu`` in place on a copy of the grid for CUDA tensors,
 :func:`_fuse_window_plain` for CPU tensors. v1 takes the cells' positions
 from the window's origin and rounds the column index half to even, so it
-is not v2 restricted to a window.
+is not v2 restricted to a window; its hits are added wherever they fall,
+inside the window or not.
 
 :func:`insert_depth_2d_dense_multi` is the port of
 ``insert_depth_2d_dense_multi`` (:512, ``_fuse_flat_multi`` :532): the
@@ -33,19 +34,22 @@ Replaces: occupancy_pallas.py ``_make_kernel`` (:51) via ``_fuse_call``
 (:121), ``_make_kernel_v2`` (:176) via ``_fuse_call_v2`` (:263), and
 ``_make_kernel_v3`` (:299) via ``_fuse_call_v3`` (:419). Bound on the H100:
 device memory (the grid, or v1's windows, read and written once per call,
-~25 flops per cell and frame). Design, v1: one thread per cell, the carve
-table in shared memory; the hits are one atomic clip-add per column in a
-second launch. v2 and v3: one template, ``csrc/fusion_tile.cuh``, a block
-per env and eight TILE_H x TILE_W tiles of cells, each held in registers
-across the frames, carving only the WARP_H x WARP_W strips that a frame's
-camera reaches (:func:`tile_reach` is that test's plain form) and adding
-the tile's hits in the same pass; one launch each. Limits: F frames and
-an image width w whose staging fits a block's shared memory
-(:func:`tile_smem_bytes`; F <= 68 at w = 160), any H and W.
+~25 flops per cell and frame). Design: one template for all three,
+``csrc/fusion_tile.cuh``, a block per env and eight TILE_H x TILE_W tiles
+of cells (v1: all of the env's window, up to WINDOW_MAX x WINDOW_MAX
+cells), each held in registers across the frames, carving only the
+WARP_H x WARP_W strips that a frame's camera reaches (:func:`tile_reach`
+is that test's plain form; on v1's window, :func:`window_reach`) and
+adding the tile's hits in the same pass; one launch each. Limits: F frames
+and an image width w whose staging fits a block's shared memory
+(:func:`tile_smem_bytes`; F <= 68 at w = 160; v1
+:func:`window_smem_bytes`, w <= 28,523), any H and W, v1's windows at most
+WINDOW_MAX cells a side.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -61,6 +65,8 @@ REACH_REL = 1e-4           # the reach test's margin (kReachRel there)
 _FRAME_WORDS = 7           # a frame's record in shared memory (kFrameWords)
 _TILES_PER_BLOCK = 8       # a block's tiles (kTilesPerBlock)
 _SMEM_MAX = 232448         # a block's shared memory on the H100, 227 KB
+WINDOW_MAX = 128           # B8 v1's window side in cells (kWindowMax)
+_WINDOW_TILES = (WINDOW_MAX // TILE_H) * (WINDOW_MAX // TILE_W)
 
 
 def _v2_map(mp: MapParams) -> bool:
@@ -103,6 +109,14 @@ def tile_smem_bytes(n_frames: int, w: int) -> int:
     return 4 * (-(-n_frames // 2) * TILE_W * TILE_H + 2 * n_frames * w
                 + n_frames * (_FRAME_WORDS + _TILES_PER_BLOCK)
                 + _TILES_PER_BLOCK + 1)
+
+
+def window_smem_bytes(w: int) -> int:
+    """Shared memory of a B8 v1 block (fuse_window_smem_bytes in
+    csrc/fusion_tile.cuh): one frame's as :func:`tile_smem_bytes` with the
+    window's tiles, and a second list length."""
+    return 4 * (TILE_W * TILE_H + 2 * w + (_FRAME_WORDS + _WINDOW_TILES)
+                + _WINDOW_TILES + 2)
 
 
 def _check_tile(n_frames: int, w: int) -> None:
@@ -169,6 +183,17 @@ def tile_reach(tabs: torch.Tensor, sc: torch.Tensor, cam: CameraParams,
         left = left & ((fy - A * dcx) > mA)
         right = right & ((fy + Bq * dcx) < -mB)
     return ~(~(t_max > 0.0) | far | behind | left | right)
+
+
+def window_reach(tabs: torch.Tensor, sc: torch.Tensor, cam: CameraParams,
+                 mp: MapParams, tile=(TILE_H, TILE_W)) -> torch.Tensor:
+    """B8 v1's reach test in its plain form: :func:`tile_reach` on the
+    (ch, cw) window's own tiles, (B, TY, TX), for sc (B, 8) as
+    :func:`_window_inputs` gives it (the window's cell (0, 0) at sc[:, 0:2]).
+    The kernel tests strips of (WARP_H, WARP_W) of each window."""
+    ch, cw = _window_cells(cam, mp)
+    return tile_reach(tabs, sc, cam, dataclasses.replace(mp, height=ch,
+                                                         width=cw), tile)
 
 
 def _frame_inputs(depth, pos, quat, cam: CameraParams, mp: MapParams,
@@ -435,11 +460,28 @@ def launch_fuse(logodds, tabs, sc, hit, out, cam: CameraParams,
     _cuda.launches["fuse_depth_dense"] += 1
 
 
+def _check_window(ch: int, cw: int, H: int, W: int, w: int) -> None:
+    if not (1 <= ch <= min(H, WINDOW_MAX) and 1 <= cw <= min(W, WINDOW_MAX)):
+        raise ValueError(
+            f"the windowed dense fusion takes windows of 1 to {WINDOW_MAX} "
+            f"cells a side inside the {H} x {W} grid; got {ch} x {cw}")
+    if w < 1 or window_smem_bytes(w) > _SMEM_MAX:
+        raise ValueError(
+            f"the windowed dense fusion stages the frame in a block's shared "
+            f"memory ({_SMEM_MAX} bytes: an image width up to 28,523); got "
+            f"width {w}, {window_smem_bytes(w) if w >= 1 else 0} bytes")
+    if H * W >= 2 ** 31:
+        raise ValueError(f"the windowed dense fusion indexes a grid of "
+                         f"fewer than 2^31 cells; got {H} x {W}")
+
+
 def launch_fuse_window(grid, tabs, sc, org, hit, cam: CameraParams,
                        mp: MapParams) -> None:
     """Launch B8 v1 on prepared tensors, in place on grid (B, H, W):
     tabs (B, w), sc (B, 8) float32 with the windows' origins, org (B, 2)
-    int32 (:func:`_window_inputs`), hit (B, w) int64 (:func:`_inputs`)."""
+    int32 (:func:`_window_inputs`; each window inside the grid), hit
+    (B, w) int64 (:func:`_inputs`; an index outside its own env's grid is
+    ignored). Raises past the kernel's limits (:func:`_check_window`)."""
     dev = grid.device
     B, H, W = grid.shape
     w = cam.width
@@ -449,6 +491,7 @@ def launch_fuse_window(grid, tabs, sc, org, hit, cam: CameraParams,
         _cuda.require(t, name, shape, torch.float32, dev)
     _cuda.require(org, "org", (B, 2), torch.int32, dev)
     _cuda.require(hit, "hit", (B, w), torch.int64, dev)
+    _check_window(ch, cw, H, W, w)
     if B == 0:
         return
     lib = _cuda.load()

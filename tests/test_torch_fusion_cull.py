@@ -17,6 +17,16 @@ carved set must lie inside the kept tiles exactly. They also tie the
 Python tile shape, margin and shared-memory rule to the kernel's
 constants, and check that the launchers refuse, before any launch, the
 frames a block cannot stage.
+
+B8 v1 runs the same template on each env's (ch, cw) window of the grid,
+its cells placed from the window's origin and its column index rounded
+half to even (fusion.window_reach is its reach test): the same checks hold
+it to every cell that v1's carve frees, on frames rendered on the default
+map with the 4 m camera (windows clamped at the map's corners among them)
+and on cameras whose image edge u = -0.5 or u = w - 0.5 runs through a row
+of cell centres. A hit can fall outside its window (a pitched camera sees
+past the reach the window is sized for): the last test shows one, which
+the kernel applies in the same launch.
 """
 
 import math
@@ -30,6 +40,7 @@ import torch
 from neoplanner_tpu_torch import _cuda
 from neoplanner_tpu_torch.config import CameraParams, MapParams, WorldParams
 from neoplanner_tpu_torch.core import frames
+from neoplanner_tpu_torch.core.types import BoxWorld
 from neoplanner_tpu_torch.mapping import fusion, occupancy
 from neoplanner_tpu_torch.sense import raycast
 from neoplanner_tpu_torch.world import scenegen
@@ -296,3 +307,201 @@ def test_plain_fusion_unchanged_outside_reached_tiles():
     want = torch.clamp(lo, l_min, l_max)
     assert torch.equal(out[skip], want[skip])
     assert bool((out[~skip] != want[~skip]).any())
+
+
+# ---- B8 v1: the same reach test on each env's window of the default map
+
+MP1 = MapParams(fusion="2d_dense")           # the reference's default map
+CAM4 = CameraParams(max_range=4.0)           # whose window fits it
+
+
+def _window_carved_outside(tabs, sc_w, mp=MP1, cam=CAM4):
+    """As _carved_outside, on the windows: (cells that v1's carve frees in a
+    window tile or strip that fusion.window_reach drops, the kept share of
+    the windows' strips, the carved cells)."""
+    ch, cw = fusion._window_cells(cam, mp)
+    carve = fusion._carve_update((tabs.shape[0], ch, cw), tabs, sc_w, cam,
+                                 mp, half_even=True) != 0
+    lost = 0
+    for th, tw in ((fusion.TILE_H, fusion.TILE_W),
+                   (fusion.WARP_H, fusion.WARP_W)):
+        keep = fusion.window_reach(tabs, sc_w, cam, mp, (th, tw))
+        lost += int((carve & ~keep[:, torch.arange(ch) // th]
+                     [:, :, torch.arange(cw) // tw]).sum())
+    keep = fusion.window_reach(tabs, sc_w, cam, mp,
+                               (fusion.WARP_H, fusion.WARP_W))
+    return lost, float(keep.float().mean()), int(carve.sum())
+
+
+def test_window_shape_matches_kernel():
+    """WINDOW_MAX and the window's tiles a block are csrc/fusion_tile.cuh's
+    kWindowMax and kWindowTiles, window_smem_bytes is its
+    fuse_window_smem_bytes, and the v1 instance rounds the column index
+    half to even (rintf) where v2 and v3 take floor(u + 0.5)."""
+    src = (Path(fusion.__file__).parent.parent / "csrc" /
+           "fusion_tile.cuh").read_text()
+    assert int(re.search(r"constexpr int kWindowMax = (\d+);", src)
+               .group(1)) == fusion.WINDOW_MAX
+    assert ("kWindowTiles = (kWindowMax / kTileH) * (kWindowMax / kTileW)"
+            in src)
+    assert fusion._WINDOW_TILES == (fusion.WINDOW_MAX // fusion.TILE_H) * (
+        fusion.WINDOW_MAX // fusion.TILE_W)
+    body = re.search(r"fuse_window_smem_bytes\(int Wcam\) \{(.*?)\}", src,
+                     re.S).group(1)
+    assert "static_cast<size_t>(kTileCells) + 2 * static_cast<size_t>(Wcam)" \
+        in body
+    assert "(kFrameWords + kWindowTiles) + kWindowTiles + 2" in body
+    assert "kWindow ? rintf(u) : floorf(__fadd_rn(u, 0.5f))" in src
+
+
+def test_window_limits_and_refusals():
+    """An image width of 28,523 fits a v1 block's 227 KB, 28,524 does not;
+    the launcher raises before any launch (CPU tensors never reach the
+    kernel library), and the check refuses windows past WINDOW_MAX cells a
+    side or larger than the grid."""
+    assert fusion.window_smem_bytes(28523) <= fusion._SMEM_MAX
+    assert fusion.window_smem_bytes(28524) > fusion._SMEM_MAX
+    B, H, W = 2, 96, 120
+    mp = MapParams(width=W, height=H, fusion="2d_dense")
+    cam = CameraParams(width=28524)
+    with pytest.raises(ValueError, match="image width"):
+        fusion.launch_fuse_window(torch.zeros((B, H, W)),
+                                  torch.zeros((B, 28524)), torch.zeros((B, 8)),
+                                  torch.zeros((B, 2), dtype=torch.int32),
+                                  torch.full((B, 28524), -1,
+                                             dtype=torch.int64), cam, mp)
+    for ch, cw, h, w in ((129, 64, 256, 448), (64, 129, 256, 448),
+                         (97, 64, 96, 120), (0, 64, 96, 120)):
+        with pytest.raises(ValueError, match="windows"):
+            fusion._check_window(ch, cw, h, w, 160)
+    fusion._check_window(128, 128, 256, 448, 160)
+
+
+def _rendered_windows(n, seed, corner_every=3):
+    """Frames of the 4 m camera rendered from n seeded worlds on the default
+    map, every corner_every-th camera by one of the map's corners (or past
+    it), so that its window clamps there: (tabs, sc_w, org, hit) as
+    insert_depth_2d_dense hands them to B8 v1."""
+    worlds = scenegen.generate_batch(_cuda.make_generator(seed, "cpu"), n,
+                                     WorldParams(num_boxes=10))
+    rng = np.random.default_rng(seed)
+    pos = np.stack([rng.uniform(-1.0, 12.0, n), rng.uniform(-4.0, 4.0, n),
+                    rng.uniform(1.5, 2.5, n)], -1)
+    x_lo, y_lo = MP1.origin_x, MP1.origin_y
+    x_hi = x_lo + MP1.width * MP1.resolution
+    y_hi = y_lo + MP1.height * MP1.resolution
+    corners = [(x_lo + 1.0, y_lo + 1.3), (x_hi - 0.2, y_hi + 0.5),
+               (x_lo - 0.5, y_hi - 2.0), (x_hi + 1.0, y_lo - 1.0)]
+    for k, i in enumerate(range(0, n, corner_every)):
+        pos[i, :2] = corners[k % 4]
+    pos = torch.from_numpy(pos.astype(np.float32))
+    acc = torch.from_numpy(rng.normal(scale=2.0, size=(n, 3)).astype(
+        np.float32))
+    yaw = torch.from_numpy(rng.uniform(-math.pi, math.pi, n).astype(
+        np.float32))
+    quat = frames.quat_from_accel_yaw(acc, yaw)
+    depth = raycast.render_depth(worlds, pos, quat, CAM4)
+    tabs, sc, hit = fusion._inputs(depth, pos, quat, CAM4, MP1)
+    sc_w, org = fusion._window_inputs(sc, pos, CAM4, MP1)
+    return tabs, sc_w, org, hit
+
+
+@pytest.mark.parametrize("seed", [2, 5])
+def test_every_window_carve_lies_in_a_reached_strip(seed):
+    """Rendered frames on the default map, windows clamped at its corners
+    among them: every cell that v1's carve frees lies in a kept tile and
+    strip of its window, and the test drops most strips."""
+    tabs, sc_w, org, _ = _rendered_windows(9, seed)
+    ch, cw = fusion._window_cells(CAM4, MP1)
+    assert (ch, cw) == (114, 114)
+    assert bool((org[:, 0] == 0).any()) and bool((org[:, 0] == MP1.height
+                                                  - ch).any())
+    assert bool((org[:, 1] == 0).any()) and bool((org[:, 1] == MP1.width
+                                                  - cw).any())
+    lost, kept, n_carved = _window_carved_outside(tabs, sc_w)
+    assert lost == 0
+    assert n_carved > 1000
+    assert kept < 0.5
+
+
+def test_window_cameras_on_the_image_edges():
+    """Yaws of +-hfov / 2 lay an edge of the image, u = -0.5 or u = w - 0.5
+    (a column kept by half-to-even rounding at -0.5, not at w - 0.5 with
+    w even), along the +x axis; with the camera on the row of a window's
+    cell centres those cells sit on the edge. At yaws a quarter turn on,
+    the edge runs along a column. Full tables of 4 m and random ones: every
+    carved cell's strip is kept, and cells of the camera's row carve."""
+    half = CAM4.hfov / 2.0
+    yaws = [s * half + k * math.pi / 2 for s in (1, -1) for k in range(4)]
+    pts = [(10.0, 0.0), (-7.0, -11.5), (35.9, 12.0), (3.05, 0.0)]
+    cx = [p[0] for p in pts for _ in yaws]
+    cy = [p[1] for p in pts for _ in yaws]
+    yw = [a for _ in pts for a in yaws]
+    sc = _sc(cx, cy, yw, MP1)
+    pos = torch.stack([sc[:, 2], sc[:, 3], torch.full_like(sc[:, 2], 2.0)], 1)
+    sc_w, _ = fusion._window_inputs(sc, pos, CAM4, MP1)
+    # each camera onto its window's cell-centre row (or column) 57 exactly
+    k57 = torch.tensor(57.0) * torch.tensor(MP1.resolution,
+                                            dtype=torch.float32)
+    along_x = torch.tensor([abs(math.sin(a - s * half)) < 0.5
+                            for a, s in zip(yw, [1, 1, 1, 1, -1, -1, -1, -1]
+                                            * len(pts))])
+    sc_w[along_x, 3] = sc_w[along_x, 1] + k57
+    sc_w[~along_x, 2] = sc_w[~along_x, 0] + k57
+    rng = np.random.default_rng(4)
+    for tabs in (torch.full((sc_w.shape[0], CAM4.width), 4.0),
+                 torch.from_numpy(rng.uniform(0.0, 6.0, (sc_w.shape[0],
+                                                         CAM4.width))
+                                  .astype(np.float32))):
+        lost, kept, n_carved = _window_carved_outside(tabs, sc_w)
+        assert lost == 0 and n_carved > 0
+        assert kept < 0.6
+    ch, cw = fusion._window_cells(CAM4, MP1)
+    carve = fusion._carve_update((sc_w.shape[0], ch, cw), tabs, sc_w, CAM4,
+                                 MP1, half_even=True) != 0
+    assert bool(carve[along_x][:, 57].any())
+    assert bool(carve[~along_x][:, :, 57].any())
+
+
+def _room(d=5.9, tilt=0.6, yaw=math.pi / 4):
+    """One drone in the middle of the default map, pitched forward by tilt
+    at yaw, inside a room of four walls d metres away: the level top rows
+    of its image see the walls past the reach v1's window is sized for.
+    Returns (world, pos, quat)."""
+    yaw_t = torch.tensor([yaw], dtype=torch.float32)
+    a = 9.81 * math.tan(tilt)
+    acc = torch.stack([a * torch.cos(yaw_t), a * torch.sin(yaw_t),
+                       torch.zeros(1)], -1)
+    quat = frames.quat_from_accel_yaw(acc, yaw_t)
+    pos = torch.tensor([[10.0, 0.0, 2.5]])
+    c = torch.tensor([[[10.0 + d + 1.0, 0.0, 5.0], [10.0 - d - 1.0, 0.0, 5.0],
+                       [10.0, d + 1.0, 5.0], [10.0, -d - 1.0, 5.0]]])
+    h = torch.tensor([[[1.0, 20.0, 5.0], [1.0, 20.0, 5.0],
+                       [20.0, 1.0, 5.0], [20.0, 1.0, 5.0]]])
+    world = BoxWorld(centers=c, half_sizes=h,
+                     active=torch.ones((1, 4), dtype=torch.bool),
+                     shape=torch.zeros((1, 4), dtype=torch.int32))
+    return world, pos, quat
+
+
+def test_hits_outside_the_window_occur():
+    """Hits can fall outside v1's window: the pitched drone in the room
+    sees the walls 5.9 m away, past the window's 5.7 m half-width. The
+    plain version adds them all the same (as the reference's
+    _scatter_hits, which never clips hits to the window), so the kernel
+    must too, in its one launch."""
+    world, pos, quat = _room()
+    depth = raycast.render_depth(world, pos, quat, CAM4)
+    tabs, sc, hit = fusion._inputs(depth, pos, quat, CAM4, MP1)
+    sc_w, org = fusion._window_inputs(sc, pos, CAM4, MP1)
+    ch, cw = fusion._window_cells(CAM4, MP1)
+    r, c = hit // MP1.width, hit % MP1.width
+    inside = ((r >= org[:, :1]) & (r < org[:, :1] + ch)
+              & (c >= org[:, 1:]) & (c < org[:, 1:] + cw))
+    outside = (hit >= 0) & ~inside
+    assert int(outside.sum()) >= 5
+    lo = torch.zeros((1, MP1.height, MP1.width))
+    out = fusion._fuse_window_plain(lo, tabs, sc_w, org, hit, CAM4, MP1)
+    l_hit = occupancy._l(MP1.prob_hit)
+    for h in hit[outside].tolist():
+        assert float(out.reshape(-1)[h]) >= l_hit - 1e-6

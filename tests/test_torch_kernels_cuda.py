@@ -155,6 +155,62 @@ def test_minco_kernel_matches_plain(cuda_device, transposed):
                                atol=1e-4)
 
 
+def _band_systems(n, lower_bw, seed):
+    """n random 18 x 18 systems with lower_bw sub-diagonals and 6 - lower_bw
+    super-diagonals (the bands of A and A^T), diagonally dominant, two
+    right-hand sides; band entries below the pivot exactly 0 in columns 0
+    and 9 and in a quarter of the others' (A (n, 18, 18), b (n, 18, 2))."""
+    rng = np.random.default_rng(seed)
+    i, j = np.indices((18, 18))
+    band = (i - j <= lower_bw) & (j - i <= 6 - lower_bw)
+    A = rng.normal(size=(n, 18, 18)) * band
+    A[:, i == j] += 6.0 * np.sign(A[:, i == j] + 1e-3)
+    below = band & (i > j)
+    A[:, below & ((j == 0) | (j == 9))] = 0.0
+    A[(rng.random((n, 18, 18)) < 0.25) & below] = 0.0
+    b = rng.normal(size=(n, 18, 2))
+    return _t(A.astype(np.float32)), _t(b.astype(np.float32))
+
+
+@pytest.mark.parametrize("lower_bw", [4, 2])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 1023])
+def test_minco_kernel_batch_sizes_and_zero_pivots(cuda_device, n, lower_bw):
+    """B5 on a block's problems (two warps) and one either side of it, on
+    1023 problems (a last block with one warp idle), at both bands, with
+    band entries exactly 0 below the pivot: within the 1e-4 of
+    test_minco_kernel_matches_plain of the plain version; one launch a call;
+    the same input twice gives the same bits."""
+    A, b = _band_systems(n, lower_bw, 40 + n)
+    want = minco._givens_solve(A, b, lower_bw, 6 - lower_bw)
+    Ad, bd = A.to(cuda_device), b.to(cuda_device)
+    before = _cuda.launches["minco_banded_solve"]
+    got = minco.banded_solve(Ad, bd, lower_bw, 6 - lower_bw)
+    again = minco.banded_solve(Ad, bd, lower_bw, 6 - lower_bw)
+    torch.cuda.synchronize()
+    assert _cuda.launches["minco_banded_solve"] == before + 2
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_minco_kernel_unaligned_aug(cuda_device):
+    """aug whose data starts 4 bytes past a 16-byte boundary (the scalar
+    staging path): the same bits as from an aligned copy."""
+    A, b = _band_systems(77, 4, 3)
+    aug = torch.cat([A, b], dim=2).to(cuda_device).contiguous()
+    buf = torch.empty(aug.numel() + 1, device=cuda_device)
+    view = buf[1:].view(aug.shape)
+    view.copy_(aug)
+    outs = [torch.empty((77, 18, 2), device=cuda_device) for _ in range(2)]
+    minco.launch_banded_solve(aug, outs[0], 4)
+    minco.launch_banded_solve(view, outs[1], 4)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    want = minco._givens_solve(A, b, 4, 2)
+    np.testing.assert_allclose(outs[0].cpu().numpy(), want.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
 # ---- B4: depth render
 
 
@@ -663,6 +719,251 @@ def test_window_fusion_kernel_matches_plain(cuda_device, mapp_kw, cam_kw):
     if off.any():
         step = (diff[off][:, None] - quanta[None]).abs().amin(1)
         assert float(step.max()) <= 1e-5
+
+
+def _window_want(lo, tabs, sc_w, org, hit, cam, mp):
+    """B8 v1's contract on any grid: each window cell clip(v + l_miss) where
+    the carve frees it and clip(v) elsewhere, then each hit cell, inside the
+    window or not, k clipped adds of l_hit for its k hits; every other cell
+    as it was. On a grid within the clamp bounds this is
+    fusion._fuse_window_plain, which (as the reference) clips the whole
+    grid after the hits; past the bounds the kernel keeps the cells that no
+    update touches, as the compare-and-swap scatter before it did."""
+    B = lo.shape[0]
+    dev = lo.device
+    ch, cw = fusion._window_cells(cam, mp)
+    _, _, _, l_hit, l_miss, l_min, l_max = fusion._param_tensors(cam, mp, dev)
+    rows = (org[:, 0:1].long() + torch.arange(ch, device=dev))[:, :, None]
+    cols = (org[:, 1:2].long() + torch.arange(cw, device=dev))[:, None, :]
+    envs = torch.arange(B, device=dev)[:, None, None]
+    out = lo.clone()
+    carve = fusion._carve_update((B, ch, cw), tabs, sc_w, cam, mp,
+                                 half_even=True) != 0
+    v = out[envs, rows, cols]
+    out[envs, rows, cols] = torch.clamp(torch.where(carve, v + l_miss, v),
+                                        l_min, l_max)
+    flat = out.reshape(-1)
+    cells, counts = torch.unique(hit[hit >= 0], return_counts=True)
+    for k in range(int(counts.max()) if counts.numel() else 0):
+        sel = cells[counts > k]
+        flat[sel] = torch.clamp(flat[sel] + l_hit, l_min, l_max)
+    return out
+
+
+def _window_case(seed, dev, in_bounds=True, hit_repeats=3):
+    """B8 v1's inputs on the default map with the 4 m camera, 16 envs: a
+    camera by each of the map's four corners (and past them), so that its
+    window clamps there, the others inside, at yaws along each axis and
+    yaws that lay an image edge on one; random tables in [0, 4.2] m (a
+    fifth of the columns 0); a grid within the clamp bounds (in_bounds) or
+    uniform in [-4, 5], with -0.0 on every 7th row and 5th column; hits on
+    a third of the columns on random cells of the whole grid (most outside
+    the wedge and the window), hit_repeats columns on one cell, one in the
+    last cell of the grid. Returns (mp, cam, lo, tabs, sc_w, org, hit) on
+    dev, hit the flat index into the (B, H, W) grid (-1: none)."""
+    rng = np.random.default_rng(seed)
+    mp = MapParams(fusion="2d_dense")
+    cam = CameraParams(max_range=4.0)
+    B, H, W = 16, mp.height, mp.width
+    half = cam.hfov / 2.0
+    yaws = np.array([0.0, np.pi / 2, -np.pi / 2, np.pi, half, -half,
+                     np.pi / 2 + half, np.pi - half])
+    x_lo, y_lo = mp.origin_x, mp.origin_y
+    x_hi, y_hi = x_lo + W * mp.resolution, y_lo + H * mp.resolution
+    xy = np.stack([rng.uniform(x_lo + 6, x_hi - 6, B),
+                   rng.uniform(y_lo + 6, y_hi - 6, B)], -1)
+    xy[:4] = [(x_lo + 0.3, y_lo + 0.3), (x_hi + 0.5, y_lo + 1.0),
+              (x_lo - 1.0, y_hi - 0.2), (x_hi - 0.4, y_hi + 0.4)]
+    yaw = yaws[rng.integers(0, len(yaws), B)]
+    yaw[:4] = [np.pi / 4, 3 * np.pi / 4, -np.pi / 4, -3 * np.pi / 4]
+    z = np.zeros(B)
+    sc = np.stack([np.full(B, x_lo + 0.5 * mp.resolution),
+                   np.full(B, y_lo + 0.5 * mp.resolution), xy[:, 0], xy[:, 1],
+                   np.cos(yaw), np.sin(yaw), z, z], 1).astype(np.float32)
+    pos = np.concatenate([xy, np.full((B, 1), 2.0)], 1).astype(np.float32)
+    sc_w, org = fusion._window_inputs(_t(sc), _t(pos), cam, mp)
+    tabs = rng.uniform(0.0, 4.2, (B, cam.width)).astype(np.float32)
+    tabs[rng.random((B, cam.width)) < 0.2] = 0.0
+    cell = np.where(rng.random((B, cam.width)) < 1 / 3,
+                    rng.integers(0, H * W, (B, cam.width)), -1)
+    cell[:, :hit_repeats] = rng.integers(0, H * W, (B, 1))
+    cell[:, -1] = H * W - 1
+    hit = np.where(cell >= 0, cell + np.arange(B)[:, None] * (H * W), -1)
+    l_min, l_max = occupancy._l(mp.clamp_min), occupancy._l(mp.clamp_max)
+    lo = (rng.uniform(l_min, l_max, (B, H, W)) if in_bounds
+          else rng.uniform(-4.0, 5.0, (B, H, W))).astype(np.float32)
+    lo[:, ::7, ::5] = -0.0
+    return (mp, cam, _t(lo).to(dev), _t(tabs).to(dev), sc_w.to(dev),
+            org.to(dev), _t(hit).to(dev))
+
+
+def _window_kernel(mp, cam, lo, tabs, sc_w, org, hit):
+    """B8 v1 in place on a copy of lo: (the grid, its launches)."""
+    out = lo.clone()
+    before = _cuda.launches["fuse_depth_window"]
+    fusion.launch_fuse_window(out, tabs, sc_w, org, hit, cam, mp)
+    torch.cuda.synchronize()
+    return out, _cuda.launches["fuse_depth_window"] - before
+
+
+@pytest.mark.parametrize("seed", [50, 51])
+def test_window_kernel_corners_and_axis_yaws(cuda_device, seed):
+    """B8 v1 on windows clamped at each of the map's corners and cameras at
+    axis and image-edge yaws, hits outside the wedge and the window and
+    three on one cell, a grid within the clamp bounds holding -0.0: 0 cells
+    differ from the plain version run on the card, in one launch; the
+    carve touched cells, the reach test keeps a minority of the strips,
+    and -0.0 stays -0.0 in window cells the carve leaves."""
+    mp, cam, lo, tabs, sc_w, org, hit = _window_case(seed, cuda_device)
+    ch, cw = fusion._window_cells(cam, mp)
+    assert {0, mp.height - ch} <= set(org[:, 0].tolist())
+    assert {0, mp.width - cw} <= set(org[:, 1].tolist())
+    out, runs = _window_kernel(mp, cam, lo, tabs, sc_w, org, hit)
+    want = fusion._fuse_window_plain(lo, tabs, sc_w, org, hit, cam, mp)
+    assert runs == 1
+    assert int((out != want).sum()) == 0
+    assert int((_window_want(lo, tabs, sc_w, org, hit, cam, mp) != out)
+               .sum()) == 0
+    l_miss = occupancy._l(mp.prob_miss)
+    assert int((want - lo <= l_miss / 2).sum()) > 1000
+    keep = fusion.window_reach(tabs, sc_w, cam, mp,
+                               (fusion.WARP_H, fusion.WARP_W))
+    assert 0.0 < float(keep.float().mean()) < 0.6
+    neg0 = (lo == 0) & torch.signbit(lo) & (want == 0)
+    assert int(neg0.sum()) > 0
+    assert bool(torch.signbit(out[neg0]).all())
+
+
+def test_window_kernel_grid_past_clamp_bounds(cuda_device):
+    """A grid uniform in [-4, 5], past both clamp bounds, holding -0.0: the
+    window cells are clipped, every hit cell takes its k clipped adds, and
+    every other cell keeps its bits (_window_want); 0 cells differ."""
+    mp, cam, lo, tabs, sc_w, org, hit = _window_case(52, cuda_device,
+                                                     in_bounds=False)
+    out, _ = _window_kernel(mp, cam, lo, tabs, sc_w, org, hit)
+    want = _window_want(lo, tabs, sc_w, org, hit, cam, mp)
+    assert int((out != want).sum()) == 0
+    untouched = want.view(torch.int32) == lo.view(torch.int32)
+    assert torch.equal(out.view(torch.int32)[untouched],
+                       lo.view(torch.int32)[untouched])
+    assert float(lo.max()) > occupancy._l(mp.clamp_max)
+    assert float(out.max()) > occupancy._l(mp.clamp_max)   # outside: kept
+
+
+def test_window_kernel_hits_outside_the_wedge_and_the_window(cuda_device):
+    """Tables of all res (nothing carves): seven hits on one cell outside
+    the window, five on one inside it, the rest on random cells of the
+    whole grid; and a rendered frame whose hits fall outside the window
+    (the pitched drone of test_torch_fusion_cull's room). Every hit is
+    added, as k clipped adds, in the one launch."""
+    mp, cam, lo, tabs, sc_w, org, hit = _window_case(53, cuda_device,
+                                                     hit_repeats=0)
+    tabs = torch.full_like(tabs, mp.resolution)
+    H, W = mp.height, mp.width
+    r0, c0 = org[4].tolist()
+    far = 4 * H * W + ((r0 + 120) % H) * W + (c0 + 120) % W
+    near = 4 * H * W + (r0 + 60) * W + c0 + 60
+    hit[4, :7] = far
+    hit[4, 7:12] = near
+    out, runs = _window_kernel(mp, cam, lo, tabs, sc_w, org, hit)
+    want = fusion._fuse_window_plain(lo, tabs, sc_w, org, hit, cam, mp)
+    assert runs == 1 and int((out != want).sum()) == 0
+    l_hit, l_max = occupancy._l(mp.prob_hit), occupancy._l(mp.clamp_max)
+    v = float(lo.reshape(-1)[far])
+    assert float(out.reshape(-1)[far]) == pytest.approx(
+        min(v + 7 * l_hit, l_max), abs=1e-5)
+    # a rendered frame: the pitched drone in a room 5.9 m wide sees past
+    # its window
+    from tests.test_torch_fusion_cull import _room
+    cam4 = CameraParams(max_range=4.0)
+    world, pos, quat = _room()
+    depth = raycast.render_depth(world, pos, quat, cam4)
+    tabs, sc, hit = fusion._inputs(depth, pos, quat, cam4, mp)
+    sc_w, org = fusion._window_inputs(sc, pos, cam4, mp)
+    lo = occupancy.logodds_init(mp, 1)
+    args = [t.to(cuda_device) for t in (lo, tabs, sc_w, org, hit)]
+    out, _ = _window_kernel(mp, cam4, *args)
+    want = fusion._fuse_window_plain(*args, cam4, mp)
+    assert int((out != want).sum()) == 0
+    ch, cw = fusion._window_cells(cam4, mp)
+    r, c = hit // W, hit % W
+    inside = ((r >= org[:, :1]) & (r < org[:, :1] + ch)
+              & (c >= org[:, 1:]) & (c < org[:, 1:] + cw))
+    outside = hit[(hit >= 0) & ~inside]
+    assert outside.numel() >= 5
+    assert bool((out.cpu().reshape(-1)[outside] > 0).all())
+
+
+def test_window_kernel_rounds_half_to_even(cuda_device):
+    """An image 158 columns wide has half_w = 78.5: a camera at yaw 0 on a
+    row of window cell centres gives the cells ahead of it on that row
+    u = 78.5 exactly, which v1 rounds to column 78 (half to even) and v2's
+    floor(u + 0.5) to 79. With tables of 1.5 m at column 78 and 3.5 m at 79
+    the two roundings carve different cells; the kernel carves v1's, 0
+    cells differing from the plain version."""
+    mp = MapParams(fusion="2d_dense")
+    cam = CameraParams(width=158, max_range=4.0)
+    assert fusion.window_fits(cam, mp)
+    B = 2
+    xy = torch.tensor([[10.0, 0.0], [-5.0, 7.3]])
+    z = torch.zeros(B)
+    sc = torch.stack([torch.full((B,), mp.origin_x + 0.5 * mp.resolution),
+                      torch.full((B,), mp.origin_y + 0.5 * mp.resolution),
+                      xy[:, 0], xy[:, 1], torch.ones(B), z, z, z], 1)
+    pos = torch.cat([xy, torch.full((B, 1), 2.0)], 1)
+    sc_w, org = fusion._window_inputs(sc, pos, cam, mp)
+    sc_w[:, 3] = sc_w[:, 1] + torch.tensor(50.0) * torch.tensor(
+        mp.resolution, dtype=torch.float32)
+    tabs = torch.full((B, cam.width), 2.0)
+    tabs[:, 78], tabs[:, 79] = 1.5, 3.5
+    hit = torch.full((B, cam.width), -1, dtype=torch.int64)
+    lo = occupancy.logodds_init(mp, B)
+    ch, cw = fusion._window_cells(cam, mp)
+    even = fusion._carve_update((B, ch, cw), tabs, sc_w, cam, mp,
+                                half_even=True)
+    up = fusion._carve_update((B, ch, cw), tabs, sc_w, cam, mp)
+    assert int((even != up).sum()) >= 2 * 15
+    args = [t.to(cuda_device) for t in (lo, tabs, sc_w, org, hit)]
+    out, runs = _window_kernel(mp, cam, *args)
+    want = fusion._fuse_window_plain(*args, cam, mp)
+    assert runs == 1 and int((out != want).sum()) == 0
+
+
+def test_window_kernel_repeats_bits(cuda_device):
+    """The same input twice gives the same bits (the hit counts in shared
+    memory and the outside list take atomics in any order)."""
+    mp, cam, lo, tabs, sc_w, org, hit = _window_case(54, cuda_device,
+                                                     in_bounds=False,
+                                                     hit_repeats=9)
+    a, _ = _window_kernel(mp, cam, lo, tabs, sc_w, org, hit)
+    b, _ = _window_kernel(mp, cam, lo, tabs, sc_w, org, hit)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_window_kernel_refuses_past_limits(cuda_device):
+    """An image width of 28,524 is past a v1 block's shared memory: the
+    wrapper raises before any launch. The C entry refuses it too, and a
+    window past 128 cells a side or larger than the grid
+    (cudaErrorInvalidValue)."""
+    mp, cam, lo, tabs, sc_w, org, hit = _window_case(55, cuda_device)
+    B, H, W = lo.shape
+    before = dict(_cuda.launches)
+    wide = CameraParams(width=28524, max_range=4.0)
+    with pytest.raises(ValueError, match="image width"):
+        fusion.launch_fuse_window(
+            lo, torch.zeros((B, 28524), device=cuda_device), sc_w, org,
+            torch.full((B, 28524), -1, dtype=torch.int64,
+                       device=cuda_device), wide, mp)
+    assert _cuda.launches == before
+    lib = _cuda.load()
+    params = _cuda.host_floats(fusion._params(cam, mp))
+    for ch, cw, w in ((129, 114, 160), (114, 129, 160), (114, 114, 28524),
+                      (H + 1, 114, 160)):
+        err = lib.neo_fuse_depth_window(
+            _cuda.ptr(lo), _cuda.ptr(tabs), _cuda.ptr(sc_w), _cuda.ptr(org),
+            _cuda.ptr(hit), B, H, W, ch, cw, w, params,
+            _cuda.stream_ptr(cuda_device))
+        assert err != 0
 
 
 # ---- B8 v3: multi-frame dense depth fusion
