@@ -5,7 +5,9 @@
 
 Phases, one short line each:
 1. the card (name and power limit from nvidia-smi) and the kernels' build
-   (one nvcc call over neoplanner_tpu_torch/csrc/*.cu, loaded with ctypes);
+   (neoplanner_tpu_torch/csrc/*.cu: the main library and one library of
+   B5, B1, B6, B2s and B7 per piece count M = 2, 3, 5, 12, 16, one nvcc
+   process each, side by side; loaded with ctypes);
 2. each hand-written kernel of the scene path against its plain PyTorch
    version on the card, at that path's shapes (B = 1024 envs), inputs from a
    numpy seed, TF32 off: max abs/rel error beside the stated tolerance,
@@ -91,7 +93,30 @@ Phases, one short line each:
 20. the 'expert' planner at full width, goals at x = 20, 1 warm-up and 2
    timed segments: the gt+grid path at B = 512 with the fused solver and
    with the per-evaluation solve, the scene path at B = 1024 with the
-   per-evaluation solve (no frame rendered: render_depth 0).
+   per-evaluation solve (no frame rendered: render_depth 0);
+21. the piece count M = 5 (the reference's init_wpts_num 4): the expert
+   planner with the fused solver on the scene path at B = 1024 (B1, B5,
+   B3) and on the gt+grid path at B = 512 (B6, B5, B10), 1 warm-up and 2
+   timed segments, steps/s, missions and launches above 0;
+22. B5 at M = 2, 5, 12 and 16 (n = 6M), both bands, on B = 1024 MINCO
+   systems against its plain version on the card (1e-4 of each system's
+   largest solution component), times (events and graph_ms), bound
+   (givens_bytes: the band's 32 B sectors, the right-hand sides and the
+   solution);
+23. B2s and B7 at M = 5 and 12 at the lazy banks' shapes (3072 scene
+   problems and 12,288 candidates, 1536 problems and 6144 candidates on
+   the M = 5 gt+grid loop's windows), held as in phase 18, with times;
+24. B1 and B6 at M = 5 and 12 (B = 1024 and 512 problems): at histories
+   2 and 3, six iterations (the L-BFGS ring wrapped) on 256 problems, f
+   and x of each within 1e-3 of the plain solver on the card, missing on
+   no more problems than the plain solver on the CPU does
+   (plan/parity.few_iterations); at histories 5, 10 and 20 one iteration
+   against the plain solver on the card (1e-3 relative on f,
+   plan/parity.one_iteration), 24 iterations in its acceptance and cost
+   basin (basin(), its median tolerance from the GPU-vs-CPU control on
+   256 problems), times and bounds;
+25. plan_adaptive on tests/test_expert.py's golden 24 m problem (M = 12):
+   ok and the end-point error (tol 0.05 m).
 
 The vision paths' counts include their reset, which builds the truncated
 lite map of an unknown grid through B9 banded. The last lines are every
@@ -118,8 +143,10 @@ or the state, trace and tick elements) whose bits differ from this
 tree's and both kernels' medians in turns (other, this, this, other),
 both through their C entries, back to back from the host and as a CUDA
 graph of the launches (the device time), and for B3, B4, B5, B8 and B10
-the shape's bound (B4's from the survivors of its tiles' cull). Nothing
-is held against a tolerance there.
+the shape's bound (B4's from the survivors of its tiles' cull); at phase
+25 also its B1 (B = 1024) and B6 (B = 512) at M = 3 and history 10. The
+other checkout's kernels are built and bound by that checkout's own
+neoplanner_tpu_torch/_cuda.py. Nothing is held against a tolerance there.
 """
 
 from __future__ import annotations
@@ -216,6 +243,11 @@ PER_EVAL_GRID_PATH = ("edt_exact", "objective_grid_fwd",
                       "track_segment_grid")
 PER_EVAL_SCENE_PATH = ("objective_scene_fwd", "objective_scene_valgrad",
                        "minco_banded_solve", "track_segment")
+# the expert planner on the scene (no frame rendered)
+EXPERT_SCENE_PATH = ("lbfgs_scene_solve", "minco_banded_solve",
+                     "track_segment")
+# the piece counts whose kernel libraries the run builds (side by side)
+PIECE_BUILDS = (2, 3, 5, 12, 16)
 FUSE_FRAMES = 6               # examples/profile_vision.py:36 (VIS_FUSE)
 # launches per segment of the sensor-rate loop: the replan-time frame and
 # the five mid-segment frames in one launch, one fusion each, one rebuild,
@@ -227,6 +259,24 @@ SENSOR_PER_SEGMENT = dict(render_depth=2, fuse_depth_dense=1,
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def load_other(checkout: str):
+    """Another checkout's kernel libraries, built and bound by that
+    checkout's own _cuda module (its C entries may take other arguments):
+    (the main library, the library of B5, B1, B6, B2s and B7 at M = 3,
+    nvcc seconds). A checkout with one library returns it twice."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(checkout).resolve() / "neoplanner_tpu_torch" / "_cuda.py"
+    spec = importlib.util.spec_from_file_location("other_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if hasattr(mod, "load_pieces"):
+        main_lib, lib3 = mod.load(), mod.load_pieces(3)
+        return main_lib, lib3, sum(mod.build_seconds.values())
+    lib, seconds = mod.load_from(mod._SRC)
+    return lib, lib, seconds or 0.0
 
 
 def card_line() -> str:
@@ -275,7 +325,8 @@ def render_work(kept, rows: int, width: int, n_prims: int,
 
 
 def givens_flops(lbw: int, n: int = 18, d: int = 2, fill: int = 6) -> int:
-    """Floating-point operations of one band-restricted Givens solve."""
+    """Floating-point operations of one band-restricted Givens solve of
+    n = 6M rows (18 at M = 3)."""
     f = 0
     for c in range(n):
         for _ in range(c + 1, min(c + lbw + 1, n)):
@@ -284,25 +335,39 @@ def givens_flops(lbw: int, n: int = 18, d: int = 2, fill: int = 6) -> int:
     return f
 
 
-def objective_flops(K: int, dist_flops, grad: bool):
-    """Operations of one objective evaluation per problem (M = 3 pieces,
-    K samples each): the system build and solve, the energy quadrature, and
-    per sample the polynomial, the hinges and dist_flops for the distance
-    query (~20 per live primitive of the scene SDF, ~25 for four window
-    taps); with the gradient also the per-sample adjoint, the transposed
-    solve and the duration chain."""
+def givens_bytes(n: int, lbw: int, count: int, d: int = 2,
+                 fill: int = 6) -> int:
+    """Bytes that count band solves of n = 6M rows must move: of each row r
+    of a problem's dense aug (n, n + d) only its band, columns r - lbw ..
+    r + fill - lbw, and its d right-hand sides, counted as the 32 B
+    sectors they touch (the problems back to back), and the n x d solution
+    written once."""
+    r, j = np.arange(n)[:, None], np.arange(n + d)[None, :]
+    need = (j >= n) | ((j >= r - lbw) & (j <= r + fill - lbw))
+    at = np.arange(count)[:, None] * (n * (n + d)) \
+        + np.nonzero(need.ravel())[0][None, :]
+    return int(np.unique(at * 4 // 32).size) * 32 + count * n * d * 4
+
+
+def objective_flops(K: int, dist_flops, grad: bool, M: int = 3):
+    """Operations of one objective evaluation per problem (M pieces, K
+    samples each): the system build and solve, the energy quadrature (3M
+    nodes), and per sample the polynomial, the hinges and dist_flops for
+    the distance query (~20 per live primitive of the scene SDF, ~25 for
+    four window taps); with the gradient also the per-sample adjoint, the
+    transposed solve and the duration chain."""
     per_sample = 50 + dist_flops + (60 if grad else 0)
-    fixed = 120 + givens_flops(4) + 9 * 30
+    fixed = 40 * M + givens_flops(4, 6 * M) + 3 * M * 30
     if grad:
-        fixed += givens_flops(2) + 9 * 30 + 150
-    return fixed + 3 * K * per_sample
+        fixed += givens_flops(2, 6 * M) + 3 * M * 30 + 50 * M
+    return fixed + M * K * per_sample
 
 
-def solve_flops(K: int, dist_flops, iters: np.ndarray) -> float:
+def solve_flops(K: int, dist_flops, iters: np.ndarray, M: int = 3) -> float:
     """A solve spending iters iterations: one value-and-gradient per
     iteration plus the first, and at least one line-search value each."""
-    return float(np.sum(objective_flops(K, dist_flops, True) * (1 + iters)
-                        + objective_flops(K, dist_flops, False) * iters))
+    return float(np.sum(objective_flops(K, dist_flops, True, M) * (1 + iters)
+                        + objective_flops(K, dist_flops, False, M) * iters))
 
 
 def err_line(got, want):
@@ -319,8 +384,9 @@ def rel(a, b):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None, help="another checkout whose "
-                    "B3, B4, B5, B8, B10, B9 and objective kernels phases 2, "
-                    "6, 9, 12, 13, 14 and 18 compare with this one's")
+                    "B3, B4, B5, B8, B10, B9, objective and solver kernels "
+                    "phases 2, 6, 9, 12, 13, 14, 18 and 25 compare with "
+                    "this one's")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -344,7 +410,8 @@ def main(argv=None) -> int:
     from neoplanner_tpu_torch.mapping import esdf, fusion, occupancy, scene
     from neoplanner_tpu_torch.models import planner_net
     from neoplanner_tpu_torch.ops import edt, minco
-    from neoplanner_tpu_torch.plan import costs, expert, objective, solve
+    from neoplanner_tpu_torch.plan import (costs, expert, objective, parity,
+                                           solve)
     from neoplanner_tpu_torch.sense import raycast
     from neoplanner_tpu_torch.sim import env, track
     from neoplanner_tpu_torch.utils.profiling import StageTimer
@@ -357,16 +424,18 @@ def main(argv=None) -> int:
     say(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda})")
     t_start = time.perf_counter()
+    wall = _cuda.prebuild(PIECE_BUILDS)
     _cuda.load()
-    nvcc_s = _cuda.build_seconds or 0.0
-    say(f"build: nvcc {nvcc_s:.1f} s (0: library already built), load "
+    say(f"build: {len(_cuda.build_seconds)} libraries built side by side, "
+        f"one nvcc each, in {wall:.1f} s wall ("
+        + ", ".join(f"{k.split('_')[1]} {v:.1f} s" for k, v in
+                    sorted(_cuda.build_seconds.items()))
+        + "; none: already built), load "
         f"{time.perf_counter() - t_start:.1f} s")
-    other = None
+    other = other3 = None
     if args.against:
-        from pathlib import Path
-        other, other_s = _cuda.load_from(
-            Path(args.against).resolve() / "neoplanner_tpu_torch" / "csrc")
-        say(f"against {args.against}: nvcc {other_s or 0.0:.1f} s")
+        other, other3, other_s = load_other(args.against)
+        say(f"against {args.against}: nvcc {other_s:.1f} s")
 
     # the flagship configuration (bench.py:101-142)
     pp = PlannerParams(max_iters=24, samples_per_piece=24, retry_num=2,
@@ -438,21 +507,22 @@ def main(argv=None) -> int:
         return head, tail, q0, ts0
 
     def accepted(x, head, tail, pmap, cost_pp):
-        q, tau = costs.unpack(x, pp)
+        q, tau = costs.unpack(x, cost_pp)
         cv, _ = costs.traj_costs(head, tail, q, minco.tau_to_T(
             tau, pp.t_min, pp.t_max), pmap, cost_pp)
         return cv[:, 3] * pp.w_collision <= pp.collision_cost_tol
 
-    def window_cells_read(window, xs, head, tail):
+    def window_cells_read(window, xs, head, tail, pp_=None):
         """Distinct window cells that the bilinear taps of one solve per
-        problem read at the iterates xs (each (P, 7); problem p on window p),
-        summed over problems: the least a solve that passes through those
-        iterates must load. Samples outside the map read FAR, not the
+        problem read at the iterates xs (each (P, nv); problem p on window
+        p), summed over problems: the least a solve that passes through
+        those iterates must load. Samples outside the map read FAR, not the
         window."""
+        pp_ = pp_ or pp
         P, Hw, Ww = window.win.shape
         taps = []
         for x in xs:
-            q, tau = costs.unpack(x, pp)
+            q, tau = costs.unpack(x, pp_)
             ts = minco.tau_to_T(tau, pp.t_min, pp.t_max)
             c = minco.solve_coeffs(head, tail, q, ts).reshape(
                 P, ts.shape[1], 6, -1)
@@ -475,20 +545,41 @@ def main(argv=None) -> int:
         new[:, 1:] = cells[:, 1:] != cells[:, :-1]
         return int((new & (cells >= 0)).sum())
 
-    def basin(name, ok_k, ok_p, f_k, f_p, iters, f1_ctrl, f_ctrl, n_c):
+    def basin(name, ok_k, ok_p, f_k, f_p, iters, f1_ctrl, f_ctrl, n_c,
+              med_tol=1e-4, mean_tol=1e-2):
         """Hold a 24-iteration solve to its plain version's cost basin:
         acceptance flags agree on >= 95% of problems, the median relative f
-        difference is <= 1e-4 and the mean f agrees to 1%; print the plain
-        GPU-vs-CPU control beside it."""
+        difference is <= med_tol and the mean f agrees to mean_tol (None:
+        printed, not held), the median f to 1%, and among the problems
+        whose f differs by more than 1e-4 the kernel's is below the plain
+        version's on at least 40% (when there are 20 such: a solver that
+        is worse shows in the sign); print the plain GPU-vs-CPU control
+        beside it (f1_ctrl and f_ctrl, the relative f differences of its
+        first n_c problems at 1 and 24 iterations). At M = 3 the
+        tolerances are 1e-4 and 1e-2. Past M = 3 two f32 solvers part
+        within 24 iterations on many problems, the plain solver on the
+        card and on the CPU too: the median is held to twice the
+        control's (control_tol), and the mean f, which the few problems
+        where one solver escapes a collision that the other stays in
+        carry, is not held (the control on every problem moved it by up to
+        1.7e-2 at M = 5 and 12, PERF.md)."""
         n = ok_k.shape[0]
         agree = float((ok_k == ok_p).float().mean())
         rel_f = rel(f_k, f_p)
         mean_gap = abs(float(f_k.mean()) / float(f_p.mean()) - 1.0)
+        med_gap = abs(float(f_k.median()) / float(f_p.median()) - 1.0)
+        parted = rel_f > 1e-4
+        lower = float((f_k < f_p).cpu().numpy()[parted].mean()) \
+            if parted.any() else 1.0
         say(f"{name} 24 iters: accepted {int(ok_k.sum())}/{n} kernel, "
             f"{int(ok_p.sum())}/{n} plain, flags agree {agree:.3f} (tol "
-            f"0.95); f rel diff median {np.median(rel_f):.2e} (tol 1e-4) p99 "
-            f"{np.percentile(rel_f, 99):.2e} max {rel_f.max():.2e}, mean f "
-            f"gap {mean_gap:.2e} (tol 1e-2); iters mean "
+            f"0.95); f rel diff median {np.median(rel_f):.2e} (tol "
+            f"{med_tol:.2e}) p99 {np.percentile(rel_f, 99):.2e} max "
+            f"{rel_f.max():.2e}, mean f gap {mean_gap:.2e} ("
+            f"{'not held' if mean_tol is None else f'tol {mean_tol:.2e}'}"
+            f"), median f gap {med_gap:.2e} (tol 1e-2), "
+            f"kernel lower on {lower:.3f} of the {int(parted.sum())} "
+            f"problems apart by > 1e-4 (tol 0.4); iters mean "
             f"{float(iters.float().mean()):.1f}")
         gap = (f_k - f_p).abs()
         top = torch.topk(gap, min(5, n)).indices
@@ -499,11 +590,26 @@ def main(argv=None) -> int:
             f"{float(gap[top].sum() / gap.sum().clamp(min=1e-30)):.3f}")
         say(f"{name} plain GPU vs CPU ({n_c} problems): f rel diff max "
             f"{f1_ctrl.max():.2e} at 1 iter; at 24 iters median "
-            f"{np.median(f_ctrl):.2e} p99 {np.percentile(f_ctrl, 99):.2e} "
-            f"max {f_ctrl.max():.2e}")
-        if agree < 0.95 or np.median(rel_f) > 1e-4 or mean_gap > 1e-2:
+            f"{np.median(f_ctrl):.2e} p99 {np.percentile(f_ctrl, 99):.2e}"
+            f" max {f_ctrl.max():.2e}")
+        if agree < 0.95 or np.median(rel_f) > med_tol \
+                or (mean_tol is not None and mean_gap > mean_tol) \
+                or med_gap > 1e-2 \
+                or (int(parted.sum()) >= 20 and lower < 0.4):
             raise AssertionError(f"{name} leaves the plain version's cost "
                                  f"basin")
+
+    def control_tol(name, f_gpu, f_cpu):
+        """basin()'s median tolerance past M = 3 from the control, the
+        plain solver's f on the card and on the CPU from the same
+        problems: max(1e-4, twice the control's median relative f
+        difference); prints it and the control's mean f gap."""
+        med_c = float(np.median(rel(f_gpu.cpu(), f_cpu)))
+        mean_c = abs(float(f_cpu.mean()) / float(f_gpu.cpu().mean()) - 1.0)
+        say(f"{name} control: the plain solver on the CPU against the card "
+            f"on {f_cpu.shape[0]} problems, median f rel diff {med_c:.2e}, "
+            f"mean f gap {mean_c:.2e}")
+        return max(1e-4, 2.0 * med_c)
 
     def retry_launch(name, x0_, head_, tail_, ok_first, first_ms, launch):
         """Time a solver kernel at its second launch of a segment: the lazy
@@ -584,7 +690,7 @@ def main(argv=None) -> int:
                                  f"disagrees with its plain version")
 
     def objective_check(kind, label, pmap, x, head, tail, env_of,
-                        dist_flops, map_bytes, record_it=True):
+                        dist_flops, map_bytes, record_it=True, pp_=None):
         """B2s (kind 'scene') or B7 ('grid') against its plain version at a
         lazy bank's shapes: the value and gradient at the P problems x, and
         the value at max_ls line-search candidates of each (t * d, t =
@@ -597,13 +703,17 @@ def main(argv=None) -> int:
         ~1e-2 off its f64 self there, so the elementwise measures are
         printed) of the reference named below.
         dist_flops (P,): operations of one distance query per problem;
-        map_bytes: the map bytes the launch must read. With record_it, the
-        kernel's record."""
-        P, L = x.shape[0], pp.max_ls
-        d = torch.from_numpy(rng_eval.normal(scale=0.3, size=(P, 7))).float(
-            ).to(dev)
+        map_bytes: the map bytes the launch must read. With dist_flops,
+        each launch's time (events and the device timer, graph_ms) beside
+        the plain version's and the bound, and with record_it the kernel's
+        record.
+        pp_: the planner parameters (by default the flagship's, M = 3)."""
+        pp_ = pp_ or pp
+        P, L, nv, M = x.shape[0], pp_.max_ls, pp_.num_vars, pp_.num_pieces
+        d = torch.from_numpy(rng_eval.normal(scale=0.3, size=(P, nv))
+                             ).float().to(dev)
         steps = 0.5 ** torch.arange(L, device=dev, dtype=torch.float32)
-        xc = (x[:, None] + steps[:, None] * d[:, None]).reshape(-1, 7
+        xc = (x[:, None] + steps[:, None] * d[:, None]).reshape(-1, nv
                                                                 ).contiguous()
         hc = head.repeat_interleave(L, 0).contiguous()
         tc = tail.repeat_interleave(L, 0).contiguous()
@@ -617,12 +727,12 @@ def main(argv=None) -> int:
             launch = objective.launch_grid
         f_c = torch.empty(P * L, device=dev)
         f_v = torch.empty(P, device=dev)
-        g_v = torch.empty((P, 7), device=dev)
-        launch(xc, hc, tc, *map_args, ec, f_c, None, pp)
-        launch(x, head, tail, *map_args, e1, f_v, g_v, pp)
-        want_c = objective.plain_fwd(xc, hc, tc, pmap, ec.long(), pp)
+        g_v = torch.empty((P, nv), device=dev)
+        launch(xc, hc, tc, *map_args, ec, f_c, None, pp_)
+        launch(x, head, tail, *map_args, e1, f_v, g_v, pp_)
+        want_c = objective.plain_fwd(xc, hc, tc, pmap, ec.long(), pp_)
         want_f, want_g = objective.plain_valgrad(x, head, tail, pmap,
-                                                 env_of.long(), pp)
+                                                 env_of.long(), pp_)
 
         def f64(t):
             return t.detach().cpu().double()
@@ -644,7 +754,7 @@ def main(argv=None) -> int:
             for t in (getattr(pmap, f.name)
                       for f in dataclasses.fields(pmap))))
         g64 = objective.plain_valgrad(f64(x), f64(head), f64(tail), pmap64,
-                                      env_of.long().cpu(), pp)[1]
+                                      env_of.long().cpu(), pp_)[1]
         k64, p64 = rel_g(g_v, g64), rel_g(want_g, g64)
         # the gradient's reference: on the scene the f64 value, exact to
         # roundoff (kernel and f32 plain version each carry up to ~2e-3 of
@@ -653,45 +763,77 @@ def main(argv=None) -> int:
         # cell edge f64 takes the next cell, and the gradient jumps there)
         g_gate = k64[0] if kind == "scene" else s_g
         n_coll = int((want_f > 100.0).sum())
-        say(f"objective_{kind} {label}: {P} problems, {P * L} candidates; "
+        tail_line = ""
+        if M != 3:
+            # past M = 3 the f32 plain version itself leaves 2e-3 of the
+            # f64 one on a few problems of a bank (3.15e-3 at M = 5 over
+            # 3072 problems on the CPU, where warp_objective run on the
+            # host read 2.29e-3): hold at most 0.1% of the problems past
+            # 2e-3, and every problem within 1e-2
+            ref = g64 if kind == "scene" else want_g
+            row = f64(ref).abs().amax(1, keepdim=True).clamp(min=1.0)
+            per_k = ((f64(g_v) - f64(ref)).abs() / row).amax(1)
+            per_p = ((f64(want_g) - g64).abs() / f64(g64).abs().amax(
+                1, keepdim=True).clamp(min=1.0)).amax(1)
+            share_k = float((per_k > 2e-3).double().mean())
+            share_p = float((per_p > 2e-3).double().mean())
+            tail_line = (f"; problems past 2e-3: kernel {share_k:.2e} (tol "
+                         f"1e-3), f32 plain against f64 {share_p:.2e}")
+            g_gate = 2e-3 if share_k <= 1e-3 and \
+                float(per_k.max()) <= 1e-2 else float(per_k.max())
+        say(f"objective_{kind} {label} M={M}: {P} problems, {P * L} "
+            f"candidates; "
             f"values scaled err {s_c:.3g} (candidates), {s_f:.3g} (problems)"
             f" (tol 5e-4); gradients scaled err against the f32 plain "
             f"version {s_g:.3g} (elementwise {s_g_el:.3g}), against f64: "
             f"kernel {k64[0]:.3g} (elementwise {k64[1]:.3g}), plain "
             f"{p64[0]:.3g} (elementwise {p64[1]:.3g}); held: "
             f"{'f64' if kind == 'scene' else 'f32 plain'} {g_gate:.3g} (tol "
-            f"2e-3); {n_coll} problems with a live collision term")
+            f"2e-3){tail_line}; {n_coll} problems with a live collision "
+            f"term")
         if max(s_c, s_f) > 5e-4 or g_gate > 2e-3 or n_coll == 0:
             raise AssertionError(f"objective_{kind} {label} disagrees with "
                                  f"its plain version")
-        if other is not None:
+        if other is not None and M == 3:
             against(kind, label, map_args, (
                 (f"objective_{kind}_fwd", xc, hc, tc, ec, f_c, None),
                 (f"objective_{kind}_valgrad", x, head, tail, e1, f_v, g_v)))
+        if dist_flops is None:       # a check alone: no times
+            return
+        io_c = P * L * (nv + 12 + 1 + 1) * 4
+        io_v = P * (nv + 12 + 1 + nv + 1) * 4
+        dfl = np.asarray(dist_flops, dtype=np.float64)
+        K = pp_.samples_per_piece
+        work = {"fwd": (float(np.sum(objective_flops(
+                    K, np.repeat(dfl, L), False, M))), io_c + map_bytes),
+                "valgrad": (float(np.sum(objective_flops(K, dfl, True, M))),
+                            io_v + map_bytes)}
+        calls = {"fwd": (lambda: launch(xc, hc, tc, *map_args, ec, f_c,
+                                        None, pp_),
+                         lambda: objective.plain_fwd(xc, hc, tc, pmap,
+                                                     ec.long(), pp_)),
+                 "valgrad": (lambda: launch(x, head, tail, *map_args, e1,
+                                            f_v, g_v, pp_),
+                             lambda: objective.plain_valgrad(
+                                 x, head, tail, pmap, env_of.long(), pp_))}
+        ms = {k: (median_ms(torch, c[0], 20), graph_ms(c[0]),
+                  median_ms(torch, c[1], 3)) for k, c in calls.items()}
+        for k, (ev, gr, pl) in ms.items():
+            b_ms, b_by = bound(*work[k])
+            say(f"objective_{kind}_{k} {label} M={M}: {ev:.3f} ms (events), "
+                f"device (graph) {gr:.4f} ms, plain {pl:.3f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by})")
         if not record_it:
             return
-        io_c = P * L * (7 + 12 + 1 + 1) * 4
-        io_v = P * (7 + 12 + 1 + 7 + 1) * 4
-        dfl = np.asarray(dist_flops, dtype=np.float64)
-        K = pp.samples_per_piece
         report(f"objective_{kind}_fwd",
                (float((f_c - want_c).abs().max()), s_c), 5e-4,
-               median_ms(torch, lambda: launch(xc, hc, tc, *map_args, ec, f_c,
-                                               None, pp), 20),
-               median_ms(torch, lambda: objective.plain_fwd(
-                   xc, hc, tc, pmap, ec.long(), pp), 3),
-               float(np.sum(objective_flops(K, np.repeat(dfl, L), False))),
-               io_c + map_bytes, on="rel")
+               ms["fwd"][0], ms["fwd"][2], *work["fwd"], on="rel")
         report(f"objective_{kind}_valgrad",
                (max(float((f_v - want_f).abs().max()),
                     float((g_v - want_g).abs().max())),
                 max(s_f / 5e-4, g_gate / 2e-3)), 1.0,
-               median_ms(torch, lambda: launch(x, head, tail, *map_args, e1,
-                                               f_v, g_v, pp), 20),
-               median_ms(torch, lambda: objective.plain_valgrad(
-                   x, head, tail, pmap, env_of.long(), pp), 3),
-               float(np.sum(objective_flops(K, dfl, True))),
-               io_v + map_bytes, on="ratio")
+               ms["valgrad"][0], ms["valgrad"][2], *work["valgrad"],
+               on="ratio")
         W = objective.WARPS
         say(f"objective_{kind} grids: fwd {-(-P * L // W)} blocks x {W} "
             f"warps ({record[f'objective_{kind}_fwd']['ms']:.3f} ms), "
@@ -723,14 +865,17 @@ def main(argv=None) -> int:
             times.append(s.elapsed_time(e) / n)
         return float(np.median(times))
 
-    def in_turns(call):
+    def in_turns(call, pieces=False):
         """call(lib)'s time in ms for the other checkout's library and this
         tree's, in turns (other, this, this, other): 20 launches back to
         back between two events (so that the host's enqueueing hides behind
         the card's work), the median of 5 such runs; then the same turns
-        timed as a CUDA graph of 20 launches (``graph_ms``). Returns the
+        timed as a CUDA graph of 20 launches (``graph_ms``). With pieces,
+        the libraries of B5, B1, B6, B2s and B7 at M = 3. Returns the
         eight times and their text."""
-        libs = (other, _cuda.load(), _cuda.load(), other)
+        this, that = ((_cuda.load_pieces(3), other3) if pieces
+                      else (_cuda.load(), other))
+        libs = (that, this, this, that)
         ms = [median_ms(torch, lambda: [call(lib) for _ in range(20)], 5)
               / 20 for lib in libs]
         ms += [graph_ms(lambda: call(lib)) for lib in libs]
@@ -751,7 +896,7 @@ def main(argv=None) -> int:
         K = pp.samples_per_piece
         for name, x_, h_, t_, e_, f_, g_ in calls:
             outs = {}
-            for lib in (other, _cuda.load()):
+            for lib in (other3, _cuda.load_pieces(3)):
                 outs[lib] = (torch.empty_like(f_),
                              None if g_ is None else torch.empty_like(g_))
             if kind == "scene":
@@ -785,7 +930,7 @@ def main(argv=None) -> int:
                                      f"disagree")
             line += " (bits)"
             for n in (P_, 2 * P_ // 3):
-                turns = in_turns(lambda lib: call(lib, n))[1]
+                turns = in_turns(lambda lib: call(lib, n), pieces=True)[1]
                 line += f"; {n} rows {turns}"
             say(f"{name} {label} against {args.against}: {line}")
 
@@ -811,7 +956,8 @@ def main(argv=None) -> int:
         say(f"{name} {label} against {args.against}: {n} of {o.numel()} "
             f"cells differ (bits); {in_turns(call)[1]}")
 
-    def entry_against(name, label, entry, fill, want, work, init=None):
+    def entry_against(name, label, entry, fill, want, work, init=None,
+                      pieces=False):
         """--against: the other checkout's kernel and this tree's, both
         through their C entries, lib.<entry>(*fill(buffers)) writing into
         float32 buffers shaped as want (copies of init for a kernel that
@@ -820,9 +966,11 @@ def main(argv=None) -> int:
         differ, then each kernel's time in turns (``in_turns``; an in-place
         kernel goes on from its own output) and the bound of work =
         (operations, bytes)."""
+        libs = ((other3, _cuda.load_pieces(3)) if pieces
+                else (other, _cuda.load()))
         bufs = {lib: [torch.empty_like(t) if init is None else init[i].clone()
                       for i, t in enumerate(want)]
-                for lib in (other, _cuda.load())}
+                for lib in libs}
         # the arguments built once, so that the timer sees the launches; the
         # last, the stream, read at each call (a graph captures on its own)
         argv = {lib: fill(bufs[lib])[:-1] for lib in bufs}
@@ -842,7 +990,7 @@ def main(argv=None) -> int:
         b_ms, b_by = bound(*work)
         say(f"{name} {label} against {args.against}: {n} of "
             f"{sum(a.numel() for a in o)} elements differ (bits); "
-            f"{in_turns(call)[1]}; bound {b_ms:.4f} ms ({b_by})")
+            f"{in_turns(call, pieces)[1]}; bound {b_ms:.4f} ms ({b_by})")
 
     def per_eval_check(name, pmap, x0_, head_, tail_, env_, fused,
                        accept_map, cost_pp):
@@ -929,7 +1077,7 @@ def main(argv=None) -> int:
     out = torch.empty((B, 18, 2), device=dev)
     minco.launch_banded_solve(aug, out, 4)
     want = minco._givens_solve(A, b, 4, 2)
-    nbytes = B * (18 * 20 + 18 * 2) * 4
+    nbytes = givens_bytes(18, 4, B)
     report("minco_banded_solve", err_line(out, want), 1e-3,
            median_ms(torch, lambda: minco.launch_banded_solve(aug, out, 4),
                      20),
@@ -965,12 +1113,17 @@ def main(argv=None) -> int:
     n_rot = {lbw: sum(min(c + lbw + 1, 18) - c - 1 for c in range(18))
              for lbw in (4, 2)}
     per_rot = (t_b5[4] - t_b5[2]) / (n_rot[4] - n_rot[2]) * 1e6
+    b5_bound = {lbw: bound(B * givens_flops(lbw), givens_bytes(18, lbw, B))
+                for lbw in (4, 2)}
     say(f"minco_banded_solve device (graph) ms: B={B} lower bandwidth 4 "
         f"{t_b5[4]:.4f}, 2 {t_b5[2]:.4f}, B={BV} {t_512:.4f}; {n_rot[4]} and "
         f"{n_rot[2]} rotations a warp, 18 column syncs and 18 divides; each "
         f"of the {n_rot[4] - n_rot[2]} more at 4 costs {per_rot:.1f} ns "
         f"({per_rot * clock / 1e3:.0f} cycles at {clock:.0f} MHz), so the "
-        f"chain of {n_rot[4]} takes {n_rot[4] * per_rot / 1e3:.2f} us")
+        f"chain of {n_rot[4]} takes {n_rot[4] * per_rot / 1e3:.2f} us; "
+        f"bound (the band's sectors, the right-hand sides and the "
+        f"solution) B={B} lower bandwidth 4 {b5_bound[4][0]:.4f} ms "
+        f"({b5_bound[4][1]}), 2 {b5_bound[2][0]:.4f} ms ({b5_bound[2][1]})")
     if other is not None:
         for label, aug_, out_, n_, lbw in (
                 (f"B={B}", aug, out, B, 4),
@@ -981,7 +1134,8 @@ def main(argv=None) -> int:
                           lambda o, a_=aug_, n_=n_, l_=lbw: (
                               _cuda.ptr(a_), _cuda.ptr(o[0]), n_, l_,
                               _cuda.stream_ptr(dev)), [out_],
-                          (n_ * givens_flops(lbw), n_ * (18 * 20 + 18 * 2) * 4))
+                          (n_ * givens_flops(lbw),
+                           givens_bytes(18, lbw, n_)), pieces=True)
     # the wrapper whole: minco.solve_coeffs builds A and b (~100 small
     # PyTorch ops), concatenates them and launches B5
     ms_coeffs = median_ms(torch, lambda: minco.solve_coeffs(head, tail, q0,
@@ -1328,7 +1482,7 @@ def main(argv=None) -> int:
         finite = all(bool(torch.isfinite(t).all()) for t in (
             state.drone.pos, state.drone.vel, state.drone.quat, state.buffer,
             state.metrics))
-        if not finite or state.buffer.shape != (n, env.n_buffer(pp, mp), 3,
+        if not finite or state.buffer.shape != (n, env.n_buffer(pp_, mp), 3,
                                                 2):
             raise AssertionError(f"the {name} loop produced non-finite state")
         return state, int(planned)
@@ -2031,6 +2185,282 @@ def main(argv=None) -> int:
     if min(planned_x) <= 0:
         raise AssertionError("an expert loop's timed segments replanned no "
                              "env")
+    # ================= the piece count M and the L-BFGS history H ==========
+    # ---- (h) the expert 'fused' loops at M = 5 (the reference's
+    # init_wpts_num 4): the scene path at B = 1024 and the gt+grid path at
+    # B = BV, goals at x = 20, 1 warm-up and 2 timed segments
+    pp5 = dataclasses.replace(pp, num_pieces=5)
+    _, planned_s5 = run_path(
+        "scene expert fused M=5", EXPERT_SCENE_PATH, B, lambda: env.reset(
+            worlds, pp5, mp, mapp, _cuda.make_generator(19), goal=goals_b),
+        n_seg=2, pp_=pp5, absent=("render_depth", "objective_scene_fwd",
+                                  "objective_scene_valgrad"),
+        planner="expert", solver="fused")
+    state_g5, planned_g5 = run_path(
+        "gt+grid expert fused M=5", EXPERT_GRID_PATH, BV, lambda: env.reset(
+            worlds_v, pp5, mp, mapp_d, _cuda.make_generator(20),
+            goal=goals_v, **gt_grid), n_seg=2, pp_=pp5,
+        per_segment=dict(edt_exact=0), at_reset=dict(edt_exact=1),
+        absent=("render_depth", "objective_grid_fwd",
+                "objective_grid_valgrad"), planner="expert", solver="fused")
+    if min(planned_s5, planned_g5) <= 0:
+        raise AssertionError("an M = 5 loop's timed segments replanned no "
+                             "env")
+
+    rng_m = np.random.default_rng(12)       # the M checks' own draws
+
+    def m_problems(M, n, start=None):
+        """n problems of M pieces from start (n, 2) (by default standard
+        normal around the origin) to ~2M m ahead, the distance whose
+        adaptive piece count is M: (x0, head, tail) on the card."""
+        pp_m = dataclasses.replace(pp, num_pieces=M)
+        head_m, tail_m, _, _ = boundary_problems(n, start=start, gen=rng_m)
+        tail_m[:, 0] = head_m[:, 0] + torch.tensor([2.0 * M, 0.0],
+                                                   device=dev) \
+            + torch.from_numpy(rng_m.normal(size=(n, 2))).float().to(dev)
+        q0_m = expert.straight_line_wpts(head_m[:, 0], tail_m[:, 0], pp_m) \
+            + torch.from_numpy(rng_m.normal(scale=0.4, size=(
+                n, 2, M - 1))).float().to(dev)
+        ts0_m = expert.init_ts(pp_m, dev) * torch.from_numpy(
+            rng_m.uniform(0.7, 1.3, (n, M))).float().to(dev)
+        x0_m = costs.pack(q0_m, minco.T_to_tau(ts0_m, pp.t_min, pp.t_max),
+                          pp_m)
+        return x0_m.contiguous(), head_m.contiguous(), tail_m.contiguous()
+
+    def gt_windows(M, start):
+        """BV problems of M pieces from start, each on its env's window of
+        the M = 5 gt+grid loop's maps (expert.make_plan_window)."""
+        pp_m = dataclasses.replace(pp, num_pieces=M)
+        x0_m, head_m, tail_m = m_problems(M, BV, start)
+        return x0_m, head_m, tail_m, expert.make_plan_window(
+            state_g5.emap, head_m, tail_m, pp_m)
+
+    # ---- (i) B5 at M = 2, 5, 12 and 16, both bands, N = B MINCO systems
+    for M in (2, 5, 12, 16):
+        pp_m = dataclasses.replace(pp, num_pieces=M)
+        x0_m, head_m, tail_m = m_problems(M, B)
+        q_m, tau_m = costs.unpack(x0_m, pp_m)
+        A_m, b_m = minco.build_system(head_m, tail_m, q_m, minco.tau_to_T(
+            tau_m, pp.t_min, pp.t_max))
+        n = 6 * M
+        for lbw, A_ in ((4, A_m), (2, A_m.transpose(1, 2))):
+            aug_m = torch.cat([A_, b_m], 2).contiguous()
+            out_m = torch.empty((B, n, 2), device=dev)
+            minco.launch_banded_solve(aug_m, out_m, lbw)
+            want_m = minco._givens_solve(A_, b_m, lbw, 6 - lbw)
+            scale = want_m.abs().amax((1, 2), keepdim=True).clamp(min=1.0)
+            err_m = float(((out_m - want_m).abs() / scale).max())
+            ms_k = median_ms(torch, lambda: minco.launch_banded_solve(
+                aug_m, out_m, lbw), 20)
+            ms_g = graph_ms(lambda: minco.launch_banded_solve(aug_m, out_m,
+                                                              lbw))
+            ms_p = median_ms(torch, lambda: minco._givens_solve(
+                A_, b_m, lbw, 6 - lbw), 3)
+            b_ms, b_by = bound(B * givens_flops(lbw, n),
+                               givens_bytes(n, lbw, B))
+            say(f"minco_banded_solve M={M} (n={n}) lower bandwidth {lbw} "
+                f"B={B}: max err {err_m:.3g} of each system's largest "
+                f"component (tol 1e-4) {'ok' if err_m <= 1e-4 else 'MISS'}; "
+                f"{ms_k:.4f} ms (events), device (graph) {ms_g:.4f} ms, "
+                f"plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+            if err_m > 1e-4:
+                raise AssertionError(f"minco_banded_solve at M={M} disagrees "
+                                     f"with its plain version")
+
+    # ---- (j) B2s and B7 at M = 5 and 12 at the lazy banks' shapes: 3072
+    # scene problems and their 12,288 candidates, 1536 window problems
+    # (the M = 5 gt+grid loop's maps) and their 6144 candidates
+    lanes = 1 + pp.retry_num
+    n_slots = scene.pack_prims(sc).shape[1]
+    start_g = state_g5.drone.pos[:, :2]
+    for M in (5, 12):
+        pp_m = dataclasses.replace(pp, num_pieces=M)
+        nv = pp_m.num_vars
+        x0_m, head_m, tail_m = m_problems(M, B)
+        xb = (x0_m.repeat_interleave(lanes, 0) + torch.from_numpy(
+            rng_m.normal(scale=0.3, size=(B * lanes, nv))).float().to(dev)
+        ).contiguous()
+        eb = torch.arange(B, device=dev).repeat_interleave(lanes)
+        objective_check("scene", f"bank B={B}", sc, xb,
+                        head_m.repeat_interleave(lanes, 0).contiguous(),
+                        tail_m.repeat_interleave(lanes, 0).contiguous(), eb,
+                        20 * n_active[eb.cpu().numpy()],
+                        B * n_slots * 6 * 4, record_it=False, pp_=pp_m)
+        x0_g, head_g5, tail_g5, win_m = gt_windows(M, start_g)
+        xg = (x0_g.repeat_interleave(lanes, 0) + torch.from_numpy(
+            rng_m.normal(scale=0.3, size=(BV * lanes, nv))).float().to(dev)
+        ).contiguous()
+        eg = torch.arange(BV, device=dev).repeat_interleave(lanes)
+        hg = head_g5.repeat_interleave(lanes, 0).contiguous()
+        tg = tail_g5.repeat_interleave(lanes, 0).contiguous()
+        objective_check("grid", f"gt+grid windows B={BV}", win_m, xg, hg, tg,
+                        eg, np.full(BV * lanes, 25.0),
+                        4 * window_cells_read(
+                            esdf.GridWindow(win_m.win[eg], win_m.worg[eg]),
+                            (xg,), hg, tg, pp_m)
+                        + win_m.worg.numel() * 4, record_it=False, pp_=pp_m)
+
+    # ---- (k) B1 and B6 at M = 5 and 12: at histories 5, 10 and 20 one
+    # iteration against the plain solver on the card (parity.one_iteration)
+    # and 24 iterations held to its acceptance and cost basin (basin(), its
+    # median tolerance from the plain solver's GPU-vs-CPU control on the
+    # first N_CTRL problems); at histories 2 and 3, 6 iterations, so that
+    # the ring wraps, on N_CTRL problems, f and x of each within 1e-3 of
+    # the plain solver on the card (parity.few_iterations, the plain
+    # solver on the CPU the control)
+    N_CTRL = 256
+    sc_cpu = scene.SceneMap(*(getattr(sc, f).cpu() for f in
+                              ("centers", "half", "is_cyl", "active")))
+    for M in (5, 12):
+        pp_m = dataclasses.replace(pp, num_pieces=M)
+        x0_g, head_g5, tail_g5, win_m = gt_windows(M, start_g)
+        win_cpu = esdf.GridWindow(win_m.win.cpu(), win_m.worg.cpu())
+        cases = (("lbfgs_scene_solve", solve.solve_scene, sc, sc_cpu,
+                  *m_problems(M, B), 20 * n_active, B * n_slots * 6 * 4),
+                 ("lbfgs_grid_solve", solve.solve_grid, win_m, win_cpu,
+                  x0_g, head_g5, tail_g5, np.full(BV, 25.0),
+                  win_m.win.numel() * 4))
+        for (name, fused, pmap, pmap_cpu, x0_m, head_m, tail_m, dfl,
+             map_bytes) in cases:
+            P = x0_m.shape[0]
+            env_m = torch.arange(P, device=dev)
+
+            def cpu(p, n, pmap_cpu=pmap_cpu, x0_m=x0_m, head_m=head_m,
+                    tail_m=tail_m):
+                return solve._solve_plain(
+                    x0_m[:n].cpu(), head_m[:n].cpu(), tail_m[:n].cpu(),
+                    pmap_cpu, torch.arange(n), p)
+            n_w = min(N_CTRL, P)
+            for H in (2, 3):
+                p6 = dataclasses.replace(pp_m, history=H, max_iters=6)
+                sub = (x0_m[:n_w], head_m[:n_w], tail_m[:n_w], pmap,
+                       env_m[:n_w], p6)
+                w6 = solve._solve_plain(*sub)
+                n_k, n_cc, worst = parity.few_iterations(fused(*sub), w6,
+                                                         cpu(p6, n_w))
+                say(f"{name} M={M} H={H} 6 iters on {n_w} problems (ring "
+                    f"wrapped on {int((w6[2] > H).sum())}): f or x off the "
+                    f"plain solver by > 1e-3 on {n_k} (tol 2 x {n_cc} + "
+                    f"{n_w // 64}; the plain solver on the CPU on {n_cc}), "
+                    f"largest relative difference elsewhere {worst:.3g}")
+            for H in (5, 10, 20):
+                p24 = dataclasses.replace(pp_m, history=H)
+                p1 = dataclasses.replace(p24, max_iters=1)
+                k1 = fused(x0_m, head_m, tail_m, pmap, env_m, p1)
+                w1 = solve._solve_plain(x0_m, head_m, tail_m, pmap, env_m, p1)
+                e1, n_flip = parity.one_iteration(x0_m, head_m, tail_m, pmap,
+                                                  env_m, p1, k1, w1)
+                ex = float((k1[0] - w1[0]).abs().max())
+                k24 = fused(x0_m, head_m, tail_m, pmap, env_m, p24)
+                w24 = solve._solve_plain(x0_m, head_m, tail_m, pmap, env_m,
+                                         p24)
+                ms_k = median_ms(torch, lambda: fused(
+                    x0_m, head_m, tail_m, pmap, env_m, p24), 3)
+                ms_p = median_ms(torch, lambda: solve._solve_plain(
+                    x0_m, head_m, tail_m, pmap, env_m, p24), 1)
+                t_c = time.perf_counter()
+                c24 = cpu(p24, n_w)[1]
+                t_c = time.perf_counter() - t_c
+                c1 = rel(w1[1][:n_w].cpu(), cpu(p1, n_w)[1])
+                label = f"{name} M={M} H={H} P={P}"
+                say(f"{label} 1 iter: f rel err max {e1:.3g} (tol 1e-3) "
+                    f"outside {n_flip} problems held to the f64 plain "
+                    f"solver or to another backtracking step (tol 1 in 16), "
+                    f"x max abs err {ex:.3g}; control on the CPU "
+                    f"{t_c:.1f} s")
+                med_tol = control_tol(label, w24[1][:n_w], c24)
+                basin(label, accepted(k24[0], head_m, tail_m, pmap, p24),
+                      accepted(w24[0], head_m, tail_m, pmap, p24), k24[1],
+                      w24[1], k24[2], c1, rel(w24[1][:n_w].cpu(), c24), n_w,
+                      med_tol, None)
+                iters = k24[2].cpu().numpy().astype(np.float64)
+                b_ms, b_by = bound(solve_flops(pp.samples_per_piece, dfl,
+                                               iters, M),
+                                   P * (2 * pp_m.num_vars + 12 + 2) * 4
+                                   + map_bytes)
+                say(f"{label} 24 iters: {ms_k:.3f} ms (events), plain "
+                    f"{ms_p:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # ---- (l) plan_adaptive on tests/test_expert.py's golden 24 m problem:
+    # M = 12 pieces, max_iters 96, two retries, a 160-cell window (the
+    # whole 120 x 160 map)
+    occ_a = torch.zeros((1, 120, 160), device=dev)
+    occ_a[0, 60, 80] = 1.0
+    emap_a = esdf.build(occ_a, (-2.0, -6.0), 0.1)
+    head_a = torch.zeros((1, 3, 2), device=dev)
+    head_a[0, 1, 0] = 0.5
+    tail_a = torch.zeros((1, 3, 2), device=dev)
+    tail_a[0, 0, 0] = 24.0
+    M_a = expert.adaptive_num_pieces(head_a[0, 0], tail_a[0, 0])
+    pp_a = PlannerParams(max_iters=96, retry_num=2, extra_lateral_scales=(),
+                         kernel_window_cells=160)
+    noise_a = torch.randn((1, pp_a.retry_num, 2, M_a - 1), device=dev,
+                          generator=_cuda.make_generator(21))
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj_a = expert.plan_adaptive(emap_a, head_a, tail_a, noise_a, pp_a)
+    torch.cuda.synchronize()
+    ms_a = (time.perf_counter() - t0) * 1e3
+    end_a = minco.eval_at(traj_a.coeffs, traj_a.ts,
+                          traj_a.ts.sum(1, keepdim=True), 0)[0, 0]
+    err_a = float(torch.linalg.vector_norm(
+        end_a - torch.tensor([24.0, 0.0], device=dev)))
+    ok_a = bool(traj_a.ok[0])
+    say(f"plan_adaptive golden 24 m: M={M_a}, ok {ok_a}, end-point error "
+        f"{err_a:.4f} m (tol 0.05), weighted cost "
+        f"{float(traj_a.costs[0] @ costs.weights(pp_a, dev)):.6g}, iters "
+        f"{int(traj_a.iters[0])}, {ms_a:.1f} ms; launches lbfgs_grid_solve "
+        f"{_cuda.launches['lbfgs_grid_solve']}, minco_banded_solve "
+        f"{_cuda.launches['minco_banded_solve']}")
+    if M_a != 12 or not ok_a or err_a > 0.05 or \
+            _cuda.launches["lbfgs_grid_solve"] <= 0:
+        raise AssertionError("plan_adaptive missed the golden's goal")
+
+    # ---- (m) --against: B1 and B6 at M = 3 and history 10, through their C
+    # entries, this tree's and the other's (whose entries may take no
+    # history): the elements whose bits differ and both times in turns
+    if other is not None:
+        this3 = _cuda.load_pieces(3)
+        x0_3, head_3, tail_3 = m_problems(3, B)
+        x0_g3, head_g3, tail_g3, win_3 = gt_windows(3, start_g)
+        for name, entry, x_, h_, t_, maps, sizes in (
+                ("lbfgs_scene_solve", "neo_lbfgs_scene_solve", x0_3, head_3,
+                 tail_3, (scene.pack_prims(sc),), (n_slots,)),
+                ("lbfgs_grid_solve", "neo_lbfgs_grid_solve", x0_g3, head_g3,
+                 tail_g3, (win_3.win.contiguous(), win_3.worg.contiguous()),
+                 tuple(win_3.win.shape[1:]))):
+            P = x_.shape[0]
+            env_ = torch.arange(P, device=dev, dtype=torch.int32)
+            skip_ = torch.zeros(P, device=dev, dtype=torch.int32)
+            outs = {lib: (torch.empty_like(x_), torch.empty(P, device=dev),
+                          torch.empty(P, dtype=torch.int32, device=dev))
+                    for lib in (other3, this3)}
+            n_args = len(getattr(this3, entry).argtypes)
+
+            def call(lib, entry=entry, x_=x_, h_=h_, t_=t_, maps=maps,
+                     sizes=sizes, P=P, env_=env_, skip_=skip_, outs=outs,
+                     n_args=n_args, name=name):
+                fn = getattr(lib, entry)
+                hist = (pp.history,) if len(fn.argtypes) == n_args else ()
+                o = outs[lib]
+                _cuda.check(fn(
+                    _cuda.ptr(x_), _cuda.ptr(h_), _cuda.ptr(t_),
+                    *map(_cuda.ptr, maps), _cuda.ptr(env_), _cuda.ptr(skip_),
+                    *map(_cuda.ptr, o), P, *sizes, pp.samples_per_piece,
+                    pp.max_iters, pp.max_ls, *hist, solve._params(pp),
+                    _cuda.stream_ptr(dev)), name)
+            for lib in outs:
+                call(lib)
+            torch.cuda.synchronize()
+            (o_o, o_m) = outs.values()
+            n_diff = sum(int((a.view(torch.int32) != b.view(torch.int32)
+                              ).sum()) for a, b in zip(o_o, o_m))
+            n_all = sum(a.numel() for a in o_o)
+            say(f"{name} M=3 H={pp.history} B={P} against {args.against}: "
+                f"{n_diff} of {n_all} elements (x, f, iters) differ (bits); "
+                f"{in_turns(call, pieces=True)[1]}")
+
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     for k in KERNELS:

@@ -3,51 +3,63 @@
 // the port of neoplanner_tpu/plan/solve_pallas.py `lbfgs_in_kernel` (:49).
 //
 // Semantics are those of ops/lbfgs.minimize: two-loop recursion over a ring
-// of kHist pairs, backtracking line search t0 * 0.5^k for k < max_ls taking
-// the first Armijo step (else the best finite candidate), a strict decrease
+// of `hist` pairs (the history H, 1..kMaxHist, a run-time count),
+// backtracking line search t0 * 0.5^k for k < max_ls taking the first
+// Armijo step (else the best finite candidate), a strict decrease
 // accepted even without Armijo, the curvature-guarded history update, NaN
 // guards, and the ftol / gtol / dead-line-search stop. What the TPU loop
 // needed for SIMD lanes goes: no one-hot selects over the ring buffers
 // (plain indexed loads), no f32 loop masks, no all-lane exits; each warp
 // stops at its own convergence and the line search at its first Armijo step.
 //
-// Every lane of the warp runs this loop on the same values: the 7-vectors
-// (x, g, the direction) are a few registers, and warp_objective hands every
-// lane the same f and g bit for bit. So every branch here — Armijo, accept,
-// done, the descent-direction reset, the NaN guards — is decided alike on
-// all lanes and never splits the warp around warp_objective's syncs. The
-// ring of (s, y, rho) lives in the warp's slice of shared memory (read as
+// Every lane of the warp runs this loop on the same values: the vectors
+// of 3M - 2 (x, g, the direction) are registers (7 at M = 3; past M = 5
+// some are spilled to local memory, ptxas_report.py), and warp_objective
+// hands every lane the same f and g bit for bit. So every branch here —
+// Armijo, accept, done, the descent-direction reset, the NaN guards — is
+// decided alike on all lanes and never splits the warp around
+// warp_objective's syncs. The ring of (s, y, rho) and the two-loop
+// recursion's alphas live in the warp's slice of shared memory (read as
 // broadcasts, written by lane 0), not in per-thread local memory, beside
-// warp_objective's scratch.
+// warp_objective's scratch; the launch sizes that slice for H
+// (warp_floats).
 #pragma once
 
 #include "objective.cuh"
 
 namespace neo {
 
-constexpr int kHist = 10;
-// floats of the ring in a warp's shared memory: s and y (kHist x kNV), rho
-constexpr int kRingFloats = 2 * kHist * kNV + kHist;
+constexpr int kMaxHist = 32;
+// floats of the ring in a warp's shared memory: s and y (hist x kNV), rho
+// and the alphas (hist each)
+__host__ __device__ constexpr int ring_floats(int hist) {
+  return 2 * hist * kNV + 2 * hist;
+}
 // a warp's shared memory: the ring, then warp_objective's scratch
-constexpr int kWarpFloats = kRingFloats + kScratchFloats;
+// (plan/solve.py `warp_floats` mirrors the count)
+__host__ __device__ constexpr int warp_floats(int hist) {
+  return ring_floats(hist) + kScratchFloats;
+}
 
 // Minimize the objective over query from x (updated in place); writes the
 // final value to *f_out and the iterations spent to *it_out. Called by all
 // 32 lanes of a warp with the same arguments; ring is the warp's own
-// kWarpFloats of shared memory.
+// warp_floats(hist) of shared memory.
 template <class Query>
 __device__ __forceinline__ void lbfgs_solve(float (&x)[kNV],
                                             const float (&hd)[6],
                                             const float (&tl)[6],
                                             const Query& query, int K,
                                             int max_iters, int max_ls,
-                                            const SolveParams& P, float* ring,
+                                            int hist, const SolveParams& P,
+                                            float* ring,
                                             int lane, float* f_out,
                                             int* it_out) {
-  float* s_hist = ring;                  // [kHist][kNV]
-  float* y_hist = ring + kHist * kNV;    // [kHist][kNV]
-  float* rho = ring + 2 * kHist * kNV;   // [kHist]
-  float* scratch = ring + kRingFloats;   // warp_objective's
+  float* s_hist = ring;                  // [hist][kNV]
+  float* y_hist = ring + hist * kNV;     // [hist][kNV]
+  float* rho = ring + 2 * hist * kNV;    // [hist]
+  float* alphas = rho + hist;            // [hist], by steps back
+  float* scratch = ring + ring_floats(hist);  // warp_objective's
   float g[kNV], xt[kNV], d[kNV], g_new[kNV];
 #pragma unroll
   for (int i = 0; i < kNV; ++i) xt[i] = x[i];
@@ -85,8 +97,8 @@ __device__ __forceinline__ void lbfgs_solve(float (&x)[kNV],
           rho[head_i] = 1.0f / fmaxf(ys, 1e-20f);
         }
         __syncwarp();
-        head_i = (head_i + 1) % kHist;
-        count = min(count + 1, kHist);
+        head_i = (head_i + 1) % hist;
+        count = min(count + 1, hist);
       }
       const float f_drop =
           (f - f_new) / fmaxf(fmaxf(fabsf(f), fabsf(f_new)), 1.0f);
@@ -102,28 +114,27 @@ __device__ __forceinline__ void lbfgs_solve(float (&x)[kNV],
     f = f_new;
     if (done || it >= max_iters) break;
 
-    // ---- two-loop recursion; pair ii steps back is ring slot head_i-1-ii,
-    // and the loops are unrolled over ii so that alphas stay in registers
-    float q[kNV], alphas[kHist];
+    // ---- two-loop recursion; pair ii steps back is ring slot
+    // head_i-1-ii, its alpha at alphas[ii]
+    float q[kNV];
 #pragma unroll
     for (int i = 0; i < kNV; ++i) q[i] = g[i];
+#pragma unroll 1
+    for (int ii = 0; ii < count; ++ii) {
+      const int idx = (head_i - 1 - ii + hist) % hist;
+      float sq = 0.0f;
 #pragma unroll
-    for (int ii = 0; ii < kHist; ++ii) {
-      alphas[ii] = 0.0f;
-      if (ii < count) {
-        const int idx = (head_i - 1 - ii + kHist) % kHist;
-        float sq = 0.0f;
+      for (int i = 0; i < kNV; ++i) sq += s_hist[idx * kNV + i] * q[i];
+      const float alpha = rho[idx] * sq;
 #pragma unroll
-        for (int i = 0; i < kNV; ++i) sq += s_hist[idx * kNV + i] * q[i];
-        const float alpha = rho[idx] * sq;
-#pragma unroll
-        for (int i = 0; i < kNV; ++i) q[i] = q[i] - alpha * y_hist[idx * kNV + i];
-        alphas[ii] = alpha;
-      }
+      for (int i = 0; i < kNV; ++i)
+        q[i] = q[i] - alpha * y_hist[idx * kNV + i];
+      if (lane == 0) alphas[ii] = alpha;
     }
+    __syncwarp();  // the alphas, for every lane
     float gamma = 1.0f;
     if (count > 0) {
-      const int nw = (head_i - 1 + kHist) % kHist;
+      const int nw = (head_i - 1 + hist) % hist;
       float sy = 0.0f, yy = 0.0f;
 #pragma unroll
       for (int i = 0; i < kNV; ++i) {
@@ -134,18 +145,16 @@ __device__ __forceinline__ void lbfgs_solve(float (&x)[kNV],
     }
 #pragma unroll
     for (int i = 0; i < kNV; ++i) d[i] = gamma * q[i];
+#pragma unroll 1
+    for (int ii = count - 1; ii >= 0; --ii) {  // oldest pair first
+      const int idx = (head_i - 1 - ii + hist) % hist;
+      float yr = 0.0f;
 #pragma unroll
-    for (int ii = kHist - 1; ii >= 0; --ii) {  // oldest pair first
-      if (ii < count) {
-        const int idx = (head_i - 1 - ii + kHist) % kHist;
-        float yr = 0.0f;
+      for (int i = 0; i < kNV; ++i) yr += y_hist[idx * kNV + i] * d[i];
+      const float beta = rho[idx] * yr;
 #pragma unroll
-        for (int i = 0; i < kNV; ++i) yr += y_hist[idx * kNV + i] * d[i];
-        const float beta = rho[idx] * yr;
-#pragma unroll
-        for (int i = 0; i < kNV; ++i)
-          d[i] = d[i] + s_hist[idx * kNV + i] * (alphas[ii] - beta);
-      }
+      for (int i = 0; i < kNV; ++i)
+        d[i] = d[i] + s_hist[idx * kNV + i] * (alphas[ii] - beta);
     }
     float gtd = 0.0f, gg = 0.0f, g1 = 0.0f;
 #pragma unroll

@@ -14,9 +14,11 @@
 // read-only cache, unchanged.
 //
 // Bound on the H100: operations and one problem's chain of dependent
-// steps, as B1: ~100 objective evaluations of 72 samples (four window
-// loads each) and one or two 18x18 banded solves, in sequence, from a 36 KB
-// f32 window that the problems of one env share (it stays in L1/L2).
+// steps, as B1: ~100 objective evaluations of M*K samples (72 at M = 3,
+// four window loads each) and one or two 6M x 6M banded solves, in
+// sequence, from a 36 KB f32 window that the problems of one env share (it
+// stays in L1/L2). Built once per M as B1, the history a launch argument,
+// each warp's ring and scratch in dynamic shared memory.
 // Design: B1's, one warp per problem with the samples over its lanes and
 // the Givens rotations by columns; the ring in the warp's shared memory.
 // A skipped problem's warp exits at once, so the lazy bank needs no
@@ -43,8 +45,8 @@ __global__ void __launch_bounds__(kBlock, 2)
                       const int* __restrict__ skip, float* __restrict__ x_out,
                       float* __restrict__ f_out, int* __restrict__ it_out,
                       int n_problems, int Hw, int Ww, int K, int max_iters,
-                      int max_ls, neo::SolveParams P) {
-  __shared__ float rings[kWarps][neo::kWarpFloats];
+                      int max_ls, int hist, neo::SolveParams P) {
+  extern __shared__ float smem[];  // per warp: the ring, then the scratch
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int p = blockIdx.x * kWarps + warp;
@@ -63,8 +65,8 @@ __global__ void __launch_bounds__(kBlock, 2)
       hd[i] = head[p * 6 + i];
       tl[i] = tail[p * 6 + i];
     }
-    neo::lbfgs_solve(x, hd, tl, query, K, max_iters, max_ls, P, rings[warp],
-                     lane, &f, &it);
+    neo::lbfgs_solve(x, hd, tl, query, K, max_iters, max_ls, hist, P,
+                     smem + warp * neo::warp_floats(hist), lane, &f, &it);
   }
   if (lane == 0) {
 #pragma unroll
@@ -82,19 +84,29 @@ extern "C" int neo_lbfgs_grid_solve(const void* x0, const void* head,
                                     const void* skip, void* x_out,
                                     void* f_out, void* it_out, int n_problems,
                                     int Hw, int Ww, int K, int max_iters,
-                                    int max_ls, const float* host_params,
-                                    void* stream) {
+                                    int max_ls, int hist,
+                                    const float* host_params, void* stream) {
+  if (hist < 1 || hist > neo::kMaxHist)
+    return static_cast<int>(cudaErrorInvalidValue);
   neo::SolveParams P;
   static_assert(sizeof(neo::SolveParams) == 11 * sizeof(float), "layout");
   memcpy(&P, host_params, sizeof(P));
+  const size_t smem =
+      static_cast<size_t>(neo::warp_floats(hist)) * kWarps * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lbfgs_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 block(kBlock);
   const dim3 grid((n_problems + kWarps - 1) / kWarps);
-  lbfgs_grid_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  lbfgs_grid_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x0), static_cast<const float*>(head),
       static_cast<const float*>(tail), static_cast<const float*>(win),
       static_cast<const float*>(worg), static_cast<const int*>(env_of),
       static_cast<const int*>(skip), static_cast<float*>(x_out),
       static_cast<float*>(f_out), static_cast<int*>(it_out), n_problems, Hw,
-      Ww, K, max_iters, max_ls, P);
+      Ww, K, max_iters, max_ls, hist, P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,20 +55,57 @@ __device__ __forceinline__ float rot_r(float cs, float sn, float rc,
   return __fmaf_rn(cs, rr, __fmul_rn(-sn, rc));
 }
 
+// warp_givens_solve's layout of a system in a warp's shared memory: the N
+// columns of A, column j holding only its band, rows j - FILL .. j + LBW
+// (kBW floats: QR fills the upper band to FILL, and the LBW entries below
+// the diagonal are read once), kStride apart, then the D right-hand sides,
+// N rows each. A row outside 0 .. N - 1 is never read. Lane j reads row c
+// of its column at j (kStride - 1) + c + FILL: kStride is even, so that
+// the lanes' columns fall in 32 distinct banks.
+template <int N, int D, int LBW, int FILL>
+struct BandLayout {
+  static constexpr int kBW = FILL + LBW + 1;
+  static constexpr int kStride = kBW + (kBW & 1);
+  static constexpr int kRhs = N * kStride;
+  static constexpr int kFloats = kRhs + D * N;
+  static constexpr int kCols = (N + D + 31) / 32;  // columns a lane owns
+  // A[r][j], j < N and r in j - FILL .. j + LBW
+  __host__ __device__ static constexpr int at(int r, int j) {
+    return j * kStride + r - j + FILL;
+  }
+  // row r of right-hand side d
+  __host__ __device__ static constexpr int rhs(int r, int d) {
+    return kRhs + d * N + r;
+  }
+};
+
 // Column c's pass of warp_givens_solve; GUARD for the last LBW columns,
 // whose rotations stop at row N - 1 (the others need no test per rotation).
 template <int N, int D, int LBW, int FILL, bool GUARD>
 __device__ __forceinline__ void givens_column(float* sys, float* diag,
-                                              float* own, int lane, int c) {
-  constexpr int S = N + 1;
+                                              int lane, int c,
+                                              const int (&base)[
+                                                  BandLayout<N, D, LBW,
+                                                             FILL>::kCols]) {
+  using L = BandLayout<N, D, LBW, FILL>;
+  constexpr int C = L::kCols;
   __syncwarp();  // column c's rows as the previous columns left them
-  const float* pc = sys + c * S;
-  float a_cc = pc[c], own_c = own[c], a_r[LBW], own_r[LBW];
+  const float* pc = sys + L::at(c, c);
+  // rows c .. c + LBW of column c and of this lane's columns (a lane past
+  // the last column reads the last one's; only the lanes in the band write)
+  int col[C];
+  float a_cc = pc[0], a_r[LBW], own_c[C], own_r[C][LBW];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    col[k] = base[k] + c;
+    own_c[k] = sys[col[k]];
+  }
 #pragma unroll
   for (int t = 0; t < LBW; ++t) {
     const bool in = !GUARD || c + 1 + t < N;
-    a_r[t] = in ? pc[c + 1 + t] : 0.0f;
-    own_r[t] = in ? own[c + 1 + t] : 0.0f;
+    a_r[t] = in ? pc[1 + t] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) own_r[k][t] = in ? sys[col[k] + 1 + t] : 0.0f;
   }
 #pragma unroll
   for (int t = 0; t < LBW; ++t) {
@@ -76,19 +113,25 @@ __device__ __forceinline__ void givens_column(float* sys, float* diag,
       float cs, sn;
       givens(a_cc, a_r[t], &cs, &sn);
       a_cc = rot_c(cs, sn, a_cc, a_r[t]);
-      const float nr = rot_r(cs, sn, own_c, own_r[t]);
-      own_c = rot_c(cs, sn, own_c, own_r[t]);
-      own_r[t] = nr;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const float nr = rot_r(cs, sn, own_c[k], own_r[k][t]);
+        own_c[k] = rot_c(cs, sn, own_c[k], own_r[k][t]);
+        own_r[k][t] = nr;
+      }
     }
   }
-  const bool band = lane < N + D && lane > c && (lane <= c + FILL || lane >= N);
-  if (band) {
-    own[c] = own_c;
 #pragma unroll
-    for (int t = 0; t < LBW; ++t)
-      if (!GUARD || c + 1 + t < N) own[c + 1 + t] = own_r[t];
+  for (int k = 0; k < C; ++k) {
+    const int j = lane + 32 * k;
+    if (j < N + D && j > c && (j <= c + FILL || j >= N)) {
+      sys[col[k]] = own_c[k];
+#pragma unroll
+      for (int t = 0; t < LBW; ++t)
+        if (!GUARD || c + 1 + t < N) sys[col[k] + 1 + t] = own_r[k][t];
+    }
   }
-  if (lane == c) diag[c] = own_c;
+  if (lane == (c & 31)) diag[c] = a_cc;
 }
 
 // Solve the banded system A x = b (A with LBW sub-diagonals, D right-hand
@@ -98,33 +141,40 @@ __device__ __forceinline__ void givens_column(float* sys, float* diag,
 // right-hand sides; entries left of the diagonal are never read again. For
 // every entry that is read these are the values of the full-row rotations
 // of ops/minco.py `_givens_solve`, in its order. One warp runs it, on the
-// system held by columns in the warp's shared memory: column j (j < N: A's;
-// N + d: right-hand side d) at sys[j * (N + 1) + row], lane j owning column
-// j (the odd stride puts a row of 32 columns in 32 banks). Column c's pass loads A[c][c] and the LBW
-// entries below it, and each lane its own column's rows c .. c + LBW, then
-// runs the column's rotations in registers — A[c][c] carried on every lane,
-// the owner's own update bit for bit — and each lane in the band
-// [c, c + FILL] or holding a right-hand side writes its rows back.
-// The owner of column c writes only the diagonal, to diag[c] (its entries
-// below the diagonal are never read again), so no lane writes column c while
-// another may still be loading it, and one sync per column suffices. Lanes
-// 0 .. D-1 then back-substitute one right-hand side each into sol[N][D],
-// the last FILL values in registers. The loops run at run time, so the
-// code stays a few hundred instructions: unrolled over (c, r) the two
-// solves were thousands, fetched anew at each evaluation.
+// system in BandLayout in the warp's shared memory, column j owned by lane
+// j % 32 (ceil((N + D) / 32) columns a lane, their offsets kept across the
+// passes). Column c's pass loads A[c][c] and the LBW entries below it on
+// every lane, and each lane rows c .. c + LBW of its own columns; then the
+// rotations run in registers — A[c][c] carried on every lane, each (cs,
+// sn) applied to the lane's columns as it comes — and the lanes whose
+// columns lie in the band (c, c + FILL] or on the right-hand side write
+// them back; the owner of column c writes the final pivot to diag[c]. No
+// lane writes column c while another may still be loading it, so one sync
+// per column suffices. Lanes 0 .. D-1 then back-substitute one right-hand
+// side each into sol[N][D], the last FILL values in registers. Where
+// N + D <= 32 each lane owns one column and every value goes through the
+// operations, in the order, of the one-column-a-lane dense form. The loops
+// run at run time, so the code stays a few hundred instructions.
 template <int N, int D, int LBW, int FILL>
 __device__ __forceinline__ void warp_givens_solve(float* sys, float* diag,
                                                   int lane, float* sol) {
-  static_assert(N + D <= 32 && LBW < N, "one column per lane");
-  constexpr int S = N + 1;
-  float* own = sys + (lane < N + D ? lane : N + D - 1) * S;
+  static_assert(LBW < N && D <= 32, "a band below the diagonal, D lanes");
+  using L = BandLayout<N, D, LBW, FILL>;
+  // offset of row 0 of this lane's columns (a lane past the last column
+  // takes the last one's)
+  int base[L::kCols];
+#pragma unroll
+  for (int k = 0; k < L::kCols; ++k) {
+    const int j = min(lane + 32 * k, N + D - 1);
+    base[k] = j < N ? L::at(0, j) : L::rhs(0, j - N);
+  }
   int c = 0;
 #pragma unroll 1
   for (; c < N - LBW; ++c)
-    givens_column<N, D, LBW, FILL, false>(sys, diag, own, lane, c);
+    givens_column<N, D, LBW, FILL, false>(sys, diag, lane, c, base);
 #pragma unroll 1
   for (; c < N; ++c)
-    givens_column<N, D, LBW, FILL, true>(sys, diag, own, lane, c);
+    givens_column<N, D, LBW, FILL, true>(sys, diag, lane, c, base);
   __syncwarp();
   if (lane < D) {
     float xw[FILL];  // x[c + 1 .. c + FILL] of this right-hand side
@@ -132,10 +182,11 @@ __device__ __forceinline__ void warp_givens_solve(float* sys, float* diag,
     for (int t = 0; t < FILL; ++t) xw[t] = 0.0f;
 #pragma unroll 1
     for (int c = N - 1; c >= 0; --c) {
-      float acc = sys[(N + lane) * S + c];
+      float acc = sys[L::rhs(c, lane)];
 #pragma unroll
       for (int t = 0; t < FILL; ++t)
-        if (c + 1 + t < N) acc = __fmaf_rn(-sys[(c + 1 + t) * S + c], xw[t], acc);
+        if (c + 1 + t < N)
+          acc = __fmaf_rn(-sys[L::at(c, c + 1 + t)], xw[t], acc);
       const float xc = acc / diag[c];
       sol[c * D + lane] = xc;
 #pragma unroll

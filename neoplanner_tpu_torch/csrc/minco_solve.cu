@@ -1,22 +1,31 @@
-// B5: batched banded Givens-QR solve of the 18x18 MINCO system, 2 rhs.
+// B5: batched banded Givens-QR solve of the (6M)x(6M) MINCO system, 2 rhs.
 //
 // Replaces neoplanner_tpu/ops/minco_pallas.py `_make_kernel` (:37), launched
 // by `_solve_batch` (:81). Python wrapper: ops/minco.py `banded_solve`.
+// Built once per piece count M (NEO_M, 2..16) into that M's library
+// (_cuda.load_pieces), n = 6M.
 //
 // Design: one warp per problem, kWarps problems a block, on the warp form of
 // the solve that the objective kernels run (neo::warp_givens_solve: the
-// system by columns in the warp's shared memory, a lane a column, the
-// rotations of column c in registers). The block's threads first load its
-// problems' contiguous kWarps x 1,440 B of aug together, 16 B a lane where
-// the rows allow it, and scatter each value into its warp's column layout;
-// after one barrier each warp solves, and its 36 outputs, contiguous in
-// out, go out as one coalesced store of the warp. A warp past the last
-// problem returns as a whole warp after the barrier.
+// band of each column and the right-hand sides in the warp's shared
+// memory, column j on lane j % 32, the rotations of column c in
+// registers). Each warp loads its problem's n (n + 2) floats of aug, 16 B
+// a lane where the rows allow it and kLoads loads in flight a lane before
+// their values are scattered into its layout (entries outside the band
+// are never read by the solve), then solves, and its 2n outputs,
+// contiguous in out, go out as one coalesced store of the warp. No barrier
+// spans the block, so a warp past the last problem returns at once (staged
+// by the whole block behind one barrier, with the scatter's index
+// arithmetic between the loads, the loads' round trips did not overlap:
+// 2,866 cycles a block at M = 3 on the H100, by clock64).
 //
-// Bound on the H100: device memory by the bytes (~2 flops per byte read),
-// but what the card can reach is the warp's dependent chain: 62 rotations
-// (LBW = 4; 33 at LBW = 2), each with an IEEE square root and a divide, 18
-// column syncs and 18 divides of the back substitution. kWarps = 2 spreads
+// Bound on the H100: device memory by the bytes. The solve needs of each
+// row only its band and its right-hand sides: in 32 B sectors ~1.3 KB a
+// problem at M = 3 and 8.6 KB at M = 16 with the solution, of the dense
+// aug's 1,440 and 37,632 B that this kernel reads whole. What the card
+// can reach at small M is the warp's dependent chain: per column
+// up to LBW rotations, each with an IEEE square root and a divide, n column
+// syncs and n divides of the back substitution. kWarps = 2 spreads
 // N = 512 over 256 blocks and N = 1024 over 512, every SM busy.
 //
 // LBW = 4 is the forward band of A, LBW = 2 the transposed band of A^T.
@@ -25,53 +34,82 @@
 
 #include "minco_device.cuh"
 
+#ifndef NEO_M
+#define NEO_M 3
+#endif
+
 namespace {
 
-constexpr int kN = 18;
+constexpr int kN = 6 * NEO_M;
 constexpr int kD = 2;
+constexpr int kFill = 6;               // upper band of R: LBW + UBW
 constexpr int kW = kN + kD;            // columns of aug = [A | b]
-constexpr int kS = kN + 1;             // column stride in shared memory
-constexpr int kAug = kN * kW;          // floats of one problem's aug (360)
-constexpr int kOut = kN * kD;          // floats of one solution (36)
+constexpr int kAug = kN * kW;          // floats of one problem's aug
+constexpr int kOut = kN * kD;          // floats of one solution
 constexpr int kWarps = 2;              // problems a block, one warp each
 constexpr int kBlock = 32 * kWarps;
+constexpr int kLoads = 3;              // staging loads in flight a lane
+// blocks an SM that __launch_bounds__ asks for: up to M = 3, 29 caps the
+// kernel at 35 registers (65,536 / (64 x 29)), where the compiler's own
+// choice is 39; at M = 3 on the H100 the cap gives 32, no spill and the
+// same time (0.0112 against 0.0111 ms at N = 1024). Past M = 3 the
+// compiler's choice stands.
+constexpr int kMinBlocks = kN + kD <= 20 ? 29 : 1;
 static_assert(kAug % 4 == 0, "a problem's aug is whole float4s");
 
-// value i of the block's aug, at row-major (row, j) of problem w, into that
-// warp's column layout
+template <int LBW>
+using Band = neo::BandLayout<kN, kD, LBW, kFill>;
+
+// value i of a problem's aug, at row-major (row, j), into its warp's band
+// layout; a value outside the band goes to the slot past the layout, which
+// the solve never reads (a store either way: no branch)
+template <int LBW>
 __device__ __forceinline__ void put(float* sys, int i, float v) {
-  const int w = i / kAug, rem = i - w * kAug;
-  const int row = rem / kW, j = rem - row * kW;
-  sys[w * (kW * kS) + j * kS + row] = v;
+  const int row = i / kW, j = i - row * kW;
+  const int off = row - j + kFill;
+  sys[j >= kN ? Band<LBW>::rhs(row, j - kN)
+              : (off >= 0 && off < Band<LBW>::kBW ? Band<LBW>::at(row, j)
+                                                   : Band<LBW>::kFloats)] = v;
 }
 
 template <int LBW>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
     minco_banded_solve_kernel(const float* __restrict__ aug,
                               float* __restrict__ out, int n_problems) {
-  __shared__ float sys[kWarps * kW * kS];
+  __shared__ float sys[kWarps * (Band<LBW>::kFloats + 1)];
   __shared__ float diag[kWarps][kN];
   __shared__ float sol[kWarps][kOut];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p0 = blockIdx.x * kWarps;
-  const int n_here = min(kWarps, n_problems - p0);
-  const float* a = aug + static_cast<long long>(p0) * kAug;
-  const int n_vals = n_here * kAug;
+  if (p0 + warp >= n_problems) return;  // the whole warp: no problem left
+  float* ws = sys + warp * (Band<LBW>::kFloats + 1);
+  const float* a = aug + static_cast<long long>(p0 + warp) * kAug;
   if ((reinterpret_cast<uintptr_t>(aug) & 15) == 0) {
-    for (int q = tid; q < n_vals / 4; q += kBlock) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(a) + q);
-      put(sys, 4 * q, v.x);
-      put(sys, 4 * q + 1, v.y);
-      put(sys, 4 * q + 2, v.z);
-      put(sys, 4 * q + 3, v.w);
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    constexpr int n4 = kAug / 4;
+    for (int q0 = lane; q0 < n4; q0 += 32 * kLoads) {
+      float4 v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int q = q0 + u * 32;
+        if (q < n4) v[u] = __ldg(a4 + q);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int q = q0 + u * 32;
+        if (q < n4) {
+          put<LBW>(ws, 4 * q, v[u].x);
+          put<LBW>(ws, 4 * q + 1, v[u].y);
+          put<LBW>(ws, 4 * q + 2, v[u].z);
+          put<LBW>(ws, 4 * q + 3, v[u].w);
+        }
+      }
     }
   } else {
-    for (int i = tid; i < n_vals; i += kBlock) put(sys, i, __ldg(a + i));
+    for (int i = lane; i < kAug; i += 32) put<LBW>(ws, i, __ldg(a + i));
   }
-  __syncthreads();
-  if (warp >= n_here) return;  // the whole warp: no problem left
-  neo::warp_givens_solve<kN, kD, LBW, 6>(sys + warp * (kW * kS), diag[warp],
-                                         lane, sol[warp]);
+  neo::warp_givens_solve<kN, kD, LBW, kFill>(ws, diag[warp], lane,
+                                             sol[warp]);
   float* o = out + static_cast<long long>(p0 + warp) * kOut;
   for (int i = lane; i < kOut; i += 32) o[i] = sol[warp][i];
 }

@@ -29,13 +29,23 @@
 
 #include "minco_device.cuh"
 
+// The piece count M is fixed per build: each M in 2..16 has its own
+// library, compiled with -DNEO_M=M (_cuda.load_pieces).
+#ifndef NEO_M
+#define NEO_M 3
+#endif
+
 namespace neo {
 
-constexpr int kM = 3;                     // pieces
+constexpr int kM = NEO_M;                 // pieces
+static_assert(kM >= 2 && kM <= 16, "M in 2..16");
 constexpr int kDim = 2;                   // planar trajectories
 constexpr int kNW = kM - 1;               // intermediate waypoints
-constexpr int kNV = kDim * kNW + kM;      // decision variables (7)
-constexpr int kNS = 6 * kM;               // system size (18)
+constexpr int kNV = kDim * kNW + kM;      // decision variables (3M - 2)
+constexpr int kNS = 6 * kM;               // system size (6M)
+constexpr int kFill = 6;                  // upper band of R (LBW + UBW)
+using FwdBand = BandLayout<kNS, kDim, 4, kFill>;  // A
+using AdjBand = BandLayout<kNS, kDim, 2, kFill>;  // A^T
 
 struct SolveParams {
   float t_min, t_max, v_max, safe_dis, w_e, w_t, w_f, w_c, ftol, gtol, c1;
@@ -69,36 +79,49 @@ __device__ __forceinline__ void durations(const float (&x)[kNV],
   }
 }
 
-// put(r, c, v) for every nonzero entry of A(T) (minco.build_system).
-template <class Put>
-__device__ __forceinline__ void system_entries(const float (&T)[kM],
-                                               Put&& put) {
-  put(0, 0, 1.0f);
-  put(1, 1, 1.0f);
-  put(2, 2, 2.0f);
+// T[i] for a run-time i, by selects (no local-memory indexing)
+__device__ __forceinline__ float piece_value(const float (&T)[kM], int i) {
+  float v = T[0];
 #pragma unroll
-  for (int i = 0; i < kM - 1; ++i) {
+  for (int m = 1; m < kM; ++m) v = i == m ? T[m] : v;
+  return v;
+}
+
+// put(r, c, v) for the nonzero entries of A(T) (minco.build_system) in
+// group g: 0 the head rows, 1 .. kM - 1 the continuity rows of piece
+// g - 1, kM the tail rows; any other g puts nothing. Lane g of a warp
+// takes group g, so the groups are written side by side.
+template <class Put>
+__device__ __forceinline__ void system_entries(const float (&T)[kM], int g,
+                                               Put&& put) {
+  if (g == 0) {
+    put(0, 0, 1.0f);
+    put(1, 1, 1.0f);
+    put(2, 2, 2.0f);
+  } else if (g < kM) {
+    const int i = g - 1;
     float p[6];
-    powers6(T[i], p);
+    powers6(piece_value(T, i), p);
     const int c0 = 6 * i, base = 6 * i + 3;
 #pragma unroll
     for (int rr = 0; rr < 6; ++rr) {
       // derivative order of row rr: 0, 0, 1, 2, 3, 4 (arithmetic, so that
-      // the j loop's bounds fold and every index stays a constant)
+      // the j loop's bounds fold and every power index stays a constant)
       const int k = rr > 0 ? rr - 1 : 0;
 #pragma unroll
       for (int j = k; j < 6; ++j)
         put(base + rr, c0 + j, __fmul_rn(falling(k, j), p[j - k]));
       if (rr >= 1) put(base + rr, c0 + 6 + rr - 1, -falling(rr - 1, rr - 1));
     }
+  } else if (g == kM) {
+    float p[6];
+    powers6(T[kM - 1], p);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int j = k; j < 6; ++j)
+        put(kNS - 3 + k, kNS - 6 + j, __fmul_rn(falling(k, j), p[j - k]));
   }
-  float p[6];
-  powers6(T[kM - 1], p);
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int j = k; j < 6; ++j)
-      put(kNS - 3 + k, kNS - 6 + j, __fmul_rn(falling(k, j), p[j - k]));
 }
 
 // put(r, bx, by) for every nonzero row of the forward right-hand side: the
@@ -117,35 +140,23 @@ __device__ __forceinline__ void rhs_entries(const float (&x)[kNV],
   for (int i = 0; i < kNW; ++i) put(6 * i + 3, x[i], x[kNW + i]);
 }
 
-// A(T) (or its transpose) by columns, as warp_givens_solve holds it: this
-// lane's column of the matrix, zeros on the lanes past it.
-template <bool TRANSPOSE>
-__device__ __forceinline__ void build_columns(const float (&T)[kM], int lane,
-                                              float (&col)[kNS]) {
-#pragma unroll
-  for (int i = 0; i < kNS; ++i) col[i] = 0.0f;
-  system_entries(T, [&](int r, int c, float v) {
-    if (TRANSPOSE)
-      col[c] = lane == r ? v : col[c];
-    else
-      col[r] = lane == c ? v : col[r];
-  });
-}
-
-// The energy, a 3-point Gauss-Legendre of |jerk|^2 per piece; with GRAD its
-// cotangents are added to Tbar and cbar.
+// The energy, a 3-point Gauss-Legendre of |jerk|^2 per piece, from the
+// coefficients xs[6m + j][d] at xs[(6m + j) * kDim + d]; with GRAD lane 0
+// starts the sums with its cotangents: cbar[6m + j][d] at sums[(6m + j) *
+// kDim + d] and Tbar[m] + w_t at sums[sum_tbar + m].
 template <bool GRAD>
-__device__ __forceinline__ float energy_terms(const float (&xs)[kNS][kDim],
+__device__ __forceinline__ float energy_terms(const float* xs,
                                               const float (&T)[kM],
-                                              const SolveParams& P,
-                                              float (&Tbar)[kM],
-                                              float (&cbar)[kNS][kDim]) {
+                                              const SolveParams& P, int lane,
+                                              float* sums, int sum_tbar) {
   const float gl_nodes[3] = {0.5f - 0.38729833462074170f, 0.5f,
                              0.5f + 0.38729833462074170f};
   const float gl_w[3] = {5.0f / 18.0f, 8.0f / 18.0f, 5.0f / 18.0f};
   float energy = 0.0f;
 #pragma unroll
   for (int m = 0; m < kM; ++m) {
+    const float* c = xs + 6 * m * kDim;
+    float Te = 0.0f, ce[6][kDim] = {};
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       const float t = T[m] * gl_nodes[q];
@@ -154,12 +165,12 @@ __device__ __forceinline__ float energy_terms(const float (&xs)[kNS][kDim],
 #pragma unroll
       for (int j = 3; j < 6; ++j) {
         const float b3 = __fmul_rn(falling(3, j), pw3[j - 3]);
-        jx = __fmaf_rn(b3, xs[6 * m + j][0], jx);
-        jy = __fmaf_rn(b3, xs[6 * m + j][1], jy);
+        jx = __fmaf_rn(b3, c[j * kDim], jx);
+        jy = __fmaf_rn(b3, c[j * kDim + 1], jy);
         if (GRAD && j >= 4) {
           const float b4 = __fmul_rn(falling(4, j), pw3[j - 4]);
-          sx = __fmaf_rn(b4, xs[6 * m + j][0], sx);
-          sy = __fmaf_rn(b4, xs[6 * m + j][1], sy);
+          sx = __fmaf_rn(b4, c[j * kDim], sx);
+          sy = __fmaf_rn(b4, c[j * kDim + 1], sy);
         }
       }
       const float jsq = __fmaf_rn(jx, jx, __fmul_rn(jy, jy));
@@ -168,18 +179,24 @@ __device__ __forceinline__ float energy_terms(const float (&xs)[kNS][kDim],
         const float js = __fmaf_rn(jx, sx, __fmul_rn(jy, sy));
         const float dt = __fmaf_rn(__fmul_rn(__fmul_rn(T[m], 2.0f), js),
                                    gl_nodes[q], jsq);
-        Tbar[m] = __fmaf_rn(__fmul_rn(P.w_e, gl_w[q]), dt, Tbar[m]);
+        Te = __fmaf_rn(__fmul_rn(P.w_e, gl_w[q]), dt, Te);
         const float scale = __fmul_rn(__fmul_rn(P.w_e, gl_w[q]),
                                       __fmul_rn(T[m], 2.0f));
 #pragma unroll
         for (int j = 3; j < 6; ++j) {
           const float b3 = __fmul_rn(falling(3, j), pw3[j - 3]);
-          cbar[6 * m + j][0] = __fmaf_rn(__fmul_rn(scale, jx), b3,
-                                         cbar[6 * m + j][0]);
-          cbar[6 * m + j][1] = __fmaf_rn(__fmul_rn(scale, jy), b3,
-                                         cbar[6 * m + j][1]);
+          ce[j][0] = __fmaf_rn(__fmul_rn(scale, jx), b3, ce[j][0]);
+          ce[j][1] = __fmaf_rn(__fmul_rn(scale, jy), b3, ce[j][1]);
         }
       }
+    }
+    if (GRAD && lane == 0) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        sums[(6 * m + j) * kDim] = ce[j][0];
+        sums[(6 * m + j) * kDim + 1] = ce[j][1];
+      }
+      sums[sum_tbar + m] = Te + P.w_t;
     }
   }
   return energy;
@@ -258,15 +275,16 @@ __device__ __forceinline__ SampleTerms sample_terms(const float (&c)[6][kDim],
 
 // The gradient g from the adjoint lam = A^-T cbar: the waypoints' b-row
 // cotangents, Abar = -lam xs^T into Tbar through d beta_k / dT = beta_{k+1},
-// and the sigmoid tau chain.
+// and the sigmoid tau chain. lam and xs as warp_givens_solve leaves them in
+// shared memory: row r, dimension d at [r * kDim + d].
 __device__ __forceinline__ void adjoint_gradient(
-    const float (&lam)[kNS][kDim], const float (&xs)[kNS][kDim],
-    const float (&T)[kM], const float (&sig)[kM], float (&Tbar)[kM],
-    const SolveParams& P, float (&g)[kNV]) {
+    const float* lam, const float* xs, const float (&T)[kM],
+    const float (&sig)[kM], float (&Tbar)[kM], const SolveParams& P,
+    float (&g)[kNV]) {
 #pragma unroll
   for (int i = 0; i < kNW; ++i) {
-    g[i] = lam[6 * i + 3][0];
-    g[kNW + i] = lam[6 * i + 3][1];
+    g[i] = lam[(6 * i + 3) * kDim];
+    g[kNW + i] = lam[(6 * i + 3) * kDim + 1];
   }
 #pragma unroll
   for (int i = 0; i < kM; ++i) {
@@ -281,12 +299,12 @@ __device__ __forceinline__ void adjoint_gradient(
     for (int rr = 0; rr < 6; ++rr) {
       if (rr >= n_rows) break;
       const int k = last ? rr : (rr > 0 ? rr - 1 : 0);
+      const float* lr = lam + (base + rr) * kDim;
 #pragma unroll
       for (int j = k + 1; j < 6; ++j) {
         const float dA = __fmul_rn(falling(k + 1, j), p[j - k - 1]);
-        const float lx = __fmaf_rn(lam[base + rr][0], xs[c0 + j][0],
-                                   __fmul_rn(lam[base + rr][1],
-                                             xs[c0 + j][1]));
+        const float* xj = xs + (c0 + j) * kDim;
+        const float lx = __fmaf_rn(lr[0], xj[0], __fmul_rn(lr[1], xj[1]));
         acc = __fmaf_rn(-dA, lx, acc);
       }
     }
@@ -313,7 +331,9 @@ struct SceneQuery {
 // A warp's shared-memory scratch for warp_objective: 32 sample records of
 // kTermStride floats (the SampleTerms fields, then the constants 1 and 0);
 // the sums (cbar by row and dimension, Tbar, feas, coll); the banded system
-// by columns, its diagonal and its solution (warp_givens_solve).
+// (BandLayout, sized for the forward band), its diagonal, the forward
+// solution xs (the coefficients) and the adjoint's lam. plan/objective.py
+// `scratch_floats` mirrors the count.
 enum : int {
   kWhv, kHv2, kWhc, kHc2, kTbar, kPp, kPv = kPp + kDim, kPw = kPv + kDim,
   kOne = kPw + 6, kZero, kTermStride  // 17, odd: one record per lane hits
@@ -322,23 +342,24 @@ constexpr int kSumTbar = 2 * kNS, kSumFeas = kSumTbar + kM,
               kSumColl = kSumFeas + 1;
 constexpr int kSumOff = 32 * kTermStride;
 constexpr int kSysOff = kSumOff + kSumColl + 1;
-constexpr int kDiagOff = kSysOff + (kNS + kDim) * (kNS + 1);
+constexpr int kDiagOff = kSysOff + FwdBand::kFloats;
 constexpr int kSolOff = kDiagOff + kNS;
-constexpr int kScratchFloats = kSolOff + kNS * kDim;
+constexpr int kLamOff = kSolOff + kNS * kDim;
+constexpr int kScratchFloats = kLamOff + kNS * kDim;
+static_assert(AdjBand::kFloats <= FwdBand::kFloats, "the adjoint fits");
 
-// This lane's column of A(T) (or its transpose) into sys, as
-// warp_givens_solve holds it, after rhs(col) has set the right-hand sides'
-// lanes.
-template <bool TRANSPOSE, class Rhs>
+// A(T) (or its transpose) into sys in warp_givens_solve's band layout: the
+// band and the right-hand sides zeroed, then lane g puts group g's entries
+// (system_entries). The caller then sets the right-hand sides.
+template <bool TRANSPOSE>
 __device__ __forceinline__ void store_system(const float (&T)[kM], int lane,
-                                             float* sys, Rhs&& rhs) {
-  float col[kNS];
-  build_columns<TRANSPOSE>(T, lane, col);
-  rhs(col);
-  if (lane < kNS + kDim) {
-#pragma unroll
-    for (int i = 0; i < kNS; ++i) sys[lane * (kNS + 1) + i] = col[i];
-  }
+                                             float* sys) {
+  using L = BandLayout<kNS, kDim, TRANSPOSE ? 2 : 4, kFill>;
+  for (int i = lane; i < L::kFloats; i += 32) sys[i] = 0.0f;
+  __syncwarp();
+  system_entries(T, lane, [&](int r, int c, float v) {
+    sys[TRANSPOSE ? L::at(c, r) : L::at(r, c)] = v;
+  });
 }
 
 // The weighted objective of decision vector x, one problem per warp (B1,
@@ -354,9 +375,9 @@ __device__ __forceinline__ void store_system(const float (&T)[kM], int lane,
 // how the samples were spread, and no atomics: a repeat launch reproduces
 // every bit. The energy quadrature and the adjoint's gradient are a few
 // hundred operations on values every lane holds: each lane computes them
-// itself. With have_xs the scratch already holds the coefficients of this
-// x (the previous evaluation was at the same x), and the forward solve is
-// skipped.
+// itself, reading the coefficients and lam from the scratch. With have_xs
+// the scratch already holds the coefficients of this x (the previous
+// evaluation was at the same x), and the forward solve is skipped.
 template <bool GRAD, class Query>
 __device__ __forceinline__ float warp_objective(const float (&x)[kNV],
                                                 const float (&head)[6],
@@ -370,45 +391,24 @@ __device__ __forceinline__ float warp_objective(const float (&x)[kNV],
   float* sys = scratch + kSysOff;
   float* diag = scratch + kDiagOff;
   float* sol = scratch + kSolOff;
+  float* lam = scratch + kLamOff;
   float sig[kM], T[kM];
   durations(x, P, sig, T);
-  const bool rhs_x = lane == kNS, rhs_y = lane == kNS + 1;
 
   // ---- forward: coefficients of the banded MINCO system
   if (!have_xs) {
-    store_system<false>(T, lane, sys, [&](float (&col)[kNS]) {
+    store_system<false>(T, lane, sys);
+    if (lane == 0)
       rhs_entries(x, head, tail, [&](int r, float bx, float by) {
-        col[r] = rhs_x ? bx : (rhs_y ? by : col[r]);
+        sys[FwdBand::rhs(r, 0)] = bx;
+        sys[FwdBand::rhs(r, 1)] = by;
       });
-    });
-    warp_givens_solve<kNS, kDim, 4, 6>(sys, diag, lane, sol);
-  }
-  float xs[kNS][kDim];  // coeffs: piece m, power j -> xs[6m + j]
-#pragma unroll
-  for (int i = 0; i < kNS; ++i) {
-    xs[i][0] = sol[i * kDim];
-    xs[i][1] = sol[i * kDim + 1];
+    warp_givens_solve<kNS, kDim, 4, kFill>(sys, diag, lane, sol);
   }
 
   // ---- energy: on every lane; with the gradient its share starts the
   // sums
-  float Te[kM], ce[kNS][kDim];
-  if (GRAD) {
-#pragma unroll
-    for (int m = 0; m < kM; ++m) Te[m] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kNS; ++i) ce[i][0] = ce[i][1] = 0.0f;
-  }
-  const float energy = energy_terms<GRAD>(xs, T, P, Te, ce);
-  if (GRAD && lane == 0) {
-#pragma unroll
-    for (int i = 0; i < kNS; ++i) {
-      sums[i * kDim] = ce[i][0];
-      sums[i * kDim + 1] = ce[i][1];
-    }
-#pragma unroll
-    for (int m = 0; m < kM; ++m) sums[kSumTbar + m] = Te[m] + P.w_t;
-  }
+  const float energy = energy_terms<GRAD>(sol, T, P, lane, sums, kSumTbar);
 
   // ---- sampled terms: this lane's sum adds fma(r[f1x], r[f1y], .) and,
   // with the gradient, fma(s2 * r[f2x], r[f2y], .) for each record r
@@ -449,7 +449,7 @@ __device__ __forceinline__ float warp_objective(const float (&x)[kNV],
       c[j][0] = sol[(6 * m + j) * kDim];
       c[j][1] = sol[(6 * m + j) * kDim + 1];
     }
-    const float Tm = m == 0 ? T[0] : (m == 1 ? T[1] : T[2]);
+    const float Tm = piece_value(T, m);
     const int slot = is_cbar ? (6 * m + cj) * kDim + cd
                              : (is_tbar ? kSumTbar + m : -1);
     float a = slot >= 0 ? sums[slot] : carry;
@@ -502,22 +502,11 @@ __device__ __forceinline__ float warp_objective(const float (&x)[kNV],
   float Tbar[kM];
 #pragma unroll
   for (int m = 0; m < kM; ++m) Tbar[m] = sums[kSumTbar + m];
-  const int rd = rhs_y ? 1 : 0;
-  store_system<true>(T, lane, sys, [&](float (&col)[kNS]) {
-#pragma unroll
-    for (int r = 0; r < kNS; ++r) {
-      const float b = sums[r * kDim + rd];
-      col[r] = (rhs_x || rhs_y) ? b : col[r];
-    }
-  });
-  warp_givens_solve<kNS, kDim, 2, 6>(sys, diag, lane, sol);
-  float lam[kNS][kDim];
-#pragma unroll
-  for (int i = 0; i < kNS; ++i) {
-    lam[i][0] = sol[i * kDim];
-    lam[i][1] = sol[i * kDim + 1];
-  }
-  adjoint_gradient(lam, xs, T, sig, Tbar, P, g);
+  store_system<true>(T, lane, sys);
+  for (int i = lane; i < kNS * kDim; i += 32)
+    sys[AdjBand::rhs(i / kDim, i % kDim)] = sums[i];
+  warp_givens_solve<kNS, kDim, 2, kFill>(sys, diag, lane, lam);
+  adjoint_gradient(lam, sol, T, sig, Tbar, P, g);
   return f;
 }
 

@@ -45,9 +45,9 @@
 // sequence, every lane issuing every rotation. An SM interleaves its
 // resident warps' chains, so a launch takes about one chain per wave of
 // resident warps. __launch_bounds__(128, 4) holds the value-and-gradient
-// kernels to 128 registers (ptxas: 114 scene, 126 window; 16 warps an SM)
-// and leaves the value kernels at the compiler's 52 / 58 (32-36 warps an
-// SM); no kernel spills. Measured on the H100 at the lazy banks' shapes
+// kernels to 128 registers (ptxas at M = 3: 80 scene, 86 window; at M = 16
+// 128 and 127) and leaves the value kernels at the compiler's 46 / 64 at
+// M = 3 (80 / 90 at M = 16); no kernel spills at M = 3, 5, 12 or 16. Measured on the H100 at the lazy banks' shapes
 // (PERF.md): more blocks an SM (40-48 registers) spill and ran no faster,
 // and 2 or 8 warps a block changed nothing. The value kernels' candidates
 // fill 1-3 waves. Where a whole bank's 6144 window candidates (the expert

@@ -147,26 +147,28 @@ def banded_solve(A: torch.Tensor, b: torch.Tensor, lower_bw: int,
 #
 # Replaces: neoplanner_tpu/ops/minco_pallas.py _make_kernel (:37), launched
 # from _solve_batch (:81) through solve_one (:123).
-# Bound on the H100: device memory. Per problem the kernel reads the 18x20
-# augmented system (1,440 B) and writes 18x2 floats (144 B) for ~3,000 flops,
-# about 2 flops per byte, far below the ~20 flop/byte f32 ridge.
-# Design: one thread per problem; the rotation sequence is fully unrolled on
-# compile-time indices restricted to the band, so only band entries are ever
-# touched; no shared memory, no inter-thread traffic. The TPU kernel's lane
-# tiling (512-problem tiles, identity padding) has no counterpart: a thread
-# past the end simply returns.
+# Bound on the H100: device memory by the bytes. Per problem the kernel reads
+# the n x (n + 2) augmented system (n = 6M: 1,440 B at M = 3) and writes
+# n x 2 floats for ~3,000 flops at M = 3, about 2 flops per byte, far below
+# the ~20 flop/byte f32 ridge; at small M the warp's chain of rotations is
+# what the card reaches.
+# Design: one warp per problem, two a block, on the objective kernels' warp
+# solve (neo::warp_givens_solve): the band of each column and the right-hand
+# sides in the warp's shared memory, column j on lane j % 32, each column's
+# rotations in registers. One build per M in 2..16 (_cuda.load_pieces).
 # ---------------------------------------------------------------------------
 
-_KERNEL_N, _KERNEL_D = 18, 2
+_KERNEL_D = 2
 
 
 def _banded_solve_cuda(A, b, lower_bw, upper_bw):
     N, n, _ = A.shape
     d = b.shape[2]
-    if (n, d) != (_KERNEL_N, _KERNEL_D) or lower_bw + upper_bw != 6 \
-            or lower_bw not in (2, 4):
-        raise ValueError(f"the CUDA banded solve is built for n=18, d=2, "
-                         f"bands (4, 2) or (2, 4); got n={n}, d={d}, "
+    if n % 6 or n // 6 not in _cuda.PIECES or d != _KERNEL_D \
+            or lower_bw + upper_bw != 6 or lower_bw not in (2, 4):
+        raise ValueError(f"the CUDA banded solve is built for n = 6M with M "
+                         f"in {_cuda.PIECES.start}..{_cuda.PIECES.stop - 1}, "
+                         f"d=2, bands (4, 2) or (2, 4); got n={n}, d={d}, "
                          f"bands ({lower_bw}, {upper_bw})")
     aug = torch.cat([A, b], dim=2).to(torch.float32).contiguous()
     out = torch.empty((N, n, d), dtype=torch.float32, device=A.device)
@@ -176,16 +178,18 @@ def _banded_solve_cuda(A, b, lower_bw, upper_bw):
 
 def launch_banded_solve(aug: torch.Tensor, out: torch.Tensor,
                         lower_bw: int) -> None:
-    """Launch B5 on the augmented systems aug (N, 18, 20) into out
-    (N, 18, 2); lower_bw 4 (A) or 2 (A^T)."""
-    N = aug.shape[0]
-    _cuda.require(aug, "aug", (N, _KERNEL_N, _KERNEL_N + _KERNEL_D),
-                  torch.float32, aug.device)
-    _cuda.require(out, "out", (N, _KERNEL_N, _KERNEL_D), torch.float32,
+    """Launch B5 on the augmented systems aug (N, n, n + 2), n = 6M, into
+    out (N, n, 2); lower_bw 4 (A) or 2 (A^T)."""
+    N, n = aug.shape[:2]
+    if n % 6:
+        raise ValueError(f"aug: {n} rows, not 6M")
+    _cuda.require(aug, "aug", (N, n, n + _KERNEL_D), torch.float32,
                   aug.device)
+    _cuda.require(out, "out", (N, n, _KERNEL_D), torch.float32, aug.device)
+    _cuda.check_pieces(n // 6, "the CUDA banded solve")
     if N == 0:
         return
-    lib = _cuda.load()
+    lib = _cuda.load_pieces(n // 6)
     err = lib.neo_minco_banded_solve(_cuda.ptr(aug), _cuda.ptr(out), N,
                                      lower_bw, _cuda.stream_ptr(aug.device))
     _cuda.check(err, "minco_banded_solve")

@@ -6,6 +6,7 @@ warm-start bank of NEO.
 The port of neoplanner_tpu/plan/expert.py (``seed_bank`` :49,
 ``make_plan_window`` :101, ``solve_one`` :121, ``_select`` :216, ``plan``
 :242, ``plan_with_carry`` :273, ``warm_start_plan`` :316,
+``adaptive_num_pieces`` :359, ``plan_adaptive`` :373,
 ``pad_boundary_state`` :389), batched: a problem axis P with ``env_of``
 naming each problem's env replaces the JAX package's nested vmaps over envs
 and bank lanes. The retry noise is an argument (standard normals), so any
@@ -25,9 +26,11 @@ package's ``NEO_SOLVER=xla`` branch.
 
 from __future__ import annotations
 
-import torch
-
 import dataclasses
+import math
+
+import numpy as np
+import torch
 
 from neoplanner_tpu_torch.config import PlannerParams
 from neoplanner_tpu_torch.core.types import ESDFMap, Trajectory
@@ -252,6 +255,41 @@ def plan_with_carry(pmap, head: torch.Tensor, tail: torch.Tensor,
         for lanes, s in zip(_fields(bank), _fields(sel))))
     return picked.replace(ok=sel.ok, iters=bank.iters.sum(1,
                                                           dtype=torch.int32))
+
+
+def adaptive_num_pieces(start, target, init_seg_len: float = 2.0) -> int:
+    """The reference's 'adaptive' init mode piece count
+    (generate_init_variables, expert_planner.py:87-88; init_seg_len 2.0 m,
+    traj_planner_node.py:41): one intermediate waypoint per ~init_seg_len
+    of straight-line distance, at least one. start and target are concrete
+    positions (2,), read on the host."""
+    diff = np.asarray(torch.as_tensor(target, dtype=torch.float64).cpu()) \
+        - np.asarray(torch.as_tensor(start, dtype=torch.float64).cpu())
+    dist = float(np.linalg.norm(diff))
+    return max(math.ceil(dist / init_seg_len - 1), 1) + 1
+
+
+def plan_adaptive(pmap, head: torch.Tensor, tail: torch.Tensor,
+                  noise: torch.Tensor, pp: PlannerParams,
+                  init_seg_len: float = 2.0,
+                  solver: str = "fused") -> Trajectory:
+    """:func:`plan` with the 'adaptive' piece count (the init_wpts_mode
+    switch, expert_planner.py:87-90): M = :func:`adaptive_num_pieces` of
+    each env's start and target, chosen on the host from the concrete
+    boundary positions; the envs of one call must share it (the bank's
+    shapes follow M), and noise is (B, retry_num, D, M-1). On the card M
+    must lie in 2..16, the kernels' builds."""
+    counts = {adaptive_num_pieces(h, t, init_seg_len)
+              for h, t in zip(head[:, 0].cpu(), tail[:, 0].cpu())}
+    if len(counts) != 1:
+        raise ValueError(f"the envs' adaptive piece counts differ "
+                         f"({sorted(counts)}); plan each count apart")
+    M = counts.pop()
+    if noise.shape[-1] != M - 1:
+        raise ValueError(f"noise has {noise.shape[-1]} waypoints; the "
+                         f"adaptive plan has M={M} pieces, M-1 waypoints")
+    return plan(pmap, head, tail, noise,
+                dataclasses.replace(pp, num_pieces=M), solver=solver)
 
 
 def warm_start_plan(pmap, head: torch.Tensor, tail: torch.Tensor,

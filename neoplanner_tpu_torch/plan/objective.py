@@ -34,10 +34,23 @@ from neoplanner_tpu_torch.ops import lbfgs
 from neoplanner_tpu_torch.plan import costs
 
 WARPS = 4              # problems (warps) per block, csrc/objective_eval.cu
-_SCRATCH_FLOATS = 1019  # a warp's scratch (csrc/objective.cuh kScratchFloats)
-_SMEM_LIMIT = 232448    # an H100 block's shared memory, opted in past 48 KB
-# the scene kernel stages each warp's primitive table beside its scratch
-MAX_PRIMS = (_SMEM_LIMIT // (4 * WARPS) - _SCRATCH_FLOATS) // 6
+SMEM_LIMIT = 232448    # an H100 block's shared memory, opted in past 48 KB
+
+
+def scratch_floats(num_pieces: int) -> int:
+    """A warp's scratch of warp_objective at M pieces (csrc/objective.cuh
+    kScratchFloats): 32 sample records of 17 floats, the sums (2n + M + 2),
+    the forward band layout (csrc/minco_device.cuh BandLayout: n columns
+    12 floats apart and 2 right-hand sides of n), the diagonal (n), the
+    coefficients and lam (2n each); n = 6M."""
+    n = 6 * num_pieces
+    return 32 * 17 + (2 * n + num_pieces + 2) + 14 * n + n + 4 * n
+
+
+def max_prims(num_pieces: int) -> int:
+    """The scene kernel's primitive cap per env at M pieces: each warp
+    stages its env's table of 6 floats a primitive beside its scratch."""
+    return (SMEM_LIMIT // (4 * WARPS) - scratch_floats(num_pieces)) // 6
 
 
 def objective_fwd(x: torch.Tensor, head: torch.Tensor, tail: torch.Tensor,
@@ -100,10 +113,11 @@ def objective_vjp(x: torch.Tensor, head: torch.Tensor, tail: torch.Tensor,
 
 
 def _check_params(pp: PlannerParams) -> None:
-    if (pp.num_pieces, pp.dims) != (3, 2) or pp.sampling != "relative" \
+    _cuda.check_pieces(pp.num_pieces, "the CUDA objective")
+    if pp.dims != 2 or pp.sampling != "relative" \
             or pp.samples_per_piece < 2:
-        raise ValueError("the CUDA objective is built for M=3 pieces, D=2 "
-                         "and relative sampling")
+        raise ValueError("the CUDA objective is built for D=2 and relative "
+                         "sampling")
 
 
 def _params(pp: PlannerParams):
@@ -138,30 +152,33 @@ def _launch(x, head, tail, pmap, env_of, pp, grad: bool):
     return f, g
 
 
-def _require_io(x, head, tail, env_of, f, g, dev):
-    P = x.shape[0]
-    for t, name, shape in ((x, "x", (P, 7)), (head, "head", (P, 3, 2)),
+def _require_io(x, head, tail, env_of, f, g, pp, dev):
+    _check_params(pp)
+    P, nv = x.shape[0], pp.num_vars
+    for t, name, shape in ((x, "x", (P, nv)), (head, "head", (P, 3, 2)),
                            (tail, "tail", (P, 3, 2)), (f, "f", (P,))):
         _cuda.require(t, name, shape, torch.float32, dev)
     if g is not None:
-        _cuda.require(g, "g", (P, 7), torch.float32, dev)
+        _cuda.require(g, "g", (P, nv), torch.float32, dev)
     _cuda.require(env_of, "env_of", (P,), torch.int32, dev)
 
 
 def launch_scene(x, head, tail, prims, env_of, f, g, pp) -> None:
-    """Launch B2s on prepared tensors: x (P, 7), head/tail (P, 3, 2), prims
+    """Launch B2s on prepared tensors: x (P, nv), head/tail (P, 3, 2), prims
     (E, K, 6) (mapping/scene.pack_prims), env_of (P,) int32; writes f (P,)
-    and, unless g is None, g (P, 7)."""
+    and, unless g is None, g (P, nv); nv = 3M - 2 for M = pp.num_pieces."""
     dev = x.device
     E, n_prims = prims.shape[:2]
-    _require_io(x, head, tail, env_of, f, g, dev)
+    _require_io(x, head, tail, env_of, f, g, pp, dev)
     _cuda.require(prims, "prims", (E, n_prims, 6), torch.float32, dev)
-    if n_prims > MAX_PRIMS:
+    cap = max_prims(pp.num_pieces)
+    if n_prims > cap:
         raise ValueError(f"{n_prims} primitives exceed the objective's "
-                         f"shared memory ({MAX_PRIMS} per env)")
+                         f"shared memory ({cap} per env at M="
+                         f"{pp.num_pieces})")
     if x.shape[0] == 0:
         return
-    lib = _cuda.load()
+    lib = _cuda.load_pieces(pp.num_pieces)
     err = lib.neo_objective_scene(
         _cuda.ptr(x), _cuda.ptr(head), _cuda.ptr(tail), _cuda.ptr(prims),
         _cuda.ptr(env_of), _cuda.ptr(f), None if g is None else _cuda.ptr(g),
@@ -173,19 +190,19 @@ def launch_scene(x, head, tail, prims, env_of, f, g, pp) -> None:
 
 
 def launch_grid(x, head, tail, win, worg, env_of, f, g, pp) -> None:
-    """Launch B7 on prepared tensors: x (P, 7), head/tail (P, 3, 2), win
+    """Launch B7 on prepared tensors: x (P, nv), head/tail (P, 3, 2), win
     (E, Hw, Ww), worg (E, 7) (mapping/esdf.make_window), env_of (P,) int32;
-    writes f (P,) and, unless g is None, g (P, 7)."""
+    writes f (P,) and, unless g is None, g (P, nv)."""
     dev = x.device
     E, Hw, Ww = win.shape
-    _require_io(x, head, tail, env_of, f, g, dev)
+    _require_io(x, head, tail, env_of, f, g, pp, dev)
     _cuda.require(win, "win", (E, Hw, Ww), torch.float32, dev)
     _cuda.require(worg, "worg", (E, 7), torch.float32, dev)
     if Hw < 2 or Ww < 2:
         raise ValueError("the window needs at least 2 x 2 cells")
     if x.shape[0] == 0:
         return
-    lib = _cuda.load()
+    lib = _cuda.load_pieces(pp.num_pieces)
     err = lib.neo_objective_grid(
         _cuda.ptr(x), _cuda.ptr(head), _cuda.ptr(tail), _cuda.ptr(win),
         _cuda.ptr(worg), _cuda.ptr(env_of), _cuda.ptr(f),

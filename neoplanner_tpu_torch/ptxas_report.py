@@ -1,15 +1,19 @@
 """Registers, spills, stack and shared memory of the port's kernels, as
 ``ptxas -v`` reports them, and each kernel's SASS instruction count.
 
-    python3 -m neoplanner_tpu_torch.ptxas_report [--match TEXT] [CSRC ...]
+    python3 -m neoplanner_tpu_torch.ptxas_report [--match TEXT]
+        [--pieces M ...] [CSRC ...]
 
-For each CSRC directory (by default this package's ``csrc/``) one ``nvcc``
-call compiles its ``*.cu`` with the flags of ``_cuda.py`` plus ``-Xptxas
--v`` into ``_build/ptxas/``, and one line per kernel entry (those whose
-name holds TEXT, if given) prints its registers, stack frame, spill stores
-and loads, static shared memory, and its instructions as ``cuobjdump
--sass`` lists them (code that a warp streams through the instruction cache
-once per pass). Needs ``nvcc`` and ``cuobjdump``; no GPU.
+For each CSRC directory (by default this package's ``csrc/``) ``nvcc``
+compiles its ``*.cu`` with the flags of ``_cuda.py`` plus ``-Xptxas -v``
+into ``_build/ptxas/``: the kernels that do not depend on the piece count
+once, and those that do (``_cuda._PIECE_SOURCES``: B5, B1, B6, B2s, B7)
+once for each M of --pieces (default 3 5 12 16). One line per
+kernel entry (those whose name holds TEXT, if given) prints its registers,
+stack frame, spill stores and loads, static shared memory, and its
+instructions as ``cuobjdump -sass`` lists them (code that a warp streams
+through the instruction cache once per pass). Needs ``nvcc`` and
+``cuobjdump``; no GPU.
 """
 
 from __future__ import annotations
@@ -71,13 +75,14 @@ def _instructions(lib: Path):
     return counts
 
 
-def report(csrc: Path):
+def _compile(cu, defines, tag: str):
     """[(kernel, registers, stack, spill stores, spill loads, smem,
-    instructions)]."""
+    instructions)] of one nvcc call over the files cu."""
     out_dir = _cuda._BUILD / "ptxas"
     out_dir.mkdir(parents=True, exist_ok=True)
-    cmd = [_cuda._nvcc(), *_cuda._FLAGS, "-Xptxas", "-v", "-o",
-           str(out_dir / "lib.so"), *map(str, sorted(csrc.glob("*.cu")))]
+    lib = out_dir / f"lib_{tag}.so"
+    cmd = [_cuda._nvcc(), *_cuda._FLAGS, *defines, "-Xptxas", "-v", "-o",
+           str(lib), *map(str, cu)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
@@ -92,11 +97,21 @@ def report(csrc: Path):
             cur[1] = int(m.group(1))
             if s := _SMEM.search(line):
                 cur[5] = int(s.group(1))
-    counts = _instructions(out_dir / "lib.so")
+    counts = _instructions(lib)
     for row, name in zip(rows, _demangle([r[0] for r in rows])):
         row.append(counts.get(row[0], 0))
         row[0] = _without_parameters(name)
     return rows
+
+
+def report(csrc: Path, pieces=(3, 5, 12, 16)):
+    """[(label, rows)]: the main kernels' rows, then each M's."""
+    cu = sorted(csrc.glob("*.cu"))
+    per_m = [p for p in cu if p.name in _cuda._PIECE_SOURCES]
+    out = [("main", _compile([p for p in cu if p not in per_m], [], "main"))]
+    for m in pieces:
+        out.append((f"M={m}", _compile(per_m, [f"-DNEO_M={m}"], f"m{m}")))
+    return out
 
 
 def main(argv=None) -> int:
@@ -104,14 +119,16 @@ def main(argv=None) -> int:
     ap.add_argument("csrc", nargs="*", type=Path,
                     default=[Path(_cuda._SRC)])
     ap.add_argument("--match", default="")
+    ap.add_argument("--pieces", type=int, nargs="*", default=[3, 5, 12, 16])
     args = ap.parse_args(argv)
     for csrc in args.csrc:
-        print(f"{csrc}:")
-        for name, regs, stack, st, ld, smem, n_ins in report(csrc):
-            if args.match in name:
-                print(f"  {name}: {regs} registers, {stack} B stack, "
-                      f"{st} B spill stores, {ld} B spill loads, {smem} B "
-                      f"static smem, {n_ins} instructions")
+        for label, rows in report(csrc, args.pieces):
+            print(f"{csrc} ({label}):")
+            for name, regs, stack, st, ld, smem, n_ins in rows:
+                if args.match in name:
+                    print(f"  {name}: {regs} registers, {stack} B stack, "
+                          f"{st} B spill stores, {ld} B spill loads, "
+                          f"{smem} B static smem, {n_ins} instructions")
     return 0
 
 

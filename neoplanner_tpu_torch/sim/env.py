@@ -292,12 +292,17 @@ def sense_and_map(state: EnvState, cam: CameraParams,
 PLANNERS = ("expert", "warmstart", "nn", "neo")
 
 
-def _check_planner(planner: str, solver: str) -> None:
+def _check_planner(planner: str, solver: str, pp: PlannerParams) -> None:
     if planner == "geo":
         raise ValueError("the 'geo' planner is not ported yet (ROADMAP A6)")
     if planner not in PLANNERS:
         raise ValueError(f"unknown planner {planner!r}; the port runs "
                          f"{PLANNERS}")
+    if planner in ("nn", "neo") and pp.num_pieces != 3:
+        raise ValueError(f"the {planner!r} planner plans M=3 pieces: the "
+                         f"net emits the 2 waypoints and 3 durations of "
+                         f"M=3 (NetParams.output_size 9); got "
+                         f"num_pieces={pp.num_pieces}")
     if solver not in expert.SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; the port runs "
                          f"{expert.SOLVERS}")
@@ -395,7 +400,7 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
     given). ``timer`` (a utils.profiling.StageTimer) records the render,
     fuse, esdf, net, plan and track stages, and fuse_multi for the batched
     frames."""
-    _check_planner(planner, solver)
+    _check_planner(planner, solver, pp)
     grid = state.emap is not None          # the gt+grid or vision path
     sensed = state.logodds is not None     # the vision path
     spr = mp.steps_per_replan

@@ -30,7 +30,7 @@ from neoplanner_tpu_torch.core import frames
 from neoplanner_tpu_torch.core.types import BoxWorld
 from neoplanner_tpu_torch.mapping import esdf, fusion, occupancy, scene
 from neoplanner_tpu_torch.ops import edt, minco
-from neoplanner_tpu_torch.plan import costs, expert, solve
+from neoplanner_tpu_torch.plan import costs, expert, parity, solve
 from neoplanner_tpu_torch.sense import raycast
 from neoplanner_tpu_torch.sim import env, missions, track
 from neoplanner_tpu_torch import _cuda
@@ -84,8 +84,9 @@ def _poses(n, seed, x=(-1.0, 4.0)):
     return pos, frames.quat_from_accel_yaw(acc, yaw)
 
 
-def _boundary(n, seed, start=(0.0, 0.0)):
-    """n planning problems ~5 m long from around start: (x0, head, tail)."""
+def _boundary(n, seed, start=(0.0, 0.0), pp=None):
+    """n planning problems ~5 m long from around start: (x0, head, tail),
+    x0 of pp's piece count (PlannerParams()'s M = 3 by default)."""
     rng = np.random.default_rng(seed)
     head = np.zeros((n, 3, 2), np.float32)
     tail = np.zeros((n, 3, 2), np.float32)
@@ -93,7 +94,7 @@ def _boundary(n, seed, start=(0.0, 0.0)):
     head[:, 1] = rng.normal(scale=0.3, size=(n, 2))
     tail[:, 0] = head[:, 0] + [5.0, 0.0] + rng.normal(size=(n, 2))
     tail[:, 1] = rng.normal(scale=0.3, size=(n, 2))
-    pp = PlannerParams()
+    pp = pp or PlannerParams()
     head, tail = _t(head), _t(tail)
     x0 = costs.pack(expert.straight_line_wpts(head[:, 0], tail[:, 0], pp),
                     minco.T_to_tau(expert.init_ts(pp).expand(n, -1),
@@ -155,20 +156,21 @@ def test_minco_kernel_matches_plain(cuda_device, transposed):
                                atol=1e-4)
 
 
-def _band_systems(n, lower_bw, seed):
-    """n random 18 x 18 systems with lower_bw sub-diagonals and 6 - lower_bw
-    super-diagonals (the bands of A and A^T), diagonally dominant, two
-    right-hand sides; band entries below the pivot exactly 0 in columns 0
-    and 9 and in a quarter of the others' (A (n, 18, 18), b (n, 18, 2))."""
+def _band_systems(n, lower_bw, seed, size=18):
+    """n random size x size systems (18 = 6M at M = 3) with lower_bw
+    sub-diagonals and 6 - lower_bw super-diagonals (the bands of A and
+    A^T), diagonally dominant, two right-hand sides; band entries below the
+    pivot exactly 0 in columns 0 and 9 and in a quarter of the others' (A
+    (n, size, size), b (n, size, 2))."""
     rng = np.random.default_rng(seed)
-    i, j = np.indices((18, 18))
+    i, j = np.indices((size, size))
     band = (i - j <= lower_bw) & (j - i <= 6 - lower_bw)
-    A = rng.normal(size=(n, 18, 18)) * band
+    A = rng.normal(size=(n, size, size)) * band
     A[:, i == j] += 6.0 * np.sign(A[:, i == j] + 1e-3)
     below = band & (i > j)
     A[:, below & ((j == 0) | (j == 9))] = 0.0
-    A[(rng.random((n, 18, 18)) < 0.25) & below] = 0.0
-    b = rng.normal(size=(n, 18, 2))
+    A[(rng.random((n, size, size)) < 0.25) & below] = 0.0
+    b = rng.normal(size=(n, size, 2))
     return _t(A.astype(np.float32)), _t(b.astype(np.float32))
 
 
@@ -1695,7 +1697,8 @@ def test_objective_scene_kernel_primitive_cap(cuda_device):
                                                 device=cuda_device)], 1),
             torch.cat([pmap.active, torch.ones((E, extra), dtype=torch.bool,
                                                device=cuda_device)], 1))
-    for n in (32, objective.MAX_PRIMS):
+    cap = objective.max_prims(pp.num_pieces)
+    for n in (32, cap):
         f, g = objective.objective_valgrad(x0, head, tail, padded(n), env_of,
                                            pp)
         v = objective.objective_fwd(x0, head, tail, padded(n), env_of, pp)
@@ -1706,5 +1709,178 @@ def test_objective_scene_kernel_primitive_cap(cuda_device):
     before = dict(_cuda.launches)
     with pytest.raises(ValueError, match="primitives exceed"):
         objective.objective_fwd(x0, head, tail,
-                                padded(objective.MAX_PRIMS + 1), env_of, pp)
+                                padded(cap + 1), env_of, pp)
+    assert _cuda.launches == before
+
+
+# ---- the piece count M and the L-BFGS history H: B5, B2s, B7, B1, B6
+
+
+PIECE_COUNTS = (2, 5, 12, 16)
+
+
+@pytest.mark.parametrize("lower_bw", [4, 2])
+@pytest.mark.parametrize("M", PIECE_COUNTS)
+def test_minco_kernel_piece_counts(cuda_device, M, lower_bw):
+    """B5 at n = 6M on 257 random band systems (a last block with one
+    warp idle) and on the MINCO systems of 64 problems of M pieces (and
+    their transposes): within the 1e-4 of test_minco_kernel_matches_plain
+    of the plain version, of each system's largest solution component
+    (the MINCO coefficients of the last pieces grow with T^5); one launch
+    a call."""
+    n = 6 * M
+    A, b = _band_systems(257, lower_bw, 60 + M, size=n)
+    pp = PlannerParams(num_pieces=M)
+    _, head, tail = _boundary(64, seed=M, pp=pp)
+    rng = np.random.default_rng(M)
+    wpts = expert.straight_line_wpts(head[:, 0], tail[:, 0], pp) \
+        + _t(rng.normal(scale=0.3, size=(64, 2, M - 1))).float()
+    ts = _t(rng.uniform(0.8, 4.0, size=(64, M)).astype(np.float32))
+    Am, bm = minco.build_system(head, tail, wpts, ts)
+    if lower_bw == 2:
+        Am = Am.transpose(1, 2).contiguous()
+    for A_, b_ in ((A, b), (Am, bm)):
+        want = minco._givens_solve(A_.double(), b_.double(), lower_bw,
+                                   6 - lower_bw)
+        before = _cuda.launches["minco_banded_solve"]
+        got = minco.banded_solve(A_.to(cuda_device), b_.to(cuda_device),
+                                 lower_bw, 6 - lower_bw)
+        torch.cuda.synchronize()
+        assert _cuda.launches["minco_banded_solve"] == before + 1
+        scale = want.abs().amax((1, 2), keepdim=True).clamp(min=1.0)
+        np.testing.assert_allclose((got.cpu().double() / scale).numpy(),
+                                   (want / scale).numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _objective_case_m(which, M):
+    """_objective_case's maps with problems of M pieces."""
+    pp = PlannerParams(num_pieces=M, samples_per_piece=24)
+    if which == "scene":
+        x0, head, tail = _boundary(64, seed=2, start=(4.0, 0.0), pp=pp)
+        return x0, head, tail, scene.build(_worlds(2, seed=7),
+                                           MapParams(**MAPP)), \
+            torch.arange(64) % 2, pp
+    _, _, _, window, _ = _grid_windows()
+    x0, head, tail = _boundary(64, seed=4, start=(3.0, 0.0), pp=pp)
+    return x0, head, tail, window, torch.arange(64) % 2, pp
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("M", PIECE_COUNTS)
+def test_objective_kernel_piece_counts(cuda_device, which, grad, M):
+    """B2s and B7 at M pieces, held as test_objective_kernel_matches_plain
+    holds them at M = 3: values within 5e-4, gradients within 2e-3 of
+    each problem's largest component, against the f64 plain version on the
+    scene and the f32 one on windows; one launch. On windows a sample that
+    sits on a cell edge takes one cell or the next as its last bits fall,
+    and its bilinear gradient jumps between them: a problem whose gradient
+    misses the f32 plain version's is held to the f64 one's, the other
+    side of such an edge (at M = 12, 2 of 2,176 components on an H100)."""
+    from neoplanner_tpu_torch.plan import objective
+    x0, head, tail, pmap, env_of, pp = _objective_case_m(which, M)
+    fn = objective.objective_valgrad if grad else objective.objective_fwd
+    want = fn(x0, head, tail, pmap, env_of, pp)
+    name = f"objective_{which}_{'valgrad' if grad else 'fwd'}"
+    before = _cuda.launches[name]
+    got = fn(*(a.to(cuda_device) for a in (x0, head, tail)),
+             _map_to(pmap, cuda_device), env_of.to(cuda_device), pp)
+    torch.cuda.synchronize()
+    assert _cuda.launches[name] == before + 1
+    f_k, f_p = (got[0], want[0]) if grad else (got, want)
+    np.testing.assert_allclose(f_k.cpu().numpy(), f_p.numpy(), rtol=5e-4,
+                               atol=5e-4)
+    if not grad:
+        return
+    g_k = got[1].cpu().double()
+    if which == "scene":
+        g_ref = objective.objective_valgrad(
+            *(a.double() for a in (x0, head, tail)),
+            scene.SceneMap(pmap.centers.double(), pmap.half.double(),
+                           pmap.is_cyl, pmap.active), env_of, pp)[1]
+    else:
+        g_ref = want[1].double()
+        miss = ((g_k - g_ref).abs() / g_ref.abs().amax(1, keepdim=True)
+                .clamp(min=1.0) > 2e-3).any(1)
+        if bool(miss.any()):
+            g64 = objective.objective_valgrad(
+                *(a.double() for a in (x0, head, tail)),
+                type(pmap)(pmap.win.double(), pmap.worg.double()), env_of,
+                pp)[1]
+            g_ref[miss] = g64[miss]
+    scale = g_ref.abs().amax(1, keepdim=True).clamp(min=1.0)
+    np.testing.assert_allclose((g_k / scale).numpy(),
+                               (g_ref / scale).numpy(), atol=2e-3)
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+@pytest.mark.parametrize("H", [5, 10, 20])
+@pytest.mark.parametrize("M", PIECE_COUNTS)
+def test_solver_kernel_piece_counts(cuda_device, which, M, H):
+    """B1 and B6 at M pieces and history H: one iteration held to the plain
+    version as parity.one_iteration says (1e-3 relative on f, or another
+    backtracking step of the same direction); at max_iters = 0 the start
+    value of the objective kernel bit for bit; one launch a call."""
+    from neoplanner_tpu_torch.plan import objective
+    x0, head, tail, pmap, env_of, pp = _objective_case_m(which, M)
+    fused = solve.solve_scene if which == "scene" else solve.solve_grid
+    pp1 = dataclasses.replace(pp, history=H, max_iters=1, max_ls=4)
+    want = fused(x0, head, tail, pmap, env_of, pp1)
+    args = [a.to(cuda_device) for a in (x0, head, tail)]
+    pmap_d, env_d = _map_to(pmap, cuda_device), env_of.to(cuda_device)
+    name = "lbfgs_scene_solve" if which == "scene" else "lbfgs_grid_solve"
+    before = _cuda.launches[name]
+    got = fused(*args, pmap_d, env_d, pp1)
+    torch.cuda.synchronize()
+    assert _cuda.launches[name] == before + 1
+    parity.one_iteration(x0, head, tail, pmap, env_of, pp1, got, want)
+    pp0 = dataclasses.replace(pp1, max_iters=0)
+    got = fused(*args, pmap_d, env_d, pp0)
+    f, _ = objective.objective_valgrad(*args, pmap_d, env_d, pp0)
+    assert torch.equal(got[1], f)
+
+
+@pytest.mark.parametrize("which", ["scene", "grid"])
+@pytest.mark.parametrize("H", [2, 3])
+@pytest.mark.parametrize("M", PIECE_COUNTS)
+def test_solver_kernel_history_wraps(cuda_device, which, M, H):
+    """B1 and B6 at M pieces, 6 iterations of a history of 2 or 3, so that
+    the ring wraps on most problems: f and x of each problem within 1e-3
+    of the plain solver on the CPU, as parity.few_iterations says, with
+    the plain solver on the card as its control."""
+    x0, head, tail, pmap, env_of, pp = _objective_case_m(which, M)
+    fused = solve.solve_scene if which == "scene" else solve.solve_grid
+    pp6 = dataclasses.replace(pp, history=H, max_iters=6, max_ls=4)
+    want = fused(x0, head, tail, pmap, env_of, pp6)
+    args = [a.to(cuda_device) for a in (x0, head, tail)]
+    pmap_d, env_d = _map_to(pmap, cuda_device), env_of.to(cuda_device)
+    got = fused(*args, pmap_d, env_d, pp6)
+    control = solve._solve_plain(*args, pmap_d, env_d, pp6)
+    assert int((want[2] > H).sum()) >= want[2].numel() // 2
+    parity.few_iterations(got, want, control)
+
+
+def test_kernels_refuse_piece_count_and_history(cuda_device):
+    """M = 17 (n = 102) and a history of 33 or 0 raise ValueError naming
+    the range, before any launch."""
+    from neoplanner_tpu_torch.plan import objective
+    x0, head, tail, pmap, env_of, pp = _objective_case_m("scene", 3)
+    x0, head, tail, env_of = (a.to(cuda_device)
+                              for a in (x0, head, tail, env_of))
+    pmap = _map_to(pmap, cuda_device)
+    before = dict(_cuda.launches)
+    A, b = _band_systems(4, 4, 1, size=102)
+    with pytest.raises(ValueError, match="M in 2..16"):
+        minco.banded_solve(A.to(cuda_device), b.to(cuda_device), 4, 2)
+    p17 = dataclasses.replace(pp, num_pieces=17)
+    x17 = torch.zeros((x0.shape[0], p17.num_vars), device=cuda_device)
+    with pytest.raises(ValueError, match="M in 2..16"):
+        objective.objective_fwd(x17, head, tail, pmap, env_of, p17)
+    with pytest.raises(ValueError, match="M in 2..16"):
+        solve.solve_scene(x17, head, tail, pmap, env_of, p17)
+    for H in (33, 0):
+        with pytest.raises(ValueError, match="1..32"):
+            solve.solve_scene(x0, head, tail, pmap, env_of,
+                              dataclasses.replace(pp, history=H))
     assert _cuda.launches == before

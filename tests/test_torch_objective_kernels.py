@@ -192,8 +192,10 @@ def test_cpu_tensors_take_the_plain_version(scene_problems, window_problems):
 
 
 def test_cuda_objective_rejects_other_settings():
-    for kw in (dict(num_pieces=4), dict(sampling="absolute"),
-               dict(samples_per_piece=1)):
+    with pytest.raises(ValueError, match="M in 2..16"):
+        objective._check_params(PlannerParams(num_pieces=17))
+    for kw in (dict(sampling="absolute"), dict(samples_per_piece=1)):
         with pytest.raises(ValueError, match="relative sampling"):
             objective._check_params(PlannerParams(**kw))
-    objective._check_params(PlannerParams())
+    for m in (2, 3, 5, 12, 16):
+        objective._check_params(PlannerParams(num_pieces=m))
