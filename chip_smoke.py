@@ -116,7 +116,23 @@ Phases, one short line each:
    basin (basin(), its median tolerance from the GPU-vs-CPU control on
    256 problems), times and bounds;
 25. plan_adaptive on tests/test_expert.py's golden 24 m problem (M = 12):
-   ok and the end-point error (tol 0.05 m).
+   ok and the end-point error (tol 0.05 m);
+26. the expert-data and training path: a record rollout (B = 16, 2
+   segments, one solver iteration) on the card against the CPU (valid
+   flags equal, motions and labels within 1e-4, B4's pixel rule on the
+   frames); then learn/pipeline.main at examples/train.py's widths (512
+   envs, 12 boxes, a 160 x 120 camera, max_iters 48, the smallconv net at
+   batch 64), cut to 2 pulls of 4 segments and 2 epochs: samples/s, ms a
+   record segment and the record's launches (B4 1, B1 2, B5 2, B3 1 a
+   segment, exactly), train ms a step and steps/s, the torch.export
+   program's p50 latency at batch 1; the first training step's loss on the
+   card against the CPU from the same weights and batch (1e-5 relative);
+   the program and the ONNX file (read back by weights.from_onnx) against
+   the trained net (1e-5); a record segment (B = 512) and a training step
+   under torch.profiler (utils/profiling.device_trace: device busy time,
+   idle share, the kernels with the most device time); two scene 'neo'
+   segments at B = 512 with the trained net (replans ok printed: a check
+   that it runs).
 
 The vision paths' counts include their reset, which builds the truncated
 lite map of an unknown grid through B9 banded. The last lines are every
@@ -157,6 +173,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -379,6 +396,201 @@ def err_line(got, want):
 
 def rel(a, b):
     return ((a - b).abs() / b.abs().clamp(min=1.0)).cpu().numpy()
+
+
+def record_check(dev, pp, mp, sp, mapp, cam, card):
+    """learn/datagen.record_rollout at B = 16, 2 segments, one solver
+    iteration, on the card and on the CPU from the same worlds, goals and
+    draws: the valid flags equal, motions and labels within 1e-4 on the
+    valid samples, at most 1e-3 of the frames' pixels off by more than
+    1e-3 m (B4's rule; the normalized frames scaled back by max_range)."""
+    import torch
+    from neoplanner_tpu_torch import _cuda
+    from neoplanner_tpu_torch.config import WorldParams
+    from neoplanner_tpu_torch.learn import datagen
+    from neoplanner_tpu_torch.sim import env
+    from neoplanner_tpu_torch.world import scenegen
+    n, segs = 16, 2
+    pp1 = dataclasses.replace(pp, max_iters=1)
+    gen_c = _cuda.make_generator(40, "cpu")
+    w_c = scenegen.generate_batch(gen_c, n, WorldParams(num_boxes=12))
+    s_c = env.reset(w_c, pp1, mp, mapp, gen_c)
+    w_g = w_c.replace(**{f: getattr(w_c, f).to(dev) for f in
+                         ("centers", "half_sizes", "active", "shape")})
+    s_g = env.reset(w_g, pp1, mp, mapp, _cuda.make_generator(40, dev),
+                    goal=s_c.goal.to(dev))
+    d_c = [env.draw(gen_c, n, pp1) for _ in range(segs)]
+    d_g = [d.replace(**{k: getattr(d, k).to(dev) for k in
+                        ("target_noise", "bank_noise", "goal_u")})
+           for d in d_c]
+    _, *out_g = datagen.record_rollout(s_g, segs, pp1, mp, sp, cam,
+                                       mp.des_pos_z, draws=d_g)
+    _, *out_c = datagen.record_rollout(s_c, segs, pp1, mp, sp, cam,
+                                       mp.des_pos_z, draws=d_c)
+    (dg, mg, lg, vg), (dc, mc, lc, vc) = ([t.cpu() for t in o]
+                                          for o in (out_g, out_c))
+    err_m = float((mg - mc)[vc].abs().max()) if vc.any() else 0.0
+    err_l = float((lg - lc)[vc].abs().max()) if vc.any() else 0.0
+    off = float(((dg - dc).abs() * cam.max_range / 255.0 > 1e-3)
+                .float().mean())
+    same = bool(torch.equal(vg, vc))
+    say(f"record B={n} {segs} segments (1 iteration) card vs CPU: valid "
+        f"flags equal {same} ({int(vc.sum())} of {vc.numel()} valid), "
+        f"motions max diff {err_m:.3g}, labels {err_l:.3g} (tol 1e-4), "
+        f"frames {off:.2e} of pixels off by > 1e-3 m (tol 1e-3) [{card}]")
+    if not same or not bool(vc.any()) or err_m > 1e-4 or err_l > 1e-4 \
+            or off > 1e-3:
+        raise AssertionError("the record rollout on the card disagrees "
+                             "with the CPU")
+
+
+RECORD_PER_SEGMENT = dict(render_depth=1, lbfgs_scene_solve=2,
+                          minco_banded_solve=2, track_segment=1)
+
+
+def pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp):
+    """learn/pipeline.main at examples/train.py's widths, cut to 2 pulls of
+    4 segments and 2 epochs, with its record launches held per segment;
+    then the first training step card vs CPU, the exported program and
+    ONNX file against the net, and two scene 'neo' segments with it."""
+    import torch
+    from neoplanner_tpu_torch import _cuda
+    from neoplanner_tpu_torch.config import PlannerParams, WorldParams
+    from torch.autograd import DeviceType
+    from neoplanner_tpu_torch.learn import (data, datagen, export, pipeline,
+                                            train, weights)
+    from neoplanner_tpu_torch.models import planner_net
+    from neoplanner_tpu_torch.sim import env
+    from neoplanner_tpu_torch.utils import profiling
+    from neoplanner_tpu_torch.world import scenegen
+    pulls, seg_per_pull, epochs = 2, 4, 2
+    _cuda.reset_launches()
+    res = pipeline.main([
+        "--envs", "512", "--pulls", str(pulls),
+        "--segments-per-pull", str(seg_per_pull), "--epochs", str(epochs),
+        "--batch-size", "64", "--max-iters", "48",
+        "--out", os.path.join(tmp, "planner_net")])
+    counts = dict(_cuda.launches)
+    segs = res["segments"]
+    say(f"pipeline record (512 envs, 12 boxes, 160 x 120, max_iters 48; "
+        f"cut: {pulls} pulls of {seg_per_pull} segments, not 6): "
+        f"{res['samples']} samples, {res['samples'] / res['record_s']:.1f} "
+        f"samples/s, {res['record_s'] * 1e3 / segs:.1f} ms a record segment "
+        f"(the last pull's {res['pull_s'][-1] * 1e3 / seg_per_pull:.1f}; the "
+        f"first holds the warm-up) [{card}]")
+    say(f"pipeline record launches ({segs} segments): " + ", ".join(
+        f"{k} {counts[k]} ({counts[k] / segs:g}/segment)"
+        for k in RECORD_PER_SEGMENT) + f" [{card}]")
+    for k, per in RECORD_PER_SEGMENT.items():
+        if counts[k] != per * segs or res["launches"][k] != counts[k]:
+            raise AssertionError(f"the record phase launched {k} "
+                                 f"{counts[k]} times, expected {per} a "
+                                 f"segment")
+        launch_totals[k] += counts[k]
+    first_ms = res["history"]["epoch_s"][0] * 1e3 / res["steps_per_epoch"]
+    say(f"pipeline train (smallconv, batch 64; cut: {epochs} epochs, not "
+        f"12): {res['steps_per_epoch']} steps an epoch, "
+        f"{res['step_ms']:.3f} ms a step, {1e3 / res['step_ms']:.1f} steps/s"
+        f" in the last epoch (the first, with the warm-up: {first_ms:.3f} "
+        f"ms a step; train() whole {res['train_s']:.2f} s), loss "
+        f"{res['history']['train_loss']} test {res['history']['test_loss']}"
+        f" [{card}]")
+    say(f"pipeline export: torch.export program p50 "
+        f"{res['latency_ms'][1]:.4f} ms, mean {res['latency_ms'][0]:.4f} ms "
+        f"at batch 1 [{card}]")
+    net = res["net"]
+    np_cfg = net.np_cfg
+    D, M, L = res["dataset"]
+
+    # the first training step on the card and on the CPU, one init, one batch
+    init = train.init_params(torch.Generator().manual_seed(0), np_cfg)
+    batch = (torch.as_tensor(D[:64], dtype=torch.float32)[..., None],
+             torch.as_tensor(M[:64]), torch.as_tensor(L[:64]))
+    losses = []
+    for on in (dev, torch.device("cpu")):
+        n_ = planner_net.PlannerNet(np_cfg)
+        n_.load_state_dict(init)
+        n_.to(on).train()
+        opt = train.make_optimizer(n_, train.TrainConfig())
+        losses.append(float(train.train_step(
+            n_, opt, *(t.to(on) for t in batch))))
+    rel_loss = abs(losses[0] - losses[1]) / abs(losses[1])
+    say(f"first training step loss card {losses[0]:.7g} CPU {losses[1]:.7g}:"
+        f" rel diff {rel_loss:.3g} (tol 1e-5)")
+    if rel_loss > 1e-5:
+        raise AssertionError("the training step on the card disagrees with "
+                             "the CPU")
+
+    # the program and the ONNX file against the net
+    engine = export.load(res["paths"]["program"], dev)
+    onnx_net = planner_net.PlannerNet(np_cfg)
+    onnx_net.load_state_dict(weights.from_onnx(res["paths"]["onnx"]))
+    onnx_net.to(dev).eval()
+    flat = data.flat_input(torch.as_tensor(D[:8], dtype=torch.float32),
+                           torch.as_tensor(M[:8])).to(dev)
+    with torch.no_grad():
+        want = torch.cat([net.forward_flat(flat[i:i + 1]) for i in range(8)])
+        got_e = torch.cat([engine(flat[i:i + 1]) for i in range(8)])
+        got_o = torch.cat([onnx_net.forward_flat(flat[i:i + 1])
+                           for i in range(8)])
+    err_e = float((got_e - want).abs().max())
+    err_o = float((got_o - want).abs().max())
+    say(f"export, 8 samples at batch 1: program vs net max diff "
+        f"{err_e:.3g}, ONNX "
+        f"(weights.from_onnx) vs net {err_o:.3g} (tol 1e-5)")
+    if err_e > 1e-5 or err_o > 1e-5:
+        raise AssertionError("the exported net disagrees with the trained "
+                             "one")
+
+    # where a record segment's and a training step's time goes: their
+    # device events under torch.profiler (utils/profiling.device_trace)
+    pp48 = PlannerParams(max_iters=48)
+    gen = _cuda.make_generator(30, dev)
+    worlds = scenegen.generate_batch(gen, 512, WorldParams(num_boxes=12))
+    state = env.reset(worlds, pp48, mp, mapp, gen)
+    tnet = planner_net.PlannerNet(np_cfg)
+    tnet.load_state_dict(net.state_dict())
+    tnet.to(dev).train()
+    opt = train.make_optimizer(tnet, train.TrainConfig())
+    batch = tuple(t.to(dev) for t in batch)
+    for name, fn in (
+            ("record segment B=512", lambda: datagen.record_rollout(
+                state, 1, pp48, mp, sp, cam, mp.des_pos_z)),
+            ("training step", lambda: train.train_step(tnet, opt, *batch))):
+        fn()
+        torch.cuda.synchronize()
+        with profiling.device_trace(os.path.join(tmp, "trace")) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # the device's kernels and copies (not the ranges that user
+        # annotations such as the optimizer's step span on the device)
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        by_name = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        say(f"{name} under torch.profiler: {wall:.2f} ms wall, "
+            f"{len(kern)} device events busy {busy:.3f} ms (idle share "
+            f"{1.0 - busy / wall:.3f}); most device time: " + "; ".join(
+                f"{k[:40]} {v:.3f} ms" for k, v in top) + f" [{card}]")
+
+    # two scene 'neo' segments at B = 512 with the trained net
+    ok, planned = 0, 0
+    for _ in range(2):
+        state, info = env.step_segment(state, pp48, mp, sp, cam, net)
+        ok += int(info.ok.sum())
+        planned += int(info.planned.sum())
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        state.drone.pos, state.buffer, state.metrics))
+    say(f"trained net, 2 scene 'neo' segments B=512: replans ok "
+        f"{ok}/{planned}, finite {finite}")
+    if not finite or planned == 0:
+        raise AssertionError("the trained net's loop did not run")
 
 
 def main(argv=None) -> int:
@@ -2460,6 +2672,11 @@ def main(argv=None) -> int:
             say(f"{name} M=3 H={pp.history} B={P} against {args.against}: "
                 f"{n_diff} of {n_all} elements (x, f, iters) differ (bits); "
                 f"{in_turns(call, pieces=True)[1]}")
+
+    # ================= the expert-data and training path ==================
+    record_check(dev, pp, mp, sp, mapp, cam, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
 

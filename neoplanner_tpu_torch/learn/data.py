@@ -1,9 +1,11 @@
-"""Network input formation: depth + state -> PlannerNet inputs, and the
-network's body-frame waypoints back to the world.
+"""Network input formation: depth + state -> PlannerNet inputs, expert
+solutions -> training labels, and the network's body-frame waypoints back
+to the world.
 
-The port of the inference side of neoplanner_tpu/learn/data.py
-(``normalize_depth``, ``motion_vector``, ``wpts_from_body``), batched over
-envs.
+The port of neoplanner_tpu/learn/data.py (``normalize_depth``,
+``motion_vector``, ``wpts_to_body``, ``wpts_from_body``, ``make_label``,
+``flat_input``), batched over a leading axis. The recorder (labels), the
+trainer (its dataset) and the net planners (inference) share them.
 """
 
 from __future__ import annotations
@@ -46,6 +48,31 @@ def motion_vector(drone: DroneState, des_pos_z: float,
         frames.quat_rotate_inv(q, init_vel3 - drone.vel),
         frames.quat_rotate_inv(q, tgt_pos3 - drone.pos),
         frames.quat_rotate_inv(q, tgt_vel3 - drone.vel)], dim=-1)
+
+
+def wpts_to_body(drone: DroneState, des_pos_z: float,
+                 int_wpts: torch.Tensor) -> torch.Tensor:
+    """Expert waypoints (B, D=2, n) world -> body-frame 3-D labels (B, 3n),
+    waypoint-major, z at des_pos_z (form_nn_output, record_planner.py:61-72).
+    """
+    B, _, n = int_wpts.shape
+    w3 = torch.cat([int_wpts, int_wpts.new_full((B, 1, n), des_pos_z)], 1)
+    rel = (w3 - drone.pos[:, :, None]).transpose(1, 2)      # (B, n, 3)
+    return frames.quat_rotate_inv(drone.quat[:, None, :], rel).reshape(
+        B, 3 * n)
+
+
+def make_label(drone: DroneState, des_pos_z: float, int_wpts: torch.Tensor,
+               ts: torch.Tensor) -> torch.Tensor:
+    """The 9-dim training label (B, 9): body-frame waypoints, then the
+    durations (record_planner.py:173; csv columns wpts1_* wpts2_* ts1-3)."""
+    return torch.cat([wpts_to_body(drone, des_pos_z, int_wpts), ts], -1)
+
+
+def flat_input(depth_norm: torch.Tensor, motion: torch.Tensor) -> torch.Tensor:
+    """The ONNX-contract flat vector (B, h*w + 24): the flattened frame,
+    then the motion vector (process_input_np, nn_trainer.py:52-59)."""
+    return torch.cat([depth_norm.flatten(-2), motion], -1)
 
 
 def wpts_from_body(drone: DroneState, wpts_local_flat: torch.Tensor,

@@ -3,19 +3,17 @@ flax parameters, or from the committed ONNX export.
 
 ``from_flax`` maps flax Dense kernels (in, out) to Linear weights (out, in)
 and HWIO convolution kernels to OIHW. ``from_onnx`` reads the initializers
-of a PlannerNet exported by neoplanner_tpu/learn/onnx_interop.py
-(``artifacts/planner_net_smallconv.onnx``) with the minimal protobuf decoder
-below, a copy of the reading half of neoplanner_tpu/io/onnx_proto.py.
+of a PlannerNet exported by neoplanner_tpu/learn/onnx_interop.py or by the
+port's learn/onnx_interop.py (``artifacts/planner_net_smallconv.onnx``)
+with the port's protobuf codec, io/onnx_proto.py.
 """
 
 from __future__ import annotations
 
-import struct
-
 import numpy as np
 import torch
 
-_FLOAT, _INT64 = 1, 7
+from neoplanner_tpu_torch.io import onnx_proto
 
 
 def _linear(kernel, bias):
@@ -46,71 +44,6 @@ def from_flax(variables) -> dict:
     return sd
 
 
-# ---------------------------------------------------------------------------
-# minimal ONNX (protobuf wire format) reader
-# ---------------------------------------------------------------------------
-
-def _read_varint(buf: bytes, pos: int):
-    result, shift = 0, 0
-    while True:
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-
-
-def _parse(buf: bytes) -> dict:
-    """One protobuf message -> {field number: [raw values]}."""
-    out: dict = {}
-    pos, n = 0, len(buf)
-    while pos < n:
-        key, pos = _read_varint(buf, pos)
-        field, wt = key >> 3, key & 7
-        if wt == 0:
-            val, pos = _read_varint(buf, pos)
-        elif wt == 2:
-            ln, pos = _read_varint(buf, pos)
-            val = buf[pos:pos + ln]
-            pos += ln
-        elif wt == 5:
-            val = struct.unpack("<f", buf[pos:pos + 4])[0]
-            pos += 4
-        elif wt == 1:
-            val = struct.unpack("<d", buf[pos:pos + 8])[0]
-            pos += 8
-        else:
-            raise ValueError(f"unsupported protobuf wiretype {wt}")
-        out.setdefault(field, []).append(val)
-    return out
-
-
-def _tensor(buf: bytes):
-    """TensorProto -> (name, array): dims=1, data_type=2, name=8, raw=9."""
-    f = _parse(buf)
-    dims = [int(d) for d in f.get(1, [])]
-    dtype = {_FLOAT: np.float32, _INT64: np.int64}[int(f.get(2, [_FLOAT])[0])]
-    name = f[8][0].decode() if 8 in f else ""
-    if 9 in f:
-        arr = np.frombuffer(f[9][0], dtype=dtype).reshape(dims)
-    elif 4 in f:
-        arr = np.frombuffer(f[4][0], dtype="<f4").reshape(dims)
-    else:
-        arr = np.zeros(dims, dtype)
-    return name, arr
-
-
-def _int_attrs(buf_list) -> dict:
-    """AttributeProto list -> {name: int} for integer attributes (i=3)."""
-    out = {}
-    for a in buf_list:
-        f = _parse(a)
-        if 3 in f:
-            out[f[1][0].decode()] = int(f[3][0])
-    return out
-
-
 def from_onnx(path: str) -> dict:
     """state_dict of PlannerNet from an exported smallconv PlannerNet .onnx.
 
@@ -119,19 +52,16 @@ def from_onnx(path: str) -> dict:
     the four motion layers, then the four fusion layers (x @ W + b, so W is
     (in, out) unless the node sets transB)."""
     with open(path, "rb") as fh:
-        model = _parse(fh.read())
-    graph = _parse(model[7][0])
-    inits = dict(_tensor(t) for t in graph.get(5, []))
+        model = onnx_proto.parse_model(fh.read())
+    inits = model["initializers"]
     convs, gemms = [], []
-    for nb in graph.get(1, []):
-        node = _parse(nb)
-        op = node[4][0].decode()
-        ins = [s.decode() for s in node.get(1, [])]
-        if op == "Conv":
+    for node in model["nodes"]:
+        ins = node["inputs"]
+        if node["op"] == "Conv":
             convs.append((inits[ins[1]], inits[ins[2]]))
-        elif op == "Gemm":
+        elif node["op"] == "Gemm":
             w = inits[ins[1]]
-            if not _int_attrs(node.get(5, [])).get("transB", 0):
+            if not node["attrs"].get("transB", 0):
                 w = w.T
             gemms.append((w, inits[ins[2]]))
     if len(convs) != 4 or len(gemms) != 9:

@@ -52,6 +52,15 @@ class PlannerNet(nn.Module):
         x = self._stack(self.motion_backbone, motion)
         return self._stack(self.mlp, torch.cat([feat, x], dim=-1))
 
+    def forward_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """The ONNX I/O contract (apply_flat, planner_net.py:108): flat
+        (B, W*H + 24), the frame row-major then the motion vector ->
+        (B, 9)."""
+        cfg = self.np_cfg
+        n_img = cfg.img_width * cfg.img_height
+        img = flat[:, :n_img].reshape(-1, cfg.img_height, cfg.img_width, 1)
+        return self(img, flat[:, n_img:])
+
 
 def load(path: str, np_cfg: NetParams, device="cuda") -> PlannerNet:
     """PlannerNet in eval mode on ``device`` with the weights of an exported

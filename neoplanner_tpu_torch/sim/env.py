@@ -1,9 +1,10 @@
 """The closed loop: reset, step, rollout.
 
 The port of neoplanner_tpu/sim/env.py for three paths, with the 'expert',
-'warmstart', 'nn' and 'neo' planners (``_replan`` :219-293), random
-missions and periodic replanning (``step_segment`` :452), and ``rollout``
-(:720):
+'warmstart', 'nn' and 'neo' planners (``_replan`` :219-293), the 'random',
+'predefined' and 'manual' mission modes and the 'periodic', 'online' and
+'global' replan modes (``step_segment`` :452), the takeoff phase (reset
+:187-193, step_segment :518-522), and ``rollout`` (:720):
 
 - the flagship (bench.py:101-142): ground-truth sensing and the analytic
   scene SDF for every distance query (``sensing='gt', plan_map='scene'``,
@@ -20,7 +21,7 @@ missions and periodic replanning (``step_segment`` :452), and ``rollout``
   per segment (the sensor-rate loop, step_segment :567-633), with every
   fusion of ``MapParams.fusion`` and an exact or truncated lite ESDF.
 
-The 'geo' planner and the other mission and replan modes are not ported.
+The 'geo' planner is not ported.
 
 B envs advance together. Each segment: render the depth frame (kernel B4)
 where a net planner reads it or the vision loop fuses it; in the vision
@@ -96,6 +97,9 @@ class EnvState(_Replace):
     missions_done: torch.Tensor  # (B,) int32
     missions_ok: torch.Tensor    # (B,) int32
     metric_ok_sum: torch.Tensor  # (B,) weighted metric of the ok missions
+    goal_list: torch.Tensor     # (B, G, 2) predefined goal tour ((B, 1, 2)
+    #                             zeros without one)
+    goal_idx: torch.Tensor      # (B,) int32 next tour entry to dispatch
     generator: torch.Generator
     # the grid paths' maps (None on the scene path): the ground-truth
     # full-profile ESDF, or the vision loop's sensed lite ESDF with its
@@ -121,6 +125,9 @@ class SegmentInfo(_Replace):
     ok: torch.Tensor        # (B,) bool: the plan was accepted
     int_wpts: torch.Tensor  # (B, D, M-1)
     ts: torch.Tensor        # (B, M)
+    drone: DroneState       # the drone at the segment's start
+    plan_init: torch.Tensor  # (B, 2, 2) pos/vel the plan started from
+    target: torch.Tensor    # (B, 2, 2) the local target state
     iters: torch.Tensor     # (B,) L-BFGS iterations spent
     trace: torch.Tensor     # (B, spr, 5, 3) [pos, vel, des pos/vel/acc]
 
@@ -150,12 +157,19 @@ def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
           mapp: MapParams, generator: torch.Generator,
           goal: Optional[torch.Tensor] = None,
           goal_u: Optional[torch.Tensor] = None, sensing: str = "gt",
-          plan_map: str = "scene") -> EnvState:
-    """B envs hovering at (0, 0, hover_height) in the mission phase (the
-    JAX reset's skip_takeoff=True; takeoff is not ported). Without a goal,
-    each env samples a random goal (from goal_u, else from the generator),
-    as in random missions; goals are vetted against the ground-truth scene
-    in every sensing mode. plan_map='grid' with sensing='gt' rasterizes each
+          plan_map: str = "scene", start_pos: Optional[torch.Tensor] = None,
+          skip_takeoff: bool = True,
+          goal_list: Optional[torch.Tensor] = None) -> EnvState:
+    """B envs at start_pos (B, 2) (default (0, 0)) on the device of the
+    worlds: hovering at hover_height in the mission phase, or with
+    skip_takeoff=False on the ground (z = 0) in the takeoff phase, which
+    step_segment ends once the drone is within 5 cm of hover_height (JAX
+    reset :187-193). goal_list (B, G, 2) arms the 'predefined' mission
+    tour: without a goal, entry 0 becomes the goal, and the tour's cursor
+    starts at 1 (reset :171-178). Without a goal or a tour, each env
+    samples a random goal (from goal_u, else from the generator), as in
+    random missions; goals are vetted against the ground-truth scene in
+    every sensing mode. plan_map='grid' with sensing='gt' rasterizes each
     world (voxelize.occupancy_2d) and builds its exact full-profile ESDF.
     sensing='depth' starts the map unknown: a zero log-odds grid and its
     lite ESDF (exact for mapp.edt_truncation = 0, else truncated), and the
@@ -180,17 +194,6 @@ def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
     elif plan_map == "grid":
         emap = esdf_map.build(voxelize.occupancy_2d(world, mapp), origin,
                               mapp.resolution)
-    flap = torch.zeros(B, dtype=torch.int32, device=dev)
-    if goal is None:
-        if goal_u is None:
-            goal_u = torch.rand((B,), generator=generator, device=dev)
-        goal, flap = missions.sample_clear_goal(goal_u, flap, scene,
-                                                mp.goal_clear_dis)
-    start = torch.zeros((B, 2), device=dev)
-    drone = dynamics.init_state(torch.cat(
-        [start, torch.full((B, 1), mp.hover_height, device=dev)], dim=1))
-    buffer = torch.zeros((B, n_buffer(pp, mp), 3, 2), device=dev)
-    buffer[:, :, 0, :] = start[:, None, :]
 
     def zeros_i():
         return torch.zeros(B, dtype=torch.int32, device=dev)
@@ -198,11 +201,32 @@ def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
     def false():
         return torch.zeros(B, dtype=torch.bool, device=dev)
 
+    flap = zeros_i()
+    goal_idx = zeros_i()
+    if goal_list is not None:
+        goal_list = goal_list.to(device=dev, dtype=torch.float32)
+        if goal is None:
+            goal = goal_list[:, 0]
+        goal_idx = goal_idx + 1
+    else:
+        goal_list = torch.zeros((B, 1, 2), device=dev)
+    if goal is None:
+        if goal_u is None:
+            goal_u = torch.rand((B,), generator=generator, device=dev)
+        goal, flap = missions.sample_clear_goal(goal_u, flap, scene,
+                                                mp.goal_clear_dis)
+    start = (torch.zeros((B, 2), device=dev) if start_pos is None else
+             start_pos.to(device=dev, dtype=torch.float32).expand(B, 2))
+    z0 = mp.hover_height if skip_takeoff else 0.0
+    drone = dynamics.init_state(torch.cat(
+        [start, torch.full((B, 1), z0, device=dev)], dim=1))
+    buffer = torch.zeros((B, n_buffer(pp, mp), 3, 2), device=dev)
+    buffer[:, :, 0, :] = start[:, None, :]
+    phase = missions.PHASE_MISSION if skip_takeoff else missions.PHASE_TAKEOFF
     return EnvState(
         drone=drone, scene=scene, world=world, buffer=buffer,
         goal=goal.to(torch.float32),
-        phase=torch.full((B,), missions.PHASE_MISSION, dtype=torch.int32,
-                         device=dev),
+        phase=torch.full((B,), phase, dtype=torch.int32, device=dev),
         near_goal=false(), reached=false(), failed=false(),
         fail_count=zeros_i(), steps=zeros_i(), flap=flap,
         metric_pos=start.clone(), metrics=torch.zeros((B, 3), device=dev),
@@ -210,8 +234,8 @@ def reset(world: BoxWorld, pp: PlannerParams, mp: MissionParams,
         carry_ts=torch.full((B, pp.num_pieces), pp.init_t, device=dev),
         has_carry=false(), plan_count=zeros_i(), iter_sum=zeros_i(),
         missions_done=zeros_i(), missions_ok=zeros_i(),
-        metric_ok_sum=torch.zeros(B, device=dev), generator=generator,
-        emap=emap, logodds=logodds,
+        metric_ok_sum=torch.zeros(B, device=dev), goal_list=goal_list,
+        goal_idx=goal_idx, generator=generator, emap=emap, logodds=logodds,
         mapp=mapp if sensing == "depth" else None)
 
 
@@ -309,16 +333,25 @@ def _check_planner(planner: str, solver: str, pp: PlannerParams) -> None:
 
 
 def _replan(state: EnvState, pp, mp, planner: str, solver: str, net,
-            depth: Optional[torch.Tensor], pmap, draws: Draws, timer=None):
+            depth: Optional[torch.Tensor], pmap, draws: Draws,
+            replan_mode: str, timer=None):
     """Plan from the state one replan period ahead (buffer row spr) on the
     planning map pmap with ``planner`` (env.py:258-282): 'expert' the
     multi-start bank, 'warmstart' that bank with the carried solution in
     lane 0, 'nn' the net's prediction as it is, 'neo' the prediction
-    refined; the net reads the depth frame."""
+    refined; the net reads the depth frame. The target is the receding
+    horizon's local target, or with replan_mode 'global' the goal itself
+    at rest, with near set (env.py:250-255). Returns (trajectory, new
+    setpoints, near, plan-init state, target state)."""
     ahead = state.buffer[:, mp.steps_per_replan]            # (B, 3, 2)
-    target_state, near = missions.set_local_target(
-        pmap, ahead[:, 0], state.goal, draws.target_noise,
-        state.fail_count, mp, pp)
+    if replan_mode == "global":
+        target_state = torch.stack([state.goal,
+                                    torch.zeros_like(state.goal)], 1)
+        near = torch.ones_like(state.near_goal)
+    else:
+        target_state, near = missions.set_local_target(
+            pmap, ahead[:, 0], state.goal, draws.target_noise,
+            state.fail_count, mp, pp)
     head = expert.pad_boundary_state(ahead[:, :2], pp)
     tail = expert.pad_boundary_state(target_state, pp)
     if planner == "expert":
@@ -345,7 +378,7 @@ def _replan(state: EnvState, pp, mp, planner: str, solver: str, net,
     with stage(timer, "plan"):
         new_cmd, _, _ = minco.full_state_cmd(traj.coeffs, traj.ts,
                                              mp.cmd_hz, n_traj_samples(pp, mp))
-    return traj, new_cmd, near, ahead[:, :2]
+    return traj, new_cmd, near, ahead[:, :2], target_state
 
 
 def _chunks(sensed: bool, spr: int, fuse_frames: int,
@@ -368,28 +401,44 @@ def _chunks(sensed: bool, spr: int, fuse_frames: int,
     return n_chunks
 
 
+MISSION_MODES = ("random", "predefined", "manual")
+REPLAN_MODES = ("periodic", "online", "global")
+
+
 def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
                  sp: SimParams, cam: CameraParams, net=None,
                  draws: Optional[Draws] = None, timer=None,
                  fuse_frames: int = 1,
                  goal_stream: Optional[torch.Tensor] = None,
                  esdf_rate: int = 1, planner: str = "neo",
-                 solver: str = "fused"):
+                 solver: str = "fused", mission_mode: str = "random",
+                 replan_mode: str = "periodic"):
     """One replan period for every env: sense, (maybe) replan, then track
-    steps_per_replan setpoints; finished missions count and draw a new
-    goal. Returns (state, SegmentInfo).
+    steps_per_replan setpoints; then the mission mode handles the missions
+    that ended. Returns (state, SegmentInfo).
 
     planner is 'neo' (the net's prediction refined, the default), 'nn' (the
     prediction as it is), 'expert' (the multi-start bank) or 'warmstart'
     (that bank with the last accepted solution carried in lane 0); solver
-    is 'fused' or 'per_eval' (plan/expert.py). Sensing follows the JAX
-    loop (env.py:503-516): with a net planner ('nn', 'neo') the frame is
-    rendered once at full resolution for the net and, on the vision path
-    (which reset chose with sensing='depth'), fused into the map before the
-    ESDF rebuild; the expert planners need no net and render no frame for
-    one, so on the vision path they fuse a frame rendered at
-    mapp.fusion_row_stride, and on the ground-truth paths they render
-    nothing.
+    is 'fused' or 'per_eval' (plan/expert.py). The JAX package defaults to
+    'expert' and 'manual': the port's defaults are the flagship loop's.
+    Sensing follows the JAX loop (env.py:503-516): with a net planner
+    ('nn', 'neo') the frame is rendered once at full resolution for the net
+    and, on the vision path (which reset chose with sensing='depth'), fused
+    into the map before the ESDF rebuild; the expert planners need no net
+    and render no frame for one, so on the vision path they fuse a frame
+    rendered at mapp.fusion_row_stride, and on the ground-truth paths they
+    render nothing.
+
+    An env in the takeoff phase enters the mission phase once it is within
+    5 cm of hover_height (env.py:518-522); only envs in the mission phase
+    replan. mission_mode (env.py:653-711): 'random' counts an ended mission
+    and draws the next random goal (the data-collection driver);
+    'predefined' counts it once and dispatches the next entry of the tour
+    that reset armed, then parks at PHASE_DONE; 'manual' parks at
+    PHASE_DONE. replan_mode (env.py:526-532, :250-253): 'periodic' replans
+    each segment until the local target is the goal, 'online' until the
+    goal is reached, 'global' plans once, straight to the goal.
 
     fuse_frames F > 1 (vision path) tracks the segment in F chunks and
     fuses F - 1 more frames from the poses after the first F - 1 chunks,
@@ -401,6 +450,10 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
     fuse, esdf, net, plan and track stages, and fuse_multi for the batched
     frames."""
     _check_planner(planner, solver, pp)
+    if mission_mode not in MISSION_MODES:
+        raise ValueError(f"unknown mission_mode: {mission_mode}")
+    if replan_mode not in REPLAN_MODES:
+        raise ValueError(f"unknown replan_mode: {replan_mode}")
     grid = state.emap is not None          # the gt+grid or vision path
     sensed = state.logodds is not None     # the vision path
     spr = mp.steps_per_replan
@@ -418,10 +471,17 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
         state = sense_and_map(state, cam, depth, timer)
     pmap = state.emap if grid else state.scene
 
+    at_height = (state.drone.pos[:, 2] - mp.hover_height).abs() < 0.05
+    state = state.replace(phase=torch.where(
+        (state.phase == missions.PHASE_TAKEOFF) & at_height,
+        torch.full_like(state.phase, missions.PHASE_MISSION), state.phase))
     do_replan = ((state.phase == missions.PHASE_MISSION) & ~state.reached
-                 & ~state.failed & ~state.near_goal)
-    traj, new_cmd, near, plan_init = _replan(state, pp, mp, planner, solver,
-                                             net, depth, pmap, draws, timer)
+                 & ~state.failed)
+    if replan_mode != "online":
+        do_replan = do_replan & ~state.near_goal
+    traj, new_cmd, near, plan_init, target = _replan(
+        state, pp, mp, planner, solver, net, depth, pmap, draws, replan_mode,
+        timer)
     plan_ok = traj.ok & do_replan
 
     track_cmds = state.buffer[:, :spr].contiguous()
@@ -444,6 +504,7 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
         carry_ts=torch.where(plan_ok[:, None], traj.ts, state.carry_ts),
         has_carry=state.has_carry | plan_ok)
 
+    drone_at_plan = state.drone
     tracker = track.track_segment_grid if grid else track.track_segment
     # Mid-segment frames have no consumer before the segment ends when the
     # ESDF rebuilds once per segment: the tracking follows the command
@@ -482,42 +543,79 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
             state = fuse_frames_multi(state, cam,
                                       torch.stack(fuse_pos, 1).contiguous(),
                                       torch.stack(fuse_quat, 1).contiguous())
-    trace = torch.cat(traces, 1)
     info = SegmentInfo(planned=do_replan, ok=plan_ok, int_wpts=traj.int_wpts,
-                       ts=traj.ts, iters=traj.iters, trace=trace)
-
+                       ts=traj.ts, drone=drone_at_plan, plan_init=plan_init,
+                       target=target, iters=traj.iters,
+                       trace=torch.cat(traces, 1))
     failed = state.failed | (state.fail_count > mp.local_target_retries) \
-        | (steps > mp.max_mission_steps)
-    done = reached | failed
-    wm = metrics @ metrics.new_tensor(METRIC_WEIGHTS)
-    mission_ok = reached & (wm <= 10.0 * pp.collision_cost_tol)
-    new_goal, new_flap = missions.sample_clear_goal(
-        draws.goal_u, state.flap, state.scene, mp.goal_clear_dis)
-    keep = ~done
-    state = state.replace(
-        drone=drone, metric_pos=metric_pos,
+        | (state.steps > mp.max_mission_steps)
+    state = state.replace(failed=failed)
+    return _end_missions(state, mission_mode, draws, pp, mp), info
+
+
+def _end_missions(state: EnvState, mission_mode: str, draws: Draws,
+                  pp: PlannerParams, mp: MissionParams) -> EnvState:
+    """The missions that ended this segment (reached or failed), by
+    mission_mode (env.py:653-711). A mission is ok when it reached its goal
+    with a weighted metric within 10 collision_cost_tol."""
+    done = state.reached | state.failed
+    if mission_mode == "manual":
+        return state.replace(phase=torch.where(
+            done, torch.full_like(state.phase, missions.PHASE_DONE),
+            state.phase))
+    wm = state.metrics @ state.metrics.new_tensor(METRIC_WEIGHTS)
+    mission_ok = state.reached & (wm <= 10.0 * pp.collision_cost_tol)
+    if mission_mode == "random":
+        counted = advance = done
+        new_goal, new_flap = missions.sample_clear_goal(
+            draws.goal_u, state.flap, state.scene, mp.goal_clear_dis)
+        phase = state.phase
+    else:
+        # a tour parked at PHASE_DONE reports done every segment: count a
+        # completion once; advance while the tour has entries left
+        G = state.goal_list.shape[1]
+        counted = done & (state.phase != missions.PHASE_DONE)
+        have_next = state.goal_idx < G
+        advance = counted & have_next
+        envs = torch.arange(done.shape[0], device=done.device)
+        new_goal = state.goal_list[envs, state.goal_idx.clamp(max=G - 1)
+                                   .long()]
+        new_flap = state.flap
+        phase = torch.where(counted & ~have_next,
+                            torch.full_like(state.phase, missions.PHASE_DONE),
+                            state.phase)
+    keep = ~advance
+    zero_i = torch.zeros_like(state.fail_count)
+    return state.replace(
         metric_ok_sum=state.metric_ok_sum + torch.where(
-            done & mission_ok, wm, torch.zeros_like(wm)),
-        goal=torch.where(done[:, None], new_goal, state.goal),
-        flap=torch.where(done, new_flap, state.flap),
-        reached=reached & keep, failed=failed & keep,
+            counted & mission_ok, wm, torch.zeros_like(wm)),
+        goal=torch.where(advance[:, None], new_goal, state.goal),
+        flap=torch.where(advance, new_flap, state.flap),
+        goal_idx=state.goal_idx + (advance.to(torch.int32)
+                                   if mission_mode == "predefined" else 0),
+        reached=state.reached & keep, failed=state.failed & keep,
         near_goal=state.near_goal & keep,
-        fail_count=torch.where(done, zero_i, state.fail_count),
-        steps=torch.where(done, zero_i, steps),
-        metrics=torch.where(done[:, None], torch.zeros_like(metrics), metrics),
-        missions_done=state.missions_done + done.to(torch.int32),
-        missions_ok=state.missions_ok + (done & mission_ok).to(torch.int32))
-    return state, info
+        fail_count=torch.where(advance, zero_i, state.fail_count),
+        steps=torch.where(advance, zero_i, state.steps),
+        metrics=torch.where(advance[:, None], torch.zeros_like(state.metrics),
+                            state.metrics),
+        missions_done=state.missions_done + counted.to(torch.int32),
+        missions_ok=state.missions_ok + (counted & mission_ok).to(
+            torch.int32),
+        phase=phase)
 
 
 def rollout(state: EnvState, num_segments: int, pp: PlannerParams,
             mp: MissionParams, sp: SimParams, cam: CameraParams,
             net=None, fuse_frames: int = 1, planner: str = "neo",
-            solver: str = "fused") -> EnvState:
-    """num_segments replan periods with ``planner`` and ``solver``, each
-    fusing fuse_frames frames on the vision path."""
+            solver: str = "fused", mission_mode: str = "random",
+            replan_mode: str = "periodic") -> EnvState:
+    """num_segments replan periods with ``planner`` and ``solver`` and the
+    mission and replan modes, each fusing fuse_frames frames on the vision
+    path."""
     for _ in range(num_segments):
         state, _ = step_segment(state, pp, mp, sp, cam, net,
                                 fuse_frames=fuse_frames, planner=planner,
-                                solver=solver)
+                                solver=solver, mission_mode=mission_mode,
+                                replan_mode=replan_mode)
     return state

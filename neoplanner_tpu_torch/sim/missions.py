@@ -1,11 +1,11 @@
 """Mission logic: local-target selection, goal sampling, FSM phases.
 
 The port of neoplanner_tpu/sim/missions.py (``set_local_target`` :28,
-``sample_clear_goal`` :99), batched over envs. The JAX functions draw their
-own random numbers from a key; these take the draws as arguments (a
-standard normal pair for the local-target noise, a uniform for the goal), so
-a caller can feed either a ``torch.Generator``'s draws or another
-framework's.
+``save_fsm_graph`` :83, ``sample_clear_goal`` :99), batched over envs. The
+JAX functions draw their own random numbers from a key; these take the
+draws as arguments (a standard normal pair for the local-target noise, a
+uniform for the goal), so a caller can feed either a ``torch.Generator``'s
+draws or another framework's.
 """
 
 from __future__ import annotations
@@ -57,6 +57,25 @@ def set_local_target(pmap, pos2d: torch.Tensor, goal2d: torch.Tensor,
     target_pos = torch.where(near[:, None], goal2d, lt)
     target_vel = torch.where(near[:, None], torch.zeros_like(tvel), tvel)
     return torch.stack([target_pos, target_vel], dim=1), near
+
+
+FSM_DOT = """digraph mission_fsm {
+  rankdir=LR;
+  INIT -> TAKINGOFF [label="launch"];
+  TAKINGOFF -> HOVER [label="reach_height"];
+  HOVER -> MISSION [label="set_goal"];
+  MISSION -> MISSION [label="set_goal"];
+  MISSION -> HOVER [label="reach_goal"];
+}
+"""
+
+
+def save_fsm_graph(path: str) -> str:
+    """Write the mission FSM as Graphviz DOT (the manager's draw_fsm_graph,
+    manager_node.py:315-316, without the graphviz binary)."""
+    with open(path, "w") as f:
+        f.write(FSM_DOT)
+    return path
 
 
 def sample_random_goal(u: torch.Tensor, flap: torch.Tensor):

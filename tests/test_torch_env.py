@@ -47,6 +47,7 @@ from neoplanner_tpu.config import NetParams as JNetParams
 from neoplanner_tpu.config import PlannerParams as JPlannerParams
 from neoplanner_tpu.config import SimParams as JSimParams
 from neoplanner_tpu.config import WorldParams as JWorldParams
+from neoplanner_tpu.learn import data as jdata
 from neoplanner_tpu.mapping import scene as jscene
 from neoplanner_tpu.ops import minco as jminco
 from neoplanner_tpu.plan import costs as jcosts
@@ -58,7 +59,7 @@ from neoplanner_tpu_torch.config import (CameraParams, MapParams,
                                          MissionParams, NetParams,
                                          PlannerParams, SimParams,
                                          WorldParams)
-from neoplanner_tpu_torch.learn import weights
+from neoplanner_tpu_torch.learn import data, weights
 from neoplanner_tpu_torch.models import planner_net
 from neoplanner_tpu_torch import _cuda
 from neoplanner_tpu_torch.mapping import scene
@@ -218,6 +219,32 @@ def test_segment_one_iteration_matches(runs_one_iter, seg):
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(info.int_wpts.numpy(),
                                np.asarray(jinfo.int_wpts), atol=1e-4)
+
+
+@pytest.mark.parametrize("seg", range(SEGMENTS))
+def test_segment_record_fields_match(runs_one_iter, seg):
+    """SegmentInfo.drone, .plan_init and .target of the one-iteration twin,
+    and the training samples formed from them (the motion input and the
+    label, learn/data.py), against JAX's info and data functions: 1e-4."""
+    _, jinfo, _, info, _ = runs_one_iter[seg]
+    for f in ("pos", "vel", "quat", "yaw"):
+        np.testing.assert_allclose(getattr(info.drone, f).numpy(),
+                                   np.asarray(getattr(jinfo.drone, f)),
+                                   atol=1e-4, err_msg=f)
+    for f in ("plan_init", "target"):
+        np.testing.assert_allclose(getattr(info, f).numpy(),
+                                   np.asarray(getattr(jinfo, f)), atol=1e-4,
+                                   err_msg=f)
+    z = MissionParams().des_pos_z
+    np.testing.assert_allclose(
+        data.motion_vector(info.drone, z, info.plan_init,
+                           info.target).numpy(),
+        np.asarray(jdata.motion_vector(jinfo.drone, z, jinfo.plan_init,
+                                       jinfo.target)), atol=1e-4)
+    np.testing.assert_allclose(
+        data.make_label(info.drone, z, info.int_wpts, info.ts).numpy(),
+        np.asarray(jdata.make_label(jinfo.drone, z, jinfo.int_wpts,
+                                    jinfo.ts)), atol=1e-4)
 
 
 def test_loop_moves_plans_and_completes(runs, runs_one_iter):

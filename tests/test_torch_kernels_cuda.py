@@ -1884,3 +1884,46 @@ def test_kernels_refuse_piece_count_and_history(cuda_device):
             solve.solve_scene(x0, head, tail, pmap, env_of,
                               dataclasses.replace(pp, history=H))
     assert _cuda.launches == before
+
+
+# ---- the record rollout (B4, B1, B5, B3) on the card against the CPU
+
+
+def test_record_rollout_card_matches_cpu(cuda_device):
+    """learn/datagen.record_rollout at B = 16, 2 segments, one solver
+    iteration, from the same worlds, goals and draws: the valid flags
+    equal, motions and labels within 1e-4 on the valid samples, and at most
+    1e-3 of the frames' pixels off by more than 1e-3 m (B4's rule, on the
+    normalized frames scaled back by the largest peak, max_range)."""
+    from neoplanner_tpu_torch.learn import datagen
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, segs = 16, 2
+    pp = PlannerParams(max_iters=1)
+    mp, sp = MissionParams(), SimParams()
+    cam = CameraParams(width=160, height=120)
+    mapp = MapParams(**MAPP)
+    gen_c = _cuda.make_generator(7, "cpu")
+    w_c = scenegen.generate_batch(gen_c, n, WorldParams(num_boxes=12))
+    s_c = env.reset(w_c, pp, mp, mapp, gen_c)
+    w_g = _to(w_c, cuda_device)
+    s_g = env.reset(w_g, pp, mp, mapp, _cuda.make_generator(7),
+                    goal=s_c.goal.to(cuda_device))
+    d_c = [env.draw(gen_c, n, pp) for _ in range(segs)]
+    d_g = [_to(d, cuda_device) for d in d_c]
+    _cuda.reset_launches()
+    _, *out_g = datagen.record_rollout(s_g, segs, pp, mp, sp, cam,
+                                       mp.des_pos_z, draws=d_g)
+    counts = dict(_cuda.launches)
+    _, *out_c = datagen.record_rollout(s_c, segs, pp, mp, sp, cam,
+                                       mp.des_pos_z, draws=d_c)
+    for k, per in (("render_depth", 1), ("lbfgs_scene_solve", 2),
+                   ("minco_banded_solve", 2), ("track_segment", 1)):
+        assert counts[k] == per * segs, (k, counts[k])
+    (dg, mg, lg, vg), (dc, mc, lc, vc) = ([t.cpu() for t in o]
+                                          for o in (out_g, out_c))
+    assert torch.equal(vg, vc) and bool(vc.any())
+    for g, c in ((mg, mc), (lg, lc)):
+        np.testing.assert_allclose(g[vc].numpy(), c[vc].numpy(), atol=1e-4)
+    off = ((dg - dc).abs() * cam.max_range / 255.0 > 1e-3).float().mean()
+    assert float(off) <= 1e-3
