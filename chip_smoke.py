@@ -132,7 +132,28 @@ Phases, one short line each:
    under torch.profiler (utils/profiling.device_trace: device busy time,
    idle share, the kernels with the most device time); two scene 'neo'
    segments at B = 512 with the trained net (replans ok printed: a check
-   that it runs).
+   that it runs);
+27. (n) B4 at 640 x 480 over 256 poses (the plain version on 8 of them,
+   B4's pixel rule), its time and bound; the paper's PlannerNet
+   (NetParams(): ResNet-18 at 640 x 480) with weights from init_params
+   seeded NET640_SEED and running stats from four train-mode passes over
+   the frames: its forward time at batch 256, card vs CPU at batch 2 with
+   TF32 off (1e-4 of the largest output);
+28. (o) the paper's NEO loop: the scene path at B = 256 with that net and
+   CameraParams(640, 480), random missions, 1 warm-up and 2 timed
+   segments, stages, launches held per segment (B4 1, B1 2, B5 2, B3 1);
+   a B = 4 card-vs-CPU loop at one solver iteration by phase 4's rules;
+29. (p) the 'geo' loop: gt+grid on the flagship map at B = 512, goals at
+   x = 20, 1 warm-up and 2 timed segments, the front end ('geo') apart
+   from the refine, launches held (B9 exact 1 at the reset; B6 2, B5 2,
+   B10 1 a segment); the front end's wavefront timed apart; at B = 8 the
+   front end card vs CPU exactly equal and one refine iteration of B6
+   against the plain solver (plan/parity.one_iteration);
+30. (q) the tracker: track_rollout on the scene path at B = 512, 3
+   segments of circular_target_path, every env replanning every segment;
+31. (r) the ResNet-18 trainer: 3 steps at batch 64 at 640 x 480 (ms a
+   step), the first step card vs CPU at batch 4 with TF32 off (the loss
+   and the stem BatchNorm's running stats within 1e-4 relative).
 
 The vision paths' counts include their reset, which builds the truncated
 lite map of an unknown grid through B9 banded. The last lines are every
@@ -591,6 +612,267 @@ def pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp):
         f"{ok}/{planned}, finite {finite}")
     if not finite or planned == 0:
         raise AssertionError("the trained net's loop did not run")
+
+
+NET640_SEED = 640             # the seeded weights of the 640 x 480 net
+NEO640_PER_SEGMENT = dict(render_depth=1, lbfgs_scene_solve=2,
+                          minco_banded_solve=2, track_segment=1)
+GEO_PATH = ("edt_exact", "lbfgs_grid_solve", "minco_banded_solve",
+            "track_segment_grid")
+GEO_PER_SEGMENT = dict(lbfgs_grid_solve=2, minco_banded_solve=2,
+                       track_segment_grid=1, edt_exact=0)
+TRACKER_PATH = ("lbfgs_scene_solve", "minco_banded_solve", "track_segment")
+
+
+def seeded_net640(dev, frames_u8):
+    """The PlannerNet of NetParams() (ResNet-18, 640 x 480) with weights
+    from the port's init_params seeded NET640_SEED, its running stats set
+    by four train-mode passes over frames_u8 (normalized depth frames on
+    the card) so that eval() reads nonzero, realistic stats; in eval()
+    mode on dev."""
+    import torch
+    from neoplanner_tpu_torch.config import NetParams
+    from neoplanner_tpu_torch.learn import train
+    from neoplanner_tpu_torch.models.planner_net import PlannerNet
+    net = PlannerNet(NetParams())
+    net.load_state_dict(train.init_params(
+        torch.Generator().manual_seed(NET640_SEED), NetParams()))
+    net.to(dev).train()
+    motion = torch.zeros((frames_u8.shape[0], 24), device=dev)
+    with torch.no_grad():
+        for _ in range(4):
+            net(frames_u8[..., None], motion)
+    return net.eval()
+
+
+def paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v, goals_v,
+                 launch_totals, run_path, small_loop, render_work, wp):
+    """(n) B4 at 640 x 480 and the ResNet-18 PlannerNet's forward pass;
+    (o) the paper's NEO loop at 640 x 480 (scene path, B = 256) and its
+    B = 4 card-vs-CPU twin; (p) the 'geo' loop on the gt+grid path at
+    B = 512 and the geo front end card vs CPU; (q) the tracker at B = 512;
+    (r) the ResNet-18 trainer. Each phase prints its own wall time."""
+    import torch
+    from neoplanner_tpu_torch import _cuda
+    from neoplanner_tpu_torch.config import CameraParams, NetParams
+    from neoplanner_tpu_torch.core import frames
+    from neoplanner_tpu_torch.learn import data, train
+    from neoplanner_tpu_torch.models.planner_net import PlannerNet
+    from neoplanner_tpu_torch.ops import minco
+    from neoplanner_tpu_torch.plan import costs, expert, geo, parity, solve
+    from neoplanner_tpu_torch.sense import raycast
+    from neoplanner_tpu_torch.sim import env, tracker
+    from neoplanner_tpu_torch.world import scenegen
+
+    rng = np.random.default_rng(13)          # these phases' own draws
+    cam640 = CameraParams(width=640, height=480)
+    n_pose = 256
+
+    # ---- (n) B4 at 640 x 480: 256 poses, the plain version on 8
+    t_n = time.perf_counter()
+    sub = type(worlds)(*(getattr(worlds, f)[:n_pose] for f in
+                         ("centers", "half_sizes", "active", "shape")))
+    pos = torch.from_numpy(np.stack([
+        rng.uniform(-1.0, 4.0, n_pose), rng.uniform(-2.0, 2.0, n_pose),
+        rng.uniform(1.5, 2.5, n_pose)], -1)).float().to(dev)
+    quat = frames.quat_from_accel_yaw(
+        torch.from_numpy(rng.normal(scale=2.0, size=(n_pose, 3))).float()
+        .to(dev), torch.from_numpy(rng.uniform(-0.6, 0.6, n_pose)).float()
+        .to(dev)).contiguous()
+    prims = raycast.pack_prims(sub)
+    depth = torch.empty((n_pose, 480, 640), device=dev)
+    raycast.launch_render(pos, quat, prims, depth, cam640)
+    sub8 = type(worlds)(*(getattr(sub, f)[:8] for f in
+                          ("centers", "half_sizes", "active", "shape")))
+    want = raycast.render_depth(sub8, pos[:8], quat[:8], cam640)
+    diff = (depth[:8] - want).abs()
+    frac_off = float((diff > 1e-3).float().mean())
+    ms = median_ms(torch, lambda: raycast.launch_render(
+        pos, quat, prims, depth, cam640), 10)
+    kept = raycast.tile_cull(sub, pos, quat, cam640)
+    b_ms, b_by = bound(*render_work(kept, 480, 640, prims.shape[1],
+                                    (raycast.TILE_H, raycast.TILE_W)))
+    say(f"(n) render_depth 640 x 480, {n_pose} poses: {frac_off:.2e} of the "
+        f"first 8 frames' pixels off the plain version by > 1e-3 m (tol "
+        f"1e-3), max abs {float(diff.max()):.3g}; {ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}) [{card}]")
+    if frac_off > 1e-3:
+        raise AssertionError("render_depth at 640 x 480 disagrees with its "
+                             "plain version")
+    img = data.normalize_depth(depth)
+    net = seeded_net640(dev, img)
+    bn0 = net.img_backbone.bn_0
+    say(f"(n) PlannerNet NetParams() (resnet18/mlp), seeded weights "
+        f"(init_params seed {NET640_SEED}; running stats from 4 train-mode "
+        f"passes over the frames: stem mean |{float(bn0.running_mean.abs().mean()):.3g}|, "
+        f"var {float(bn0.running_var.mean()):.3g}); cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    motion = torch.from_numpy(rng.normal(size=(n_pose, 24))).float().to(dev)
+    with torch.no_grad():
+        fwd_ms = median_ms(torch, lambda: net(img[..., None], motion), 5)
+        out_g = net(img[:2, ..., None], motion[:2]).cpu()
+    net_cpu = PlannerNet(NetParams())
+    net_cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    net_cpu.eval()
+    with torch.no_grad():
+        out_c = net_cpu(img[:2, ..., None].cpu(), motion[:2].cpu())
+    err = float((out_g - out_c).abs().max() / out_c.abs().max())
+    macs = 11.1e9 * n_pose      # ~11 G multiply-adds an image at 640 x 480
+    say(f"(n) PlannerNet forward batch {n_pose}: {fwd_ms:.2f} ms "
+        f"({fwd_ms / n_pose:.3f} ms an image; {2 * macs / fwd_ms / 1e9:.1f} "
+        f"TFLOP/s of f32 against the card's 67); card vs CPU at batch 2: "
+        f"max diff {err:.3g} of the largest output (tol 1e-4); phase "
+        f"{time.perf_counter() - t_n:.1f} s [{card}]")
+    if err > 1e-4:
+        raise AssertionError("the ResNet-18 net on the card disagrees with "
+                             "the CPU")
+
+    # ---- (o) the paper's NEO loop: scene path, B = 256, 640 x 480
+    t_o = time.perf_counter()
+    worlds256 = sub
+    run_path("paper NEO 640x480", SCENE_PATH, n_pose, lambda: env.reset(
+        worlds256, pp, mp, mapp, _cuda.make_generator(21)), n_seg=2,
+        per_segment=NEO640_PER_SEGMENT, net_=net, cam_=cam640)
+    # card vs CPU at one solver iteration: the seeded net's inits leave
+    # 24-iteration solves chaotic (a 1e-6 relative change of its weights
+    # moves a plan by 0.07 m on the CPU alone)
+    small_loop("paper NEO 640x480 (1 iteration)", 4, 22,
+               lambda g, n: scenegen.generate_batch(g, n, wp), mapp, {},
+               pp_=dataclasses.replace(pp, max_iters=1), cam_=cam640,
+               nets=(net, net_cpu))
+    say(f"(o) phase {time.perf_counter() - t_o:.1f} s")
+
+    # ---- (p) the 'geo' loop: gt+grid on the flagship map, B = 512
+    t_p = time.perf_counter()
+    gt_grid = dict(sensing="gt", plan_map="grid")
+    state_g, planned = run_path(
+        "gt+grid geo", GEO_PATH, BV, lambda: env.reset(
+            worlds_v, pp, mp, mapp, _cuda.make_generator(23), goal=goals_v,
+            **gt_grid), n_seg=2, per_segment=GEO_PER_SEGMENT,
+        at_reset=dict(edt_exact=1), absent=("render_depth",
+                                            "lbfgs_scene_solve"),
+        planner="geo")
+    if planned <= 0:
+        raise AssertionError("the geo loop's timed segments replanned no env")
+    # the front end's parts at B = 512: the wavefront alone and whole
+    head_b = torch.zeros((BV, 3, 2), device=dev)
+    tail_b = torch.zeros((BV, 3, 2), device=dev)
+    head_b[:, 0] = state_g.drone.pos[:, :2]
+    tail_b[:, 0] = head_b[:, 0] + torch.tensor([5.0, 0.0], device=dev)
+    wave_ms = median_ms(torch, lambda: geo.wavefront_field(
+        state_g.emap, tail_b[:, 0], pp.safe_dis, 256), 3)
+    fe_ms = median_ms(torch, lambda: geo.front_end(
+        state_g.emap, head_b, tail_b, pp.safe_dis), 3)
+    cells = BV * mapp.height * mapp.width
+    say(f"(p) geo front end B={BV}: {fe_ms:.1f} ms whole, the wavefront's "
+        f"256 sweeps {wave_ms:.1f} ms ({wave_ms / 256 * 1e3:.0f} us a sweep "
+        f"over {cells * 4 / 1e6:.0f} MB), descent and pruning "
+        f"{fe_ms - wave_ms:.1f} ms [{card}]")
+    # the front end and one refine iteration, B = 8, card vs CPU
+    n8 = 8
+    emap8 = state_g.emap.index(torch.arange(n8, device=dev))
+    emap8_c = emap8.replace(**{f: getattr(emap8, f).cpu() for f in (
+        "esdf", "origin", "occupancy", "grad_x", "grad_y")})
+    head = torch.zeros((n8, 3, 2), device=dev)
+    tail = torch.zeros((n8, 3, 2), device=dev)
+    head[:, 0] = state_g.drone.pos[:n8, :2]
+    tail[:, 0] = head[:, 0] + torch.tensor([5.0, 0.0], device=dev)
+    fe_g = geo.front_end(emap8, head, tail, pp.safe_dis)
+    fe_c = geo.front_end(emap8_c, head.cpu(), tail.cpu(), pp.safe_dis)
+    same = [bool(torch.equal(a.cpu(), b)) for a, b in zip(fe_g, fe_c)]
+    say(f"(p) geo front end B={n8} card vs CPU: field, descent points, "
+        f"ends, key indices equal {same} (exact expected)")
+    if not all(same):
+        raise AssertionError("the geo front end on the card differs from "
+                             "the CPU")
+    _, pts, _, i1, i2 = fe_g
+    envs = torch.arange(n8, device=dev)
+    q0 = torch.stack([pts[envs, i1], pts[envs, i2]], -1)
+    pp1 = dataclasses.replace(pp, max_iters=1)
+    x0 = costs.pack(q0, minco.T_to_tau(expert.init_ts(pp, dev).expand(
+        n8, -1), pp.t_min, pp.t_max), pp).contiguous()
+    window = expert.make_plan_window(emap8, head, tail, pp)
+    got = solve.solve_grid(x0, head, tail, window, envs, pp1)
+    want = solve._solve_plain(x0, head, tail, window, envs, pp1)
+    worst, n_off = parity.one_iteration(x0, head, tail, window, envs, pp1,
+                                        got, want)
+    say(f"(p) geo refine B={n8}, one iteration: B6 against the plain solver "
+        f"max rel f {worst:.3g} (tol 1e-3), {n_off} off; phase "
+        f"{time.perf_counter() - t_p:.1f} s")
+
+    # ---- (q) the tracker: 3 segments of a circle, scene path, B = 512
+    t_q = time.perf_counter()
+    sub5 = type(worlds)(*(getattr(worlds, f)[:BV] for f in
+                          ("centers", "half_sizes", "active", "shape")))
+    start = torch.tensor([[1.5, 0.0]], device=dev).expand(BV, 2)
+    targets = tracker.circular_target_path(3, [0.5, 0.0], 1.0, 0.5,
+                                           mp.replan_period, device=dev)
+    _cuda.reset_launches()
+    state_t = env.reset(sub5, pp, mp, mapp, _cuda.make_generator(24),
+                        goal=start.clone(), start_pos=start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_t, path = tracker.track_rollout(state_t, targets, pp, mp, sp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_cuda.launches)
+    err_t = (path[-1, :, :2] - targets[-1]).norm(dim=-1)
+    say(f"(q) tracker B={BV}, 3 segments of a circle: plan_count "
+        f"{sorted(set(state_t.plan_count.tolist()))} (3 expected), "
+        f"{secs * 1e3 / 3:.1f} ms/segment, target error at the end median "
+        f"{float(err_t.median()):.3g} m; launches " + ", ".join(
+            f"{k} {counts[k]}" for k in TRACKER_PATH)
+        + f"; phase {time.perf_counter() - t_q:.1f} s [{card}]")
+    if not bool((state_t.plan_count == 3).all()) or not bool(
+            torch.isfinite(path).all()):
+        raise AssertionError("the tracker did not replan every segment")
+    for k in TRACKER_PATH:
+        if counts[k] <= 0:
+            raise AssertionError(f"the tracker never launched {k}")
+        launch_totals[k] += counts[k]
+
+    # ---- (r) the ResNet-18 trainer at 640 x 480
+    t_r = time.perf_counter()
+    labels = torch.from_numpy(rng.normal(size=(n_pose, 9))).float().to(dev)
+    tnet = PlannerNet(NetParams())
+    tnet.load_state_dict(net.state_dict())
+    tnet.to(dev).train()
+    opt = train.make_optimizer(tnet, train.TrainConfig())
+    times = []
+    for k in range(4):          # one warm-up, 3 timed
+        idx = slice(64 * k, 64 * (k + 1))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        train.train_step(tnet, opt, img[idx, ..., None], motion[idx],
+                         labels[idx])
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    losses, stems = [], []
+    for on in (dev, torch.device("cpu")):
+        n_ = PlannerNet(NetParams())
+        n_.load_state_dict(net.state_dict())
+        n_.to(on).train()
+        o_ = train.make_optimizer(n_, train.TrainConfig())
+        losses.append(float(train.train_step(
+            n_, o_, img[:4, ..., None].to(on), motion[:4].to(on),
+            labels[:4].to(on))))
+        stems.append(torch.cat([n_.img_backbone.bn_0.running_mean,
+                                n_.img_backbone.bn_0.running_var]).cpu())
+    rel_loss = abs(losses[0] - losses[1]) / abs(losses[1])
+    rel_bn = float((stems[0] - stems[1]).abs().max() / stems[1].abs().max())
+    say(f"(r) ResNet-18 trainer batch 64 at 640 x 480: "
+        f"{np.mean(times[1:]):.2f} ms a step (3 steps after a warm-up "
+        f"{times[0]:.1f} ms); first step card vs CPU at batch 4: loss "
+        f"{losses[0]:.7g} vs {losses[1]:.7g} rel {rel_loss:.3g} (tol 1e-4),"
+        f" stem BN running stats rel {rel_bn:.3g} (tol 1e-4); phase "
+        f"{time.perf_counter() - t_r:.1f} s [{card}]")
+    if rel_loss > 1e-4 or rel_bn > 1e-4:
+        raise AssertionError("the ResNet-18 training step on the card "
+                             "disagrees with the CPU")
+
 
 
 def main(argv=None) -> int:
@@ -1547,7 +1829,8 @@ def main(argv=None) -> int:
     net = planner_net.load(onnx, npc, dev)
     net_cpu = planner_net.load(onnx, npc, "cpu")
 
-    def twin_loops(n, seed, gen_world, map_params, path, pp_, seg_kw, cam_):
+    def twin_loops(n, seed, gen_world, map_params, path, pp_, seg_kw, cam_,
+                   nets=None):
         """n envs, 2 segments, on the card and on the CPU from the same
         worlds, goals and draws; returns (CPU state, card state, segment 1
         planned count, segment 1 plan-flag agreement, per env whether the
@@ -1565,9 +1848,11 @@ def main(argv=None) -> int:
             d_g = env.Draws(*(x.to(dev) for x in (d_c.target_noise,
                                                   d_c.bank_noise,
                                                   d_c.goal_u)))
-            s_c, i_c = env.step_segment(s_c, pp_, mp, sp, cam_, net_cpu,
+            s_c, i_c = env.step_segment(s_c, pp_, mp, sp, cam_,
+                                        (nets or (net, net_cpu))[1],
                                         draws=d_c, **seg_kw)
-            s_g, i_g = env.step_segment(s_g, pp_, mp, sp, cam_, net,
+            s_g, i_g = env.step_segment(s_g, pp_, mp, sp, cam_,
+                                        (nets or (net, net_cpu))[0],
                                         draws=d_g, **seg_kw)
             agree = (i_g.ok.cpu() == i_c.ok) & (agree if seg else True)
             if seg == 0:
@@ -1576,7 +1861,8 @@ def main(argv=None) -> int:
         return s_c, s_g, n_plan, flags, agree
 
     def small_loop(name, n, seed, gen_world, map_params, path, pp_=pp,
-                   twin=False, cam_=cam, path_kernels=(), **seg_kw):
+                   twin=False, cam_=cam, path_kernels=(), nets=None,
+                   **seg_kw):
         """Segment 1 plans every env while the drones hover on the reset
         buffer; segment 2 flies those plans. Gate: the plan flags of
         segment 1 agree on >= 90% of envs (and all plan), and every drone's
@@ -1588,7 +1874,7 @@ def main(argv=None) -> int:
         _cuda.reset_launches()
         s_c, s_g, n_plan, flags, _ = twin_loops(n, seed, gen_world,
                                                 map_params, path, pp_, seg_kw,
-                                                cam_)
+                                                cam_, nets)
         counts = dict(_cuda.launches)
         diff = (s_g.drone.pos.cpu() - s_c.drone.pos).abs().amax(1)
         say(f"small {name} loop B={n}: segment 1 planned {n_plan}, plan flags "
@@ -1612,7 +1898,7 @@ def main(argv=None) -> int:
             return
         s_c, s_g, _, flags1, same = twin_loops(
             n, seed, gen_world, map_params, path,
-            dataclasses.replace(pp_, max_iters=1), seg_kw, cam_)
+            dataclasses.replace(pp_, max_iters=1), seg_kw, cam_, nets)
         if int(same.sum()) < 0.9 * n:
             raise AssertionError(f"the {name} one-iteration twin's plan "
                                  f"flags agree on {int(same.sum())} of {n}")
@@ -1638,7 +1924,8 @@ def main(argv=None) -> int:
                                  f"disagrees with the plain path")
 
     def run_path(name, path_kernels, n, make_state, n_seg=SEGMENTS, pp_=pp,
-                 per_segment=None, at_reset=None, absent=(), **seg_kw):
+                 per_segment=None, at_reset=None, absent=(), net_=None,
+                 cam_=None, **seg_kw):
         """The loop of the path that reset chose: counts set to 0, the
         state made by make_state() (the reset), one warm-up and n_seg timed
         segments stepped with seg_kw, counts read. For the kernels in
@@ -1646,16 +1933,18 @@ def main(argv=None) -> int:
         launches per segment plus that many at the reset, the kernels in
         absent to none; returns (state, planned replans in the timed
         segments)."""
+        net_, cam_ = net_ or net, cam_ or cam
         _cuda.reset_launches()
         state = make_state()
-        state, info = env.step_segment(state, pp_, mp, sp, cam, net, **seg_kw)
+        state, info = env.step_segment(state, pp_, mp, sp, cam_, net_,
+                                       **seg_kw)
         warm = (int(info.planned.sum()), int(info.ok.sum()))
         planned, accepted_plans = 0, 0
         torch.cuda.synchronize()
         timer = StageTimer()
         t0 = time.perf_counter()
         for _ in range(n_seg):
-            state, info = env.step_segment(state, pp_, mp, sp, cam, net,
+            state, info = env.step_segment(state, pp_, mp, sp, cam_, net_,
                                            timer=timer, **seg_kw)
             planned = planned + info.planned.sum()
             accepted_plans = accepted_plans + info.ok.sum()
@@ -2677,6 +2966,10 @@ def main(argv=None) -> int:
     record_check(dev, pp, mp, sp, mapp, cam, card)
     with tempfile.TemporaryDirectory() as tmp:
         pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp)
+
+    # ================= the paper's ResNet-18 net, 'geo', the tracker ======
+    paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v, goals_v,
+                 launch_totals, run_path, small_loop, render_work, wp)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -1,8 +1,8 @@
 """Static configuration of the PyTorch port: frozen dataclasses of Python
 scalars whose defaults are the deployed planner_config.yaml values.
 
-A copy of ``neoplanner_tpu/config.py`` (without its YAML loader): the port
-imports nothing of the JAX package. Keep the two in step; the parity tests
+A copy of ``neoplanner_tpu/config.py`` with its YAML loader (``load_yaml``
+:275): the port imports nothing of the JAX package. Keep the two in step; the parity tests
 construct both from the same field values.
 """
 
@@ -242,3 +242,50 @@ class NetParams:
 def replace(cfg, **kwargs):
     """Functional update of any frozen config dataclass."""
     return dataclasses.replace(cfg, **kwargs)
+
+
+_YAML_FIELD_MAP = {
+    # planner_config.yaml name -> (dataclass, field)
+    "v_max": ("planner", "v_max"),
+    "T_min": ("planner", "t_min"),
+    "T_max": ("planner", "t_max"),
+    "safe_dis": ("planner", "safe_dis"),
+    "delta_t": ("planner", "delta_t"),
+    "init_T": ("planner", "init_t"),
+    "collision_cost_tol": ("planner", "collision_cost_tol"),
+    "opt_tol": ("planner", "opt_tol"),
+    "planning_time_ahead": ("mission", "planning_time_ahead"),
+    "des_pos_z": ("mission", "des_pos_z"),
+    "longitu_step_dis": ("mission", "longitu_step_dis"),
+    "lateral_step_length": ("mission", "lateral_step_length"),
+    "target_reach_threshold": ("mission", "target_reach_threshold"),
+    "cmd_hz": ("mission", "cmd_hz"),
+    "replan_period": ("mission", "replan_period"),
+    "hover_height": ("mission", "hover_height"),
+}
+
+
+def load_yaml(path: str) -> Tuple[PlannerParams, MissionParams]:
+    """A reference-format planner_config.yaml as (PlannerParams,
+    MissionParams) (planner_config.yaml:1-24): the keys of _YAML_FIELD_MAP,
+    each converted to its field's type, ``weights`` as the four cost
+    weights and ``init_wpts_num`` as num_pieces = init_wpts_num + 1; other
+    keys are ignored."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    kw = {"planner": {}, "mission": {}}
+    for key, value in raw.items():
+        if key == "weights":
+            kw["planner"].update(
+                w_energy=float(value[0]), w_time=float(value[1]),
+                w_feas=float(value[2]), w_collision=float(value[3]))
+        elif key == "init_wpts_num":
+            kw["planner"]["num_pieces"] = int(value) + 1
+        elif key in _YAML_FIELD_MAP:
+            target, field = _YAML_FIELD_MAP[key]
+            default = PlannerParams() if target == "planner" \
+                else MissionParams()
+            kw[target][field] = type(getattr(default, field))(value)
+    return PlannerParams(**kw["planner"]), MissionParams(**kw["mission"])

@@ -1,16 +1,18 @@
 """PlannerNet <-> ONNX: write the port's PlannerNet as a real .onnx file, and
 run such a file in numpy.
 
-The port of neoplanner_tpu/learn/onnx_interop.py for the port's net (the
-smallconv backbone, 'mlp' fusion). The file is a standard opset-13 ONNX
-model (Slice/Reshape/Conv/Relu/GlobalAveragePool/Flatten/Gemm/LeakyRelu/
-Concat) with the reference's flat I/O contract, (1, W*H + 24) float32 in,
-(1, 9) out (nn_planner.py:87-111), serialized by io/onnx_proto. The graph,
-its node and initializer names and the initializers' bytes are those that
-the JAX package writes for the same weights: flax keeps conv kernels HWIO
-and dense kernels (in, out), and its builder writes them as OIHW and
-(in, out), which are the port's conv weights as they are and its Linear
-weights transposed. ``run_onnx`` executes the same op subset in numpy.
+The port of neoplanner_tpu/learn/onnx_interop.py, for both backbones
+(smallconv and resnet18) with 'mlp' fusion, as the JAX package exports. The
+file is a standard opset-13 ONNX model (Slice/Reshape/Conv/
+BatchNormalization/MaxPool/Relu/Add/GlobalAveragePool/Flatten/Gemm/
+LeakyRelu/Concat) with the reference's flat I/O contract, (1, W*H + 24)
+float32 in, (1, 9) out (nn_planner.py:87-111), serialized by io/onnx_proto.
+The graph, its node and initializer names and the initializers' bytes are
+those that the JAX package writes for the same weights: flax keeps conv
+kernels HWIO and dense kernels (in, out), and its export writes them as
+OIHW and (in, out), which are the port's conv weights as they are and its
+Linear weights transposed; BatchNorm is written with its running stats and
+ε 1e-5. ``run_onnx`` executes the same op subset in numpy.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import numpy as np
 
 from neoplanner_tpu_torch.config import NetParams
 from neoplanner_tpu_torch.io import onnx_proto as op
-from neoplanner_tpu_torch.models.resnet import same_pads
+from neoplanner_tpu_torch.learn.weights import (DOWNSAMPLE_BLOCKS,
+                                                 resnet_convs)
+from neoplanner_tpu_torch.models.resnet import BN_EPS, same_pads
 
 
 class _Builder:
@@ -51,14 +55,22 @@ class _Builder:
         return self.add("Gemm", [x, b, c], [out] if out else None)
 
     def conv(self, x, weight_oihw, bias, strides, pads):
-        inputs = [x, self.init_tensor("convW", weight_oihw),
-                  self.init_tensor("convB", bias)]
+        inputs = [x, self.init_tensor("convW", weight_oihw)]
+        if bias is not None:
+            inputs.append(self.init_tensor("convB", bias))
         kh, kw = weight_oihw.shape[2], weight_oihw.shape[3]
         return self.add("Conv", inputs, attrs=[
             op.attr_ints("kernel_shape", (kh, kw)),
             op.attr_ints("strides", strides),
             op.attr_ints("pads", pads),
         ])
+
+    def batchnorm(self, x, sd, name):
+        ins = [x] + [self.init_tensor(base, sd[f"{name}.{key}"]) for base, key
+                     in (("bnS", "weight"), ("bnB", "bias"),
+                         ("bnM", "running_mean"), ("bnV", "running_var"))]
+        return self.add("BatchNormalization", ins,
+                        attrs=[op.attr_f("epsilon", BN_EPS)])
 
     def slice(self, x, starts, ends, axes):
         return self.add("Slice", [
@@ -87,14 +99,47 @@ def _smallconv(b: _Builder, sd, x, h, w):
     return b.gemm(x, sd, "img_backbone.head")
 
 
+def _resnet18(b: _Builder, sd, x):
+    """The ResNet-18 trunk as _resnet18 (onnx_interop.py:120-153) writes
+    it: each convolution (no bias) and its BatchNormalization in the
+    forward pass's order, the residual's Add before each block's ReLU."""
+    convs = iter(resnet_convs())
+
+    def conv_bn(x, stride, pad):
+        conv, bn = next(convs)
+        x = b.conv(x, sd[f"{conv}.weight"], None, (stride, stride),
+                   (pad,) * 4)
+        return b.batchnorm(x, sd, bn)
+
+    x = b.add("Relu", [conv_bn(x, 2, 3)])
+    x = b.add("MaxPool", [x], attrs=[
+        op.attr_ints("kernel_shape", (3, 3)),
+        op.attr_ints("strides", (2, 2)),
+        op.attr_ints("pads", (1, 1, 1, 1)),
+    ])
+    for k in range(8):
+        stride = 2 if k in DOWNSAMPLE_BLOCKS else 1
+        res = x
+        y = b.add("Relu", [conv_bn(x, stride, 1)])
+        y = conv_bn(y, 1, 1)
+        if stride == 2:          # the downsample (shape change)
+            res = conv_bn(res, stride, 0)
+        x = b.add("Relu", [b.add("Add", [y, res])])
+    x = b.add("GlobalAveragePool", [x])
+    x = b.add("Flatten", [x], attrs=[op.attr_i("axis", 1)])
+    return b.gemm(x, sd, "img_backbone.head")
+
+
 def export_planner_net(state_dict, np_cfg: NetParams, path: str) -> str:
-    """Write a PlannerNet state_dict (smallconv, 'mlp' fusion) as a
-    reference-contract .onnx model: flat (1, W*H + 24) float32 in, (1, 9)
-    out (export_planner_net, onnx_interop.py:156)."""
-    if np_cfg.backbone != "smallconv" or np_cfg.fusion_arch != "mlp":
+    """Write a PlannerNet state_dict (smallconv or resnet18, 'mlp' fusion)
+    as a reference-contract .onnx model: flat (1, W*H + 24) float32 in,
+    (1, 9) out (export_planner_net, onnx_interop.py:156)."""
+    if np_cfg.fusion_arch != "mlp":
         raise NotImplementedError(
-            "the port exports the smallconv backbone with 'mlp' fusion; "
-            f"got {np_cfg.backbone}/{np_cfg.fusion_arch}")
+            "ONNX export covers the reference's deployed architecture "
+            "(fusion_arch='mlp', nn_trainer.py:109-155)")
+    if np_cfg.backbone not in ("smallconv", "resnet18"):
+        raise NotImplementedError(np_cfg.backbone)
     sd = {k: np.ascontiguousarray(v.detach().cpu().numpy(), np.float32)
           for k, v in state_dict.items()}
     n_img = np_cfg.img_width * np_cfg.img_height
@@ -104,7 +149,11 @@ def export_planner_net(state_dict, np_cfg: NetParams, path: str) -> str:
                      [1])
     # (1, H*W) -> (1, 1, H, W): one channel, so NCHW keeps the order
     img = b.reshape(img_flat, (1, 1, np_cfg.img_height, np_cfg.img_width))
-    img_feat = _smallconv(b, sd, img, np_cfg.img_height, np_cfg.img_width)
+    if np_cfg.backbone == "resnet18":
+        img_feat = _resnet18(b, sd, img)
+    else:
+        img_feat = _smallconv(b, sd, img, np_cfg.img_height,
+                              np_cfg.img_width)
     x = motion
     for i in range(4):
         x = b.gemm(x, sd, f"motion_backbone.{i}")
@@ -140,13 +189,33 @@ def _np_conv(x, w, bias, strides, pads):
         patch = np.stack([rows[:, :, xx * sw:xx * sw + kw]
                           for xx in range(ow)])        # (ow, C, kh, kw)
         out[0, :, yy, :] = wf @ patch.reshape(ow, -1).T
-    return out + bias[None, :, None, None]
+    if bias is not None:
+        out += bias[None, :, None, None]
+    return out
+
+
+def _np_maxpool(x, k, strides, pads):
+    """x (1, C, H, W): the max over k windows, padded with -inf."""
+    sh, sw = strides
+    pt, pl_, pb, pr = pads
+    xp = np.pad(x, ((0, 0), (0, 0), (pt, pb), (pl_, pr)),
+                constant_values=-np.inf)
+    hp, wp = xp.shape[2:]
+    kh, kw = k
+    oh = (hp - kh) // sh + 1
+    ow = (wp - kw) // sw + 1
+    out = np.full((1, x.shape[1], oh, ow), -np.inf, np.float32)
+    for dy in range(kh):
+        for dx in range(kw):
+            out = np.maximum(
+                out, xp[:, :, dy:dy + oh * sh:sh, dx:dx + ow * sw:sw])
+    return out
 
 
 def run_onnx(path_or_bytes, feed: dict) -> dict:
-    """Execute a smallconv PlannerNet .onnx model (the port's or the JAX
-    package's export) in numpy. feed maps graph input names to arrays;
-    returns {output name: array}."""
+    """Execute a PlannerNet .onnx model (the port's or the JAX package's
+    export, either backbone) in numpy. feed maps graph input names to
+    arrays; returns {output name: array}."""
     blob = path_or_bytes
     if isinstance(blob, str):
         with open(blob, "rb") as f:
@@ -167,7 +236,18 @@ def run_onnx(path_or_bytes, feed: dict) -> dict:
         elif t == "Reshape":
             out = x[0].reshape([int(d) for d in x[1]])
         elif t == "Conv":
-            out = _np_conv(x[0], x[1], x[2], a["strides"], a["pads"])
+            out = _np_conv(x[0], x[1], x[2] if len(x) > 2 else None,
+                           a["strides"], a["pads"])
+        elif t == "BatchNormalization":
+            scale, shift, mean, var = (v[None, :, None, None]
+                                       for v in x[1:5])
+            out = (x[0] - mean) / np.sqrt(var + a.get("epsilon", BN_EPS)) \
+                * scale + shift
+        elif t == "MaxPool":
+            out = _np_maxpool(x[0], a["kernel_shape"], a["strides"],
+                              a["pads"])
+        elif t == "Add":
+            out = x[0] + x[1]
         elif t == "Relu":
             out = np.maximum(x[0], 0.0)
         elif t == "LeakyRelu":
@@ -181,7 +261,7 @@ def run_onnx(path_or_bytes, feed: dict) -> dict:
         elif t == "Concat":
             out = np.concatenate(x, axis=a.get("axis", 1))
         else:
-            raise NotImplementedError(f"op {t} (the port runs smallconv "
-                                      f"PlannerNet graphs)")
+            raise NotImplementedError(f"op {t} (the port runs PlannerNet "
+                                      f"graphs)")
         vals[n["outputs"][0]] = out.astype(np.float32)
     return {name: vals[name] for name in m["outputs"]}

@@ -4,14 +4,17 @@ The port's counterpart of examples/train.py (the reference's data-collection
 session, README.md:151-166, and nn_trainer.py's main): batched record
 rollouts of the expert planner on the scene path, chunked into pulls of a
 few segments whose frames are kept as uint8 on the host; then Adam
-training of the smallconv PlannerNet (learn/train.py, a 90/10 split as
-examples/train.py takes); then a checkpoint (OUT.pt and OUT.pt.netcfg.json),
-a ``torch.export`` program (OUT.pt2) and an ONNX file (OUT.onnx), and the
-program's latency at batch 1. The ResNet-18 contract of examples/train.py's
---resnet640 is not ported.
+training of the PlannerNet (learn/train.py, a 90/10 split as
+examples/train.py takes): the smallconv net on 160 x 120 frames, or with
+--resnet640 the reference's contract, the ResNet-18 net (NetParams()) on
+640 x 480 frames (examples/train.py:13, 64-66); then a checkpoint
+(OUT.pt and OUT.pt.netcfg.json), a ``torch.export`` program (OUT.pt2) and
+an ONNX file (OUT.onnx), and the program's latency at batch 1.
 
     python -m neoplanner_tpu_torch.learn.pipeline \\
         --out artifacts/planner_net_torch
+    python -m neoplanner_tpu_torch.learn.pipeline --resnet640 --envs 256 \\
+        --out artifacts/planner_net_resnet640_torch
     python -m neoplanner_tpu_torch.learn.pipeline --device cpu --envs 4 \\
         --pulls 1 --segments-per-pull 2 --epochs 1 --max-iters 2 \\
         --out /tmp/net
@@ -47,6 +50,8 @@ def parse_args(argv=None):
     ap.add_argument("--max-iters", type=int, default=48,
                     help="the expert's L-BFGS iterations")
     ap.add_argument("--out", default="artifacts/planner_net_torch")
+    ap.add_argument("--resnet640", action="store_true",
+                    help="the 640 x 480 ResNet-18 contract (NetParams())")
     ap.add_argument("--export-csv", default=None,
                     help="also write the dataset in the reference's layout")
     ap.add_argument("--device", default="cuda")
@@ -73,8 +78,12 @@ def main(argv=None) -> dict:
     pp = PlannerParams(max_iters=args.max_iters)
     mp, sp = MissionParams(), SimParams()
     mapp = MapParams(width=256, height=192, origin_x=-4.0, origin_y=-9.6)
-    cam = CameraParams(width=160, height=120)
-    netp = NetParams(img_width=160, img_height=120, backbone="smallconv")
+    if args.resnet640:
+        cam = CameraParams(width=640, height=480)
+        netp = NetParams()
+    else:
+        cam = CameraParams(width=160, height=120)
+        netp = NetParams(img_width=160, img_height=120, backbone="smallconv")
 
     # ---- chunked datagen
     gen = _cuda.make_generator(0, dev)

@@ -6,10 +6,14 @@ nn_trainer.py:158-312): the same loss (MSE, mean), optimizer (Adam, lr
 1e-3, b1 0.9, b2 0.999, eps 1e-8 outside the square root: optax's and
 torch's defaults agree), 80/20 split, epoch order and batching. The dataset
 lives on the device and is sliced per step. ``freeze_backbone`` trains
-nothing of the image trunk but its first convolution and its dense head
-(nn_trainer.py:115-117). The JAX package writes orbax checkpoints; the port
-writes its own (a ``torch.save`` of CPU tensors) with the same
-``.netcfg.json`` beside it.
+nothing of the image trunk but the convolutions that flax names Conv_0 and
+its dense head (nn_trainer.py:115-117, _freeze_mask train.py:45). The
+ResNet-18's BatchNorm trains as flax's does (mutable batch_stats): each
+step normalizes by the batch's statistics and moves the running stats,
+also in a frozen trunk; evaluation runs the net in eval() mode, on the
+running stats. The JAX package writes orbax checkpoints; the port writes
+its own (a ``torch.save`` of CPU tensors, running stats included) with the
+same ``.netcfg.json`` beside it.
 """
 
 from __future__ import annotations
@@ -46,12 +50,16 @@ def init_params(generator: torch.Generator,
                 np_cfg: NetParams) -> Dict[str, torch.Tensor]:
     """A PlannerNet state_dict drawn as flax initializes the JAX net
     (init_params, train.py:36): every conv and dense kernel from lecun_normal
-    (a truncated normal with variance 1 / fan_in), every bias zero, on the
-    generator's device."""
+    (a truncated normal with variance 1 / fan_in), every bias zero, each
+    BatchNorm's scale and running variance 1 and its shift and running
+    mean 0, on the generator's device."""
     sd = {}
     for name, p in PlannerNet(np_cfg).state_dict().items():
         t = torch.zeros(p.shape, device=generator.device)
-        if name.endswith("weight"):
+        if ".bn_" in name:              # a ResNet BatchNorm
+            if name.endswith(("weight", "running_var")):
+                t.fill_(1.0)
+        elif name.endswith("weight"):
             std = math.sqrt(1.0 / (p[0].numel())) / _TRUNC_STD
             torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                         generator=generator)
@@ -61,11 +69,18 @@ def init_params(generator: torch.Generator,
 
 def freeze_mask(state_dict) -> Dict[str, bool]:
     """True where freeze_backbone trains a parameter (_freeze_mask,
-    train.py:44-53): everything but the image trunk's convolutions after
-    the first."""
-    return {name: not (name.startswith("img_backbone.convs.")
-                       and not name.startswith("img_backbone.convs.0."))
-            for name in state_dict}
+    train.py:44-53): everything outside the image trunk, its dense head,
+    and the trunk's convolutions that flax names Conv_0 (the smallconv
+    net's first; the ResNet's stem and the first of every block, since
+    JAX's mask matches the name at any depth); not the other convolutions
+    nor any BatchNorm's scale and shift."""
+    def trains(name):
+        if not name.startswith("img_backbone.") \
+                or name.startswith("img_backbone.head."):
+            return True
+        return name.startswith("img_backbone.convs.0.") \
+            or ".conv_0." in name
+    return {name: trains(name) for name in state_dict}
 
 
 def make_optimizer(net: PlannerNet, cfg: TrainConfig) -> torch.optim.Adam:
@@ -85,7 +100,9 @@ def make_optimizer(net: PlannerNet, cfg: TrainConfig) -> torch.optim.Adam:
 def train_step(net: PlannerNet, opt: torch.optim.Optimizer,
                img: torch.Tensor, motion: torch.Tensor,
                label: torch.Tensor) -> torch.Tensor:
-    """One Adam step on a batch (img (b, h, w, 1)); returns its loss."""
+    """One Adam step on a batch (img (b, h, w, 1)); returns its loss. The
+    caller sets the net's mode: in train() a ResNet's BatchNorm normalizes
+    by the batch's statistics and moves its running stats."""
     opt.zero_grad(set_to_none=True)
     loss = ((net(img, motion) - label) ** 2).mean()
     loss.backward()
@@ -150,8 +167,10 @@ def train(depths, motions, labels, np_cfg: NetParams,
         history["epoch_s"].append(time.perf_counter() - t0)
         if len(te):
             idx = torch.as_tensor(te, device=dev)
+            net.eval()
             with torch.no_grad():
                 out = net(depths[idx], motions[idx])
+            net.train()
             history["test_loss"].append(float(((out - labels[idx]) ** 2)
                                               .mean()))
         if log_every and (epoch + 1) % log_every == 0:

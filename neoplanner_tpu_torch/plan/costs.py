@@ -1,7 +1,10 @@
 """Trajectory-optimization cost terms.
 
-The port of neoplanner_tpu/plan/costs.py, 'relative' sampling only (the
-optimization default, samples at t = T·j/(K-1)):
+The port of neoplanner_tpu/plan/costs.py, both discretizations of the
+penalty integrals: 'relative' (the optimization default, samples at
+t = T·j/(K-1), trapezoid weights T/(K-1)) and 'absolute' (the reference's,
+samples at t = j·Δt for j < floor(T/Δt), trapezoid endpoints, weight Δt;
+the sample count carries no gradient):
 
   cost = w · [ energy ∫|jerk|²,  time ΣT,
                feasibility ∫max(|v|²-v_max², 0)³,
@@ -43,9 +46,23 @@ def _cubic_hinge(x: torch.Tensor) -> torch.Tensor:
 
 
 def piece_samples(ts: torch.Tensor, pp: PlannerParams):
-    """Relative sample times and trapezoid weights: (t, w), each (N, M, K)."""
+    """Sample times and weights of each piece by pp.sampling: (t, w), each
+    (N, M, K) (_piece_samples, costs.py:55-79). 'absolute' has K =
+    pp.max_abs_samples slots, of which the first n = floor(T/Δt + 1e-4)
+    are live (the 1e-4 keeps f32 truncation with the reference's f64
+    int(T/Δt) when T lies on a sample boundary) and weighted Δt, halved at
+    both ends; the others weigh 0."""
+    if pp.sampling == "absolute":
+        K = pp.max_abs_samples
+        j = torch.arange(K, device=ts.device)
+        t = (pp.delta_t * j.to(ts.dtype)).expand(ts.shape + (K,))
+        n = torch.floor(ts.detach() / pp.delta_t + 1e-4).to(torch.int32)
+        active = j < n[..., None]
+        endpoint = (j == 0) | (j == n[..., None] - 1)
+        omg = torch.where(endpoint, 0.5, 1.0).to(ts.dtype)
+        return t, torch.where(active, omg * pp.delta_t, 0.0).to(ts.dtype)
     if pp.sampling != "relative":
-        raise ValueError("the port implements relative sampling only")
+        raise ValueError(f"unknown sampling mode: {pp.sampling}")
     K = pp.samples_per_piece
     frac = torch.arange(K, dtype=ts.dtype, device=ts.device) / (K - 1)
     omg = torch.ones(K, dtype=ts.dtype, device=ts.device)
@@ -102,3 +119,14 @@ def objective(x, head_state, tail_state, pmap, pp: PlannerParams):
     ts = minco.tau_to_T(tau, pp.t_min, pp.t_max)
     costs, _ = traj_costs(head_state, tail_state, q, ts, pmap, pp)
     return costs @ weights(pp, x.device).to(costs.dtype)
+
+
+def reference_eval(head_state, tail_state, int_wpts, ts, pmap,
+                   pp: PlannerParams) -> torch.Tensor:
+    """Unweighted costs (N, 4) of solutions under the reference's exact
+    discretization, absolute sampling and nearest-cell distances
+    (costs.py:140), whatever pp's optimization-time modes."""
+    import dataclasses
+    ref_pp = dataclasses.replace(pp, sampling="absolute",
+                                 esdf_interp="nearest")
+    return traj_costs(head_state, tail_state, int_wpts, ts, pmap, ref_pp)[0]

@@ -22,6 +22,15 @@ chooses how a batch is solved: 'fused', the whole solve in one kernel (B1
 on the scene, B6 on windows), or 'per_eval', the L-BFGS loop in PyTorch
 with one objective kernel launch per evaluation (B2s, B7), the JAX
 package's ``NEO_SOLVER=xla`` branch.
+
+Absolute sampling (``pp.sampling='absolute'``) is a branch of its own, as
+in the JAX package, which runs no kernel there (make_plan_window returns
+None, expert.py:111; ls_fun stays None, :148): every solve is
+ops/lbfgs.minimize over costs.objective with autograd gradients, ftol 1e-10
+and gtol 1e-8, on each env's whole map (no window), on whatever device the
+tensors are on, and acceptance reads the map as pp.esdf_interp says. Both
+``solver`` values take that branch; a skipped lane keeps its seed with
+iters 0, as the JAX package's "solve, then keep x0" (:196-200).
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch
 from neoplanner_tpu_torch.config import PlannerParams
 from neoplanner_tpu_torch.core.types import ESDFMap, Trajectory
 from neoplanner_tpu_torch.mapping import esdf as esdf_map
-from neoplanner_tpu_torch.ops import minco
+from neoplanner_tpu_torch.ops import lbfgs, minco
 from neoplanner_tpu_torch.plan import costs, solve
 
 
@@ -97,6 +106,14 @@ def make_plan_window(emap: ESDFMap, head: torch.Tensor, tail: torch.Tensor,
     return esdf_map.make_window(emap, center, pp.kernel_window_cells)
 
 
+def _plan_window(pmap, head, tail, pp: PlannerParams):
+    """The bank's windows on a sensed grid under relative sampling, else
+    None (the scene map; absolute sampling solves on the whole map)."""
+    if not isinstance(pmap, ESDFMap) or pp.sampling == "absolute":
+        return None
+    return make_plan_window(pmap, head, tail, pp)
+
+
 SOLVERS = ("fused", "per_eval")
 
 
@@ -113,26 +130,33 @@ def solve_one(pmap, head: torch.Tensor, tail: torch.Tensor,
     x0 = costs.pack(int_wpts0, minco.T_to_tau(ts0, pp.t_min, pp.t_max), pp)
     grid = isinstance(pmap, ESDFMap)
     cost_pp = pp
-    if solver == "per_eval":
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}; the port runs "
+                         f"{SOLVERS}")
+    rows = pmap.index(env_of)
+    absolute = pp.sampling == "absolute"
+    if absolute:
+        res = lbfgs.minimize(
+            lambda x: costs.objective(x, head, tail, rows, pp), x0,
+            max_iters=pp.max_iters, history=pp.history, max_ls=pp.max_ls,
+            ftol=1e-10, gtol=1e-8, skip=skip)
+        x, iters = res.x, res.iters
+    elif solver == "per_eval":
         x, _, iters = solve.solve_per_eval(x0, head, tail,
                                            window if grid else pmap, env_of,
                                            pp, skip=skip)
-    elif solver != "fused":
-        raise ValueError(f"unknown solver {solver!r}; the port runs "
-                         f"{SOLVERS}")
     elif grid:
         x, _, iters = solve.solve_grid(x0, head, tail, window, env_of, pp,
                                        skip=skip)
     else:
         x, _, iters = solve.solve_scene(x0, head, tail, pmap, env_of, pp,
                                         skip=skip)
-    if grid:
+    if grid and not absolute:
         cost_pp = dataclasses.replace(pp, esdf_interp="nearest")
     q, tau = costs.unpack(x, pp)
     ts = minco.tau_to_T(tau, pp.t_min, pp.t_max)
     with torch.no_grad():
-        cvec, coeffs = costs.traj_costs(head, tail, q, ts,
-                                        pmap.index(env_of), cost_pp)
+        cvec, coeffs = costs.traj_costs(head, tail, q, ts, rows, cost_pp)
     ok = cvec[:, 3] * pp.w_collision <= pp.collision_cost_tol
     return Trajectory(int_wpts=q, ts=ts, coeffs=coeffs, costs=cvec, ok=ok,
                       iters=iters)
@@ -208,8 +232,7 @@ def plan(pmap, head: torch.Tensor, tail: torch.Tensor, noise: torch.Tensor,
     B = head.shape[0]
     seeds = seed_bank(head[:, 0], tail[:, 0], noise, pp)     # (B, S, D, n)
     ts_bank = init_ts(pp, head.device).expand(B, seeds.shape[1], -1)
-    window = (make_plan_window(pmap, head, tail, pp)
-              if isinstance(pmap, ESDFMap) else None)
+    window = _plan_window(pmap, head, tail, pp)
     if seeds.shape[1] > pp.batch_num:
         bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, pp.batch_num,
                           lambda prim: prim.ok.any(1), pp, window, solver)
@@ -238,8 +261,7 @@ def plan_with_carry(pmap, head: torch.Tensor, tail: torch.Tensor,
     ts_bank = torch.cat([torch.where(has_carry[:, None], carry_ts0,
                                      ts_bank[:, 0])[:, None],
                          ts_bank[:, 1:]], 1)
-    window = (make_plan_window(pmap, head, tail, pp)
-              if isinstance(pmap, ESDFMap) else None)
+    window = _plan_window(pmap, head, tail, pp)
     if S > 1:
         bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, 1,
                           lambda first: has_carry & first.ok[:, 0], pp,
@@ -303,8 +325,7 @@ def warm_start_plan(pmap, head: torch.Tensor, tail: torch.Tensor,
     accepted retry, else the least colliding."""
     B = head.shape[0]
     dev = head.device
-    window = (make_plan_window(pmap, head, tail, pp)
-              if isinstance(pmap, ESDFMap) else None)
+    window = _plan_window(pmap, head, tail, pp)
     retries = seed_bank(head[:, 0], tail[:, 0], noise, pp)[:, pp.batch_num:]
     R = retries.shape[1]
     seeds = torch.cat([int_wpts0[:, None], retries], 1)

@@ -18,10 +18,17 @@ def predict(net, depth: torch.Tensor, drone: DroneState, des_pos_z: float,
             pp: PlannerParams):
     """One forward pass for B envs -> (int_wpts (B, D, M-1) world frame,
     ts (B, M)). Durations are clipped into (t_min, t_max) so the optimizer's
-    tau map stays finite (nn_planner.py:67-111)."""
+    tau map stays finite (nn_planner.py:67-111). The net runs in eval()
+    mode (the JAX package's train=False: BatchNorm on its running stats)
+    and is left in the mode it came in."""
     motion = data.motion_vector(drone, des_pos_z, plan_init_state,
                                 target_state)
-    out = net(data.normalize_depth(depth)[..., None], motion)
+    was_training = net.training
+    net.eval()
+    try:
+        out = net(data.normalize_depth(depth)[..., None], motion)
+    finally:
+        net.train(was_training)
     n3 = 3 * pp.num_wpts
     int_wpts = data.wpts_from_body(drone, out[:, :n3], pp.dims)
     ts = torch.clamp(out[:, n3:], pp.t_min + 1e-3, pp.t_max - 1e-3)

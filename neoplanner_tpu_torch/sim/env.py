@@ -1,10 +1,10 @@
 """The closed loop: reset, step, rollout.
 
 The port of neoplanner_tpu/sim/env.py for three paths, with the 'expert',
-'warmstart', 'nn' and 'neo' planners (``_replan`` :219-293), the 'random',
-'predefined' and 'manual' mission modes and the 'periodic', 'online' and
-'global' replan modes (``step_segment`` :452), the takeoff phase (reset
-:187-193, step_segment :518-522), and ``rollout`` (:720):
+'warmstart', 'geo', 'nn' and 'neo' planners (``_replan`` :219-293), the
+'random', 'predefined' and 'manual' mission modes and the 'periodic',
+'online' and 'global' replan modes (``step_segment`` :452), the takeoff
+phase (reset :187-193, step_segment :518-522), and ``rollout`` (:720):
 
 - the flagship (bench.py:101-142): ground-truth sensing and the analytic
   scene SDF for every distance query (``sensing='gt', plan_map='scene'``,
@@ -21,7 +21,9 @@ The port of neoplanner_tpu/sim/env.py for three paths, with the 'expert',
   per segment (the sensor-rate loop, step_segment :567-633), with every
   fusion of ``MapParams.fusion`` and an exact or truncated lite ESDF.
 
-The 'geo' planner is not ported.
+The 'geo' planner (the paper's geometric baseline, plan/geo.py) relaxes
+a cost-to-go field over the rasterized grid, so it runs on the gt+grid
+and vision paths; on the scene path it raises, as the JAX package does.
 
 B envs advance together. Each segment: render the depth frame (kernel B4)
 where a net planner reads it or the vision loop fuses it; in the vision
@@ -64,7 +66,7 @@ from neoplanner_tpu_torch.mapping import esdf as esdf_map
 from neoplanner_tpu_torch.mapping import fusion, occupancy
 from neoplanner_tpu_torch.mapping import scene as scene_map
 from neoplanner_tpu_torch.ops import edt, minco
-from neoplanner_tpu_torch.plan import expert, neo, nn_init
+from neoplanner_tpu_torch.plan import expert, geo, neo, nn_init
 from neoplanner_tpu_torch.sense import raycast
 from neoplanner_tpu_torch.sim import dynamics, missions, track
 from neoplanner_tpu_torch.utils.profiling import stage
@@ -313,16 +315,14 @@ def sense_and_map(state: EnvState, cam: CameraParams,
         return rebuild_esdf(state)
 
 
-PLANNERS = ("expert", "warmstart", "nn", "neo")
+PLANNERS = ("expert", "warmstart", "geo", "nn", "neo")
 
 
 def _check_planner(planner: str, solver: str, pp: PlannerParams) -> None:
-    if planner == "geo":
-        raise ValueError("the 'geo' planner is not ported yet (ROADMAP A6)")
     if planner not in PLANNERS:
         raise ValueError(f"unknown planner {planner!r}; the port runs "
                          f"{PLANNERS}")
-    if planner in ("nn", "neo") and pp.num_pieces != 3:
+    if planner in ("geo", "nn", "neo") and pp.num_pieces != 3:
         raise ValueError(f"the {planner!r} planner plans M=3 pieces: the "
                          f"net emits the 2 waypoints and 3 durations of "
                          f"M=3 (NetParams.output_size 9); got "
@@ -338,8 +338,9 @@ def _replan(state: EnvState, pp, mp, planner: str, solver: str, net,
     """Plan from the state one replan period ahead (buffer row spr) on the
     planning map pmap with ``planner`` (env.py:258-282): 'expert' the
     multi-start bank, 'warmstart' that bank with the carried solution in
-    lane 0, 'nn' the net's prediction as it is, 'neo' the prediction
-    refined; the net reads the depth frame. The target is the receding
+    lane 0, 'geo' the wavefront front end and the warm-started refine
+    (the grid paths only), 'nn' the net's prediction as it is, 'neo' the
+    prediction refined; the net reads the depth frame. The target is the receding
     horizon's local target, or with replan_mode 'global' the goal itself
     at rest, with near set (env.py:250-255). Returns (trajectory, new
     setpoints, near, plan-init state, target state)."""
@@ -365,6 +366,14 @@ def _replan(state: EnvState, pp, mp, planner: str, solver: str, net,
                                           state.carry_ts, state.has_carry,
                                           draws.bank_noise, pp,
                                           solver=solver)
+    elif planner == "geo":
+        # the wavefront relaxes over the rasterized grid (env.py:264-271)
+        if state.emap is None:
+            raise ValueError("geo planner needs the rasterized grid; reset "
+                             "with plan_map='grid' (scene-lite state has "
+                             "none)")
+        traj = geo.geo_plan_device(state.emap, head, tail, draws.bank_noise,
+                                   pp, solver=solver, timer=timer)
     elif planner == "nn":
         with stage(timer, "net"):
             traj = nn_init.nn_trajectory(net, depth, state.drone,
@@ -418,8 +427,11 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
     that ended. Returns (state, SegmentInfo).
 
     planner is 'neo' (the net's prediction refined, the default), 'nn' (the
-    prediction as it is), 'expert' (the multi-start bank) or 'warmstart'
-    (that bank with the last accepted solution carried in lane 0); solver
+    prediction as it is), 'expert' (the multi-start bank), 'warmstart'
+    (that bank with the last accepted solution carried in lane 0) or 'geo'
+    (plan/geo.geo_plan_device, on the grid paths); with
+    PlannerParams(sampling="absolute") the banks solve off the kernels
+    (plan/expert.py); solver
     is 'fused' or 'per_eval' (plan/expert.py). The JAX package defaults to
     'expert' and 'manual': the port's defaults are the flagship loop's.
     Sensing follows the JAX loop (env.py:503-516): with a net planner
@@ -447,8 +459,8 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
     every F // esdf_rate chunks. goal_stream (B, C, 2) replaces each env's
     goal at the start of each of C tracking chunks (C = F when both are
     given). ``timer`` (a utils.profiling.StageTimer) records the render,
-    fuse, esdf, net, plan and track stages, and fuse_multi for the batched
-    frames."""
+    fuse, esdf, net, plan and track stages, fuse_multi for the batched
+    frames, and geo for the 'geo' planner's front end."""
     _check_planner(planner, solver, pp)
     if mission_mode not in MISSION_MODES:
         raise ValueError(f"unknown mission_mode: {mission_mode}")

@@ -1,6 +1,7 @@
 """Procedural random box worlds, batched, from a ``torch.Generator``.
 
-The port of neoplanner_tpu/world/scenegen.py (``generate_batch`` :79): K
+The port of neoplanner_tpu/world/scenegen.py (``generate`` :53,
+``generate_batch`` :79): K
 boxes with uniform sizes and positions; boxes that violate the clearance
 rule against an earlier active box are redrawn for a fixed number of
 rounds, and those still in conflict are deactivated. The draws differ from
@@ -61,3 +62,11 @@ def generate_batch(gen: torch.Generator, batch: int,
     return BoxWorld(centers=centers, half_sizes=sizes / 2, active=active,
                     shape=torch.zeros((batch, K), dtype=torch.int32,
                                       device=device))
+
+
+def generate(gen: torch.Generator, wp: WorldParams) -> BoxWorld:
+    """One world, its fields without the env axis ((K, 3), (K,)), on the
+    generator's device: generate_batch of one env."""
+    world = generate_batch(gen, 1, wp)
+    return BoxWorld(centers=world.centers[0], half_sizes=world.half_sizes[0],
+                    active=world.active[0], shape=world.shape[0])

@@ -1927,3 +1927,42 @@ def test_record_rollout_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(g[vc].numpy(), c[vc].numpy(), atol=1e-4)
     off = ((dg - dc).abs() * cam.max_range / 255.0 > 1e-3).float().mean()
     assert float(off) <= 1e-3
+
+
+def test_render_kernel_640x480_matches_plain(cuda_device):
+    """B4 at the paper's 640 x 480 (the ResNet-18 net's frames): at most
+    1e-3 of the pixels off by more than 1e-4 m, as at 160 x 120."""
+    worlds = _worlds(8, seed=11)
+    pos, quat = _poses(8, seed=11)
+    cam = CameraParams(width=640, height=480)
+    want = raycast.render_depth(worlds, pos, quat, cam)
+    got = raycast.render_depth_auto(_to(worlds, cuda_device),
+                                    pos.to(cuda_device), quat.to(cuda_device),
+                                    cam)
+    assert got.shape == (8, 480, 640)
+    diff = (got.cpu() - want).abs()
+    assert float((diff > 1e-4).float().mean()) <= 1e-3
+
+
+def test_geo_front_end_matches_cpu(cuda_device):
+    """The 'geo' planner's front end (plan/geo.py: wavefront field,
+    descent, path end, pruned key indices) on the card equals the CPU's
+    bit for bit on ground-truth grids of 8 worlds: its sums of 1 and
+    sqrt(2) and its cell indices are exact in f32."""
+    from neoplanner_tpu_torch.plan import geo
+    from neoplanner_tpu_torch.world import voxelize
+    mapp = MapParams(**MAPP)
+    worlds = _worlds(8, seed=12)
+    emap = esdf.build(voxelize.occupancy_2d(worlds, mapp), ORIGIN,
+                      mapp.resolution)
+    rng = np.random.default_rng(12)
+    head = torch.zeros((8, 3, 2))
+    tail = torch.zeros((8, 3, 2))
+    head[:, 0] = _t(rng.uniform([-1.0, -2.0], [2.0, 2.0], (8, 2))).float()
+    tail[:, 0] = head[:, 0] + _t(rng.uniform([3.0, -2.0], [12.0, 2.0],
+                                             (8, 2))).float()
+    want = geo.front_end(emap, head, tail, 0.7)
+    got = geo.front_end(_to(emap, cuda_device), head.to(cuda_device),
+                        tail.to(cuda_device), 0.7)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
