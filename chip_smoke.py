@@ -153,7 +153,36 @@ Phases, one short line each:
    segments of circular_target_path, every env replanning every segment;
 31. (r) the ResNet-18 trainer: 3 steps at batch 64 at 640 x 480 (ms a
    step), the first step card vs CPU at batch 4 with TF32 off (the loss
-   and the stem BatchNorm's running stats within 1e-4 relative).
+   and the stem BatchNorm's running stats within 1e-4 relative);
+32. (s) the world sweep: two random worlds (WorldParams(): 15 boxes,
+   capacity 24) written with worldio.write_world and parsed back (1e-4,
+   test_world_roundtrip's tolerance), a forest world of 150
+   model://pine_tree meshes written by this script (300 primitives
+   parsed; worldio.forest_world_xml), B1 (one iteration by
+   plan/parity.one_iteration, 24 in basin()), B3 and B4 on the forest at
+   the sweep's shapes (1024 envs at its 304 slots) against their plain
+   versions by the flagship's rules, 10-env card-vs-CPU loops on the
+   forest at one solver iteration ('neo' and 'expert', phase 4's rules),
+   then sim/sweep.main over those 3 worlds x the 'expert' and
+   'neo' planners (the smallconv net) at B = 1024 and 3 segments (one
+   untimed rollout first): ms a segment, steps/s, missions ok and the
+   launches of each cell (B1, B5 and B3 above 0, and B4 under 'neo');
+33. (t) the .bt map plan (BASELINE config 1) on the first parsed world:
+   occupancy_3d at MapParams() with 100 z cells and fill_unknown_3d on the
+   card (voxels, the fill's steps and ms) against the CPU (0 differing
+   voxels), write_bt / bt_to_grid (equal) and write_pcd / read_pcd in both
+   modes, the z in [1.8, 10] slice projected as
+   tests/test_octomap_io.py:46-62 does (its cells that differ from
+   occupancy_2d printed), esdf.build on it (B9 exact; 0 cells differing
+   from the plain version) and expert.plan for 512 start/goal pairs on
+   that map (B6 and B5: ok and launches);
+34. (u) the env-axis mesh: a world-size-1 NCCL group over a FileStore,
+   make_mesh() and make_multislice_mesh(1, dcn=1, mdl=1), shard_batch of
+   the flagship scene state (B = 1024, two segments in), one segment
+   through sharded_vmap_step against the unsharded segment on the same
+   state and draws (0 differing elements), mean_over_envs of the weighted
+   metric against the unsharded mean (1e-6) and replicate; more than one
+   card is not measured on a one-card machine.
 
 The vision paths' counts include their reset, which builds the truncated
 lite map of an unknown grid through B9 banded. The last lines are every
@@ -873,6 +902,450 @@ def paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v, goals_v,
         raise AssertionError("the ResNet-18 training step on the card "
                              "disagrees with the CPU")
 
+
+
+# the world sweep's paths: launches above 0 in every cell (B4 under 'neo')
+SWEEP_PATH = ("lbfgs_scene_solve", "minco_banded_solve", "track_segment")
+SWEEP_PLANNERS = ("expert", "neo")
+SWEEP_ENVS = 1024
+FOREST_SEED = 44              # worldio.forest_world_xml: 300 primitives
+FOREST_TWIN_ENVS = 10         # the forest's card-vs-CPU loops
+
+
+def world_phases(dev, card, pp, mp, sp, mapp, cam, nets, worlds, onnx,
+                 launch_totals, tmp, small_loop, boundary_problems, accepted,
+                 basin):
+    """(s) the world sweep at full width: two random worlds written and
+    parsed back, a forest world of 300 primitives; B1, B3 and B4 on the
+    forest at the sweep's shapes (1024 envs at its capacity of 304 slots)
+    against their plain versions, and card-vs-CPU loops on it at one
+    solver iteration ('neo' and 'expert'); then sim/sweep.main over
+    those 3 worlds x the 'expert' and 'neo' planners at B = 1024 and 3
+    segments; (t) the .bt map plan (BASELINE config 1): occupancy_3d and
+    fill_unknown_3d of a parsed world at MapParams() with 100 z cells, on
+    the card against the CPU, the .bt and .pcd files, the z in [1.8, 10]
+    slice, its exact ESDF (B9 exact) against the plain version, and
+    expert.plan for 512 start/goal pairs on it; (u) the env-axis mesh on a
+    world-size-1 NCCL group: one sharded segment of the flagship scene
+    state at B = 1024 against the unsharded one, bit for bit, and
+    mean_over_envs. Each phase prints its own wall time."""
+    import torch
+    import torch.distributed as dist
+    from neoplanner_tpu_torch import _cuda
+    from neoplanner_tpu_torch.config import (MapParams, PlannerParams,
+                                             WorldParams)
+    from neoplanner_tpu_torch.core import frames
+    from neoplanner_tpu_torch.io import octomap
+    from neoplanner_tpu_torch.mapping import esdf, scene
+    from neoplanner_tpu_torch.ops import minco
+    from neoplanner_tpu_torch.parallel import mesh as pmesh
+    from neoplanner_tpu_torch.plan import costs, expert, parity, solve
+    from neoplanner_tpu_torch.sense import raycast
+    from neoplanner_tpu_torch.sim import env, sweep, track
+    from neoplanner_tpu_torch.world import scenegen, voxelize, worldio
+
+    fields = ("centers", "half_sizes", "active", "shape")
+    net = nets[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def forest_kernels(fw):
+        """B1, B3 and B4 on the forest at the shapes sim/sweep.main gives
+        them (SWEEP_ENVS envs of the world at the sweep's common capacity,
+        its PlannerParams and MapParams()) against their plain versions
+        on the card, by the flagship checks' rules; then the card-vs-CPU
+        loops on the forest at one solver iteration, as phase (o) holds the
+        NEO loop. B5's inputs do not depend on the world: the flagship
+        holds it at the same N."""
+        t_f = time.perf_counter()
+        cap = sweep.common_capacity(parsed + [fw])
+        fw = sweep.with_capacity(fw, cap)
+        fb = sweep.batch_of(fw, SWEEP_ENVS)
+        fw_c = type(fw)(*(getattr(fw, f).cpu() for f in fields))
+        mapp_s = MapParams()
+        pp_s = PlannerParams(max_iters=24)   # the sweep's, 24 iterations
+        sc_f = scene.build(fb, mapp_s)
+        prims_f = scene.pack_prims(sc_f)
+        n, g = SWEEP_ENVS, np.random.default_rng(48)
+
+        # B1: 1024 problems along the corridor and into the tree rows
+        start = torch.from_numpy(np.stack([g.uniform(0.0, 30.0, n),
+                                           g.uniform(-1.0, 1.0, n)], -1)
+                                 ).float()
+        head, tail, q0, ts0 = boundary_problems(n, start, gen=g)
+        x0 = costs.pack(q0, minco.T_to_tau(ts0, pp_s.t_min, pp_s.t_max),
+                        pp_s).contiguous()
+        env_of = torch.arange(n, device=dev, dtype=torch.int32)
+        skip = torch.zeros(n, dtype=torch.int32, device=dev)
+        sol = (torch.empty_like(x0), torch.empty(n, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev))
+        pp1 = dataclasses.replace(pp_s, max_iters=1)
+        solve.launch_solver(x0, head, tail, prims_f, env_of, skip, sol, pp1)
+        got1 = tuple(t.clone() for t in sol)
+        want1 = solve._solve_plain(x0, head, tail, sc_f, env_of.long(), pp1)
+        worst1, n_off = parity.one_iteration(x0, head, tail, sc_f,
+                                             env_of.long(), pp1, got1, want1)
+        _, b1_ms = timed(lambda: solve.launch_solver(
+            x0, head, tail, prims_f, env_of, skip, sol, pp_s))
+        (px, pf, _), b1_plain_ms = timed(lambda: solve._solve_plain(
+            x0, head, tail, sc_f, env_of.long(), pp_s))
+        n_c = 32                 # the control's problems, on the host
+        sc_c = scene.SceneMap(*(getattr(sc_f, f).cpu() for f in
+                                ("centers", "half", "is_cyl", "active")))
+
+        def plain_cpu(p):
+            return solve._solve_plain(x0[:n_c].cpu(), head[:n_c].cpu(),
+                                      tail[:n_c].cpu(), sc_c,
+                                      torch.arange(n_c), p)[1]
+        say(f"(s) lbfgs_scene_solve on the forest, {n} problems at {cap} "
+            f"slots ({int(sc_f.active[0].sum())} live in the slice): one "
+            f"iteration max rel f {worst1:.3g} (tol 1e-3), {n_off} off (by "
+            f"parity.one_iteration's rule); 24 iterations {b1_ms:.3f} ms, "
+            f"plain {b1_plain_ms:.1f} ms [{card}]")
+        basin("lbfgs_scene_solve forest", accepted(sol[0], head, tail, sc_f,
+                                                   pp_s),
+              accepted(px, head, tail, sc_f, pp_s), sol[1], pf, sol[2],
+              rel(want1[1][:n_c].cpu(), plain_cpu(pp1)),
+              rel(pf[:n_c].cpu(), plain_cpu(pp_s)), n_c)
+
+        # B3: one segment of commands along the corridor, swaying into the
+        # tree rows (the collision metric live)
+        t = torch.arange(60, device=dev) / 60.0
+
+        def col(lo, hi):
+            return torch.from_numpy(g.uniform(lo, hi, n)).float().to(dev)[
+                :, None]
+        px0, py0, v = col(2.0, 28.0), col(-1.0, 1.0), col(0.5, 1.5)
+        amp, w = col(0.2, 2.5), col(1.5, 3.0)
+        cmds = torch.stack([
+            torch.stack([px0 + v * t, py0 + amp * torch.sin(w * t)], -1),
+            torch.stack([v.expand(n, 60), amp * w * torch.cos(w * t)], -1),
+            torch.stack([torch.zeros(n, 60, device=dev),
+                         -amp * w * w * torch.sin(w * t)], -1)],
+            dim=2).contiguous()
+        goal = sweep.clear_goal(fw, mapp_s, pp_s.safe_dis + 0.3)
+        st = env.reset(fb, pp_s, mp, mapp_s, _cuda.make_generator(49, dev),
+                       goal=goal.expand(n, 2).clone(),
+                       start_pos=cmds[:, 0, 0].contiguous())
+        st_packed = track.pack_state(st)
+        tout = torch.empty((n, 18), device=dev)
+        trace = torch.empty((n, 60, 5, 3), device=dev)
+        _, b3_ms = timed(lambda: track.launch_tracker(
+            cmds, st_packed, prims_f, tout, trace, pp_s, mp, sp))
+        plain3, b3_plain_ms = timed(
+            lambda: track._track_plain(st, cmds, pp_s, mp, sp))
+
+        def track_line(out):
+            """The plain tracker's outputs as the kernel's (n, 18) line,
+            and the name of each column."""
+            wd, wreach, wsteps, wmet, wmpos, _ = out
+            pieces = [("pos", wd.pos), ("vel", wd.vel),
+                      ("yaw", wd.yaw[:, None]), ("quat", wd.quat),
+                      ("metric_pos", wmpos), ("metrics", wmet),
+                      ("reached", wreach[:, None].float()),
+                      ("steps", wsteps[:, None].float())]
+            return (torch.cat([v for _, v in pieces], 1),
+                    [k for k, v in pieces for _ in range(v.shape[1])])
+
+        def worst(got, want_, names):
+            """(max abs, rel) over the line and the trace, and where."""
+            d = (got[0] - want_[0].to(got[0].device)).abs().amax(0)
+            e = max(err_line(got[0], want_[0]), err_line(got[1], want_[1]))
+            where = names[int(d.argmax())] if float(d.max()) >= e[0] \
+                else "trace"
+            return e, where
+        want, names = track_line(plain3)
+        err3, at3 = worst((tout, trace), (want, plain3[5]), names)
+        hit = int((plain3[3][:, 2] > 0).sum())
+        # the control: the plain tracker on the CPU, the first n_t envs
+        n_t = 128
+        st_c = env.reset(sweep.batch_of(fw_c, n_t), pp_s, mp, mapp_s,
+                         _cuda.make_generator(49, "cpu"),
+                         goal=goal.cpu().expand(n_t, 2).clone(),
+                         start_pos=cmds[:n_t, 0, 0].cpu().contiguous())
+        same_in = torch.equal(track.pack_state(st_c), st_packed[:n_t].cpu())
+        plain_c = track._track_plain(st_c, cmds[:n_t].cpu(), pp_s, mp, sp)
+        ctrl, at_c = worst((want[:n_t], plain3[5][:n_t]),
+                           (track_line(plain_c)[0], plain_c[5]), names)
+        say(f"(s) track_segment on the forest, {n} envs at {cap} slots: max "
+            f"abs {err3[0]:.3g} in {at3} (tol 1e-3), rel {err3[1]:.3g}; "
+            f"{hit} envs with a collision metric; {b3_ms:.3f} ms, plain "
+            f"{b3_plain_ms:.1f} ms; the plain version on the card against "
+            f"the CPU on {n_t} envs (packed inputs equal {same_in}): max "
+            f"abs {ctrl[0]:.3g} in {at_c} [{card}]")
+        if err3[0] > 1e-3 or hit == 0:
+            raise AssertionError("track_segment on the forest disagrees "
+                                 "with its plain version")
+
+        # B4: a frame from each env, looking into the trees
+        pos = torch.cat([col(2.0, 28.0), col(-1.0, 1.0), col(1.5, 2.5)], 1)
+        quat = frames.quat_from_accel_yaw(
+            torch.from_numpy(g.normal(scale=2.0, size=(n, 3))).float()
+            .to(dev), col(-1.2, 1.2)[:, 0]).contiguous()
+        prims_r = raycast.pack_prims(fb)
+        depth = torch.empty((n, cam.height, cam.width), device=dev)
+        raycast.launch_render(pos, quat, prims_r, depth, cam)
+        want_d, b4_plain_ms = timed(lambda: raycast.render_depth(
+            fb, pos, quat, cam))
+        diff = (depth - want_d).abs()
+        frac_off = float((diff > 1e-3).float().mean())
+        near = float((want_d < cam.max_range).float().mean())
+        b4_ms = median_ms(torch, lambda: raycast.launch_render(
+            pos, quat, prims_r, depth, cam), 10)
+        kept = raycast.tile_cull(fb, pos, quat, cam)
+        b_ms, b_by = bound(*render_work(kept, cam.height, cam.width,
+                                        prims_r.shape[1],
+                                        (raycast.TILE_H, raycast.TILE_W)))
+        say(f"(s) render_depth on the forest, {n} frames at {cap} slots "
+            f"({near:.3f} of the pixels hit within range; "
+            f"{float(kept.sum(-1).float().mean()):.2f} primitives a tile "
+            f"survive the cull): {frac_off:.2e} of the pixels off by > 1e-3 "
+            f"m (tol 1e-3), max abs {float(diff.max()):.3g}; {b4_ms:.3f} ms, "
+            f"plain {b4_plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) "
+            f"[{card}]")
+        if frac_off > 1e-3:
+            raise AssertionError("render_depth on the forest disagrees with "
+                                 "its plain version")
+
+        # the loops: card vs CPU from the same forest, goals and draws
+        for planner in SWEEP_PLANNERS:
+            small_loop(f"forest {planner} (1 iteration)", FOREST_TWIN_ENVS,
+                       50, lambda g_, k: sweep.batch_of(fw_c, k), mapp_s,
+                       {}, pp_=pp1, nets=nets, planner=planner)
+        say(f"(s) forest kernel checks {time.perf_counter() - t_f:.1f} s")
+
+    # ---- (s) the world sweep: 2 random worlds and a forest, 'expert' and
+    # 'neo' at B = 1024, 3 segments
+    t_s = time.perf_counter()
+    wp = WorldParams()
+    paths, parsed = [], []
+    for i in range(2):
+        world = scenegen.generate(_cuda.make_generator(40 + i, dev), wp)
+        path = os.path.join(tmp, f"rand_{i}.world")
+        worldio.write_world(world, path)
+        back = worldio.parse_world(path, max_boxes=wp.max_boxes,
+                                    device=dev)
+        a = world.active
+        n = int(a.sum())
+        err = max(float((back.centers[:n] - world.centers[a]).abs().max()),
+                  float((back.half_sizes[:n] - world.half_sizes[a]).abs()
+                        .max()))
+        same = bool(torch.equal(back.shape[:n], world.shape[a])) and bool(
+            back.active[:n].all()) and not bool(back.active[n:].any())
+        say(f"(s) {os.path.basename(path)}: {n} primitives written, parsed "
+            f"back max diff {err:.3g} (tol 1e-4), shapes and flags equal "
+            f"{same}")
+        if err > 1e-4 or not same:
+            raise AssertionError("a written world parsed back differently")
+        paths.append(path)
+        parsed.append(back)
+    forest = os.path.join(tmp, "forest.world")
+    with open(forest, "w") as f:
+        f.write(worldio.forest_world_xml(FOREST_SEED))
+    fw = worldio.parse_world(forest, max_boxes=None, device=dev)
+    say(f"(s) forest.world: 150 pine-tree meshes parsed into "
+        f"{int(fw.active.sum())} primitives (capacity "
+        f"{fw.active.shape[0]}; 300 expected)")
+    if int(fw.active.sum()) != 300:
+        raise AssertionError("the forest world parsed into another count")
+    paths.append(forest)
+    forest_kernels(fw)
+    _cuda.reset_launches()
+    res = sweep.main(["--worlds", *paths, "--planners", *SWEEP_PLANNERS,
+                      "--repeats", str(SWEEP_ENVS), "--segments", "3",
+                      "--net", onnx])
+    for c in res["cells"]:
+        la = c["launches"]
+        want = SWEEP_PATH + (("render_depth",) if c["planner"] == "neo"
+                             else ())
+        say(f"(s) sweep {c['world']} ({c['prims']} primitives) "
+            f"{c['planner']} B={c['envs']}: {c['ms_segment']:.1f} "
+            f"ms/segment, {c['steps_per_s']:.0f} steps/s, missions ok "
+            f"{c['reached']}/{c['envs']}, plans {c['plans']}; launches "
+            + ", ".join(f"{k} {la[k]}" for k in want)
+            + f" [{card}]")
+        for k in want:
+            if la[k] <= 0:
+                raise AssertionError(f"the sweep's {c['world']} "
+                                     f"{c['planner']} cell never launched "
+                                     f"{k}")
+            launch_totals[k] += la[k]
+    say(f"(s) phase {time.perf_counter() - t_s:.1f} s")
+
+    # ---- (t) the .bt map plan (BASELINE config 1) on the first parsed
+    # world: MapParams(), 100 z cells from z = 0
+    t_t = time.perf_counter()
+    mp3 = MapParams()
+    nz = 100
+    world = parsed[0]
+    world_c = type(world)(*(getattr(world, f).cpu() for f in fields))
+    vol, occ_ms = timed(lambda: voxelize.occupancy_3d(world, mp3, nz))
+    filled, fill_ms = timed(lambda: voxelize.fill_unknown_3d(vol))
+    _, steps = voxelize.flood_free(vol)      # the fill's step count
+    vol_c = voxelize.occupancy_3d(world_c, mp3, nz)
+    _, steps_c = voxelize.flood_free(vol_c)
+    filled_c = voxelize.fill_unknown_3d(vol_c)
+    d_occ = int((vol.cpu() != vol_c).sum())
+    d_fill = int((filled.cpu() != filled_c).sum())
+    say(f"(t) occupancy_3d {nz} x {mp3.height} x {mp3.width} = "
+        f"{vol.numel()} voxels, {int(vol.sum())} occupied: {occ_ms:.2f} ms; "
+        f"fill_unknown_3d {steps} steps (CPU {steps_c}), {fill_ms:.2f} ms, "
+        f"{int(filled.sum())} occupied; differing from the CPU: occupancy "
+        f"{d_occ}, fill {d_fill} (0 expected) [{card}]")
+    if d_occ or d_fill or steps != steps_c:
+        raise AssertionError("the 3-D voxelization on the card differs "
+                             "from the CPU")
+    origin3 = (mp3.origin_x, mp3.origin_y, 0.0)
+    bt = os.path.join(tmp, "world.bt")
+    grid = filled_c.numpy()
+    octomap.write_bt(bt, grid, mp3.resolution, origin3)
+    back, res_bt = octomap.bt_to_grid(bt, origin3, grid.shape)
+    vox, _ = octomap.bt_to_voxels(bt)
+    pcd_ok = []
+    for ascii_mode in (True, False):
+        pcd = os.path.join(tmp, f"world_{ascii_mode}.pcd")
+        octomap.write_pcd(pcd, vox, ascii_mode=ascii_mode)
+        pts = octomap.read_pcd(pcd)
+        pcd_ok.append(pts.shape == vox.shape and float(
+            np.abs(pts - vox).max()) <= (1e-5 if ascii_mode else 0.0))
+    say(f"(t) world.bt {os.path.getsize(bt)} bytes: bt_to_grid equal "
+        f"{bool(np.array_equal(back, grid))}, {len(vox)} voxels; .pcd "
+        f"ascii / binary roundtrips {pcd_ok} (1e-5 / exact)")
+    if not np.array_equal(back, grid) or not all(pcd_ok) \
+            or len(vox) != int(grid.sum()):
+        raise AssertionError("the .bt or .pcd files do not roundtrip")
+    sel = (vox[:, 2] >= mp3.z_min) & (vox[:, 2] <= mp3.z_max)
+    xy = vox[sel][:, :2]
+    occ = np.zeros((mp3.height, mp3.width), np.float32)
+    cols = ((xy[:, 0] - mp3.origin_x) / res_bt).astype(int)
+    rows = ((xy[:, 1] - mp3.origin_y) / res_bt).astype(int)
+    ok = (rows >= 0) & (rows < mp3.height) & (cols >= 0) & (cols < mp3.width)
+    occ[rows[ok], cols[ok]] = 1.0
+    occ2 = voxelize.occupancy_2d(type(world_c)(*(
+        getattr(world_c, f)[None] for f in fields)), mp3)[0].numpy()
+    say(f"(t) the z in [{mp3.z_min}, {mp3.z_max}] slice: {int(occ.sum())} "
+        f"cells, {int((occ != occ2).sum())} differ from occupancy_2d's "
+        f"{int(occ2.sum())} (voxel centres against the slice's overlap)")
+    occ_d = torch.from_numpy(occ).to(dev)[None]
+    org2 = (mp3.origin_x, mp3.origin_y)
+    _cuda.reset_launches()
+    emap, esdf_ms = timed(lambda: esdf.build(occ_d, org2, res_bt))
+    emap_c = esdf.build(occ_d.cpu(), org2, res_bt)
+    n_esdf = sum(int((getattr(emap, f).cpu() != getattr(emap_c, f)).sum())
+                 for f in ("esdf", "grad_x", "grad_y"))
+    say(f"(t) esdf.build of the slice (B9 exact, launches "
+        f"{_cuda.launches['edt_exact']}): {esdf_ms:.2f} ms, {n_esdf} cells "
+        f"differ from the plain version (0 expected); max "
+        f"{float(emap.esdf.max()):.3g} m")
+    if n_esdf or _cuda.launches["edt_exact"] != 1:
+        raise AssertionError("the .bt map's ESDF differs from the plain "
+                             "version")
+    launch_totals["edt_exact"] += 1
+    n_plan = 512
+    rng = np.random.default_rng(45)
+    field = emap_c.esdf[0].numpy()
+
+    def clear(p):
+        c = np.clip(((p[:, 0] - mp3.origin_x) / res_bt).astype(int), 0,
+                    mp3.width - 1)
+        r = np.clip(((p[:, 1] - mp3.origin_y) / res_bt).astype(int), 0,
+                    mp3.height - 1)
+        return field[r, c] > pp.safe_dis + 0.3
+    start = rng.uniform([0.0, -5.0], [24.0, 5.0], (8 * n_plan, 2))
+    goal = start + [5.0, 0.0] + rng.normal(size=start.shape)
+    keep = np.nonzero(clear(start) & clear(goal))[0][:n_plan]
+    head = torch.zeros((n_plan, 3, 2), device=dev)
+    tail = torch.zeros((n_plan, 3, 2), device=dev)
+    head[:, 0] = torch.from_numpy(start[keep]).float().to(dev)
+    tail[:, 0] = torch.from_numpy(goal[keep]).float().to(dev)
+    emap_b = emap.index(torch.zeros(n_plan, dtype=torch.long, device=dev))
+    noise = torch.from_numpy(rng.normal(size=(
+        n_plan, pp.retry_num, pp.dims, pp.num_wpts))).float().to(dev)
+    _cuda.reset_launches()
+    traj, plan_ms = timed(lambda: expert.plan(emap_b, head, tail, noise, pp))
+    la = dict(_cuda.launches)
+    say(f"(t) expert.plan on the .bt map, {n_plan} start/goal pairs: ok "
+        f"{int(traj.ok.sum())}/{n_plan}, iters mean "
+        f"{float(traj.iters.float().mean()):.1f}, {plan_ms:.1f} ms; "
+        f"launches lbfgs_grid_solve {la['lbfgs_grid_solve']}, "
+        f"minco_banded_solve {la['minco_banded_solve']}; phase "
+        f"{time.perf_counter() - t_t:.1f} s [{card}]")
+    if min(la["lbfgs_grid_solve"], la["minco_banded_solve"]) <= 0 \
+            or int(traj.ok.sum()) == 0 or not bool(
+                torch.isfinite(traj.coeffs).all()):
+        raise AssertionError("the .bt map plan failed")
+    for k in ("lbfgs_grid_solve", "minco_banded_solve"):
+        launch_totals[k] += la[k]
+
+    # ---- (u) the env-axis mesh on a world-size-1 NCCL group
+    t_u = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = pmesh.make_mesh()
+        m3 = pmesh.make_multislice_mesh(1, dcn=1, mdl=1)
+        # two segments first, so that the metrics that mean_over_envs
+        # reduces are live
+        state = env.reset(worlds, pp, mp, mapp, _cuda.make_generator(46, dev))
+        for _ in range(2):
+            state, _ = env.step_segment(state, pp, mp, sp, cam, net)
+        draws = env.draw(_cuda.make_generator(47, dev),
+                         worlds.active.shape[0], pp)
+        shard = pmesh.shard_batch(state, mesh)
+        shard3 = pmesh.shard_batch_multislice(state, m3)
+        same3 = all(torch.equal(getattr(shard3.drone, f),
+                                getattr(shard.drone, f))
+                    for f in ("pos", "vel", "quat", "yaw"))
+
+        def segment(s, d):
+            return env.step_segment(s, pp, mp, sp, cam, net, draws=d)
+        _cuda.reset_launches()
+        step = pmesh.sharded_vmap_step(segment, mesh)
+        (out_s, info_s), seg_ms = timed(lambda: step(
+            shard, pmesh.shard_batch(draws, mesh)))
+        la = dict(_cuda.launches)
+        out_u, info_u = segment(state, draws)
+        pairs = [(getattr(out_s.drone, f), getattr(out_u.drone, f))
+                 for f in ("pos", "vel", "quat", "yaw")] + [
+            (out_s.buffer, out_u.buffer), (out_s.metrics, out_u.metrics),
+            (out_s.goal, out_u.goal), (info_s.ok, info_u.ok),
+            (info_s.planned, info_u.planned), (info_s.ts, info_u.ts),
+            (info_s.int_wpts, info_u.int_wpts)]
+        n_diff = sum(int((a != b).sum()) for a, b in pairs)
+        wm = pmesh.mean_over_envs(env.weighted_metric(out_s), mesh)
+        wm_u = env.weighted_metric(out_u).double().mean()
+        wm_rel = abs(float(wm) - float(wm_u)) / max(abs(float(wm_u)), 1.0)
+        rep = pmesh.replicate(draws, mesh)
+        rep_ok = torch.equal(rep.goal_u, draws.goal_u)
+        say(f"(u) mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} and "
+            f"multislice {tuple(m3.shape)} {m3.mesh_dim_names} over "
+            f"{dist.get_backend()} (world size 1): shards equal {same3}; "
+            f"one sharded segment "
+            f"B={worlds.active.shape[0]} ({seg_ms:.1f} ms; launches "
+            + ", ".join(f"{k} {la[k]}" for k in SCENE_PATH)
+            + f"): {n_diff} elements differ from the unsharded segment (0 "
+            f"expected, bit for bit); mean_over_envs(weighted_metric) "
+            f"{float(wm):.7g} vs {float(wm_u):.7g} rel {wm_rel:.3g} (tol "
+            f"1e-6); replicate equal {rep_ok} [{card}]")
+        if n_diff or not same3 or wm_rel > 1e-6 or not rep_ok:
+            raise AssertionError("the sharded segment differs from the "
+                                 "unsharded one")
+        for k in SCENE_PATH:
+            if la[k] <= 0:
+                raise AssertionError(f"the sharded segment never launched "
+                                     f"{k}")
+            launch_totals[k] += la[k]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    say(f"(u) phase {time.perf_counter() - t_u:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2970,6 +3443,12 @@ def main(argv=None) -> int:
     # ================= the paper's ResNet-18 net, 'geo', the tracker ======
     paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v, goals_v,
                  launch_totals, run_path, small_loop, render_work, wp)
+
+    # ================= world files, the .bt map, the env-axis mesh =======
+    with tempfile.TemporaryDirectory() as tmp:
+        world_phases(dev, card, pp, mp, sp, mapp, cam, (net, net_cpu),
+                     worlds, onnx, launch_totals, tmp, small_loop,
+                     boundary_problems, accepted, basin)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
 

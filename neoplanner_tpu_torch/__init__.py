@@ -6,6 +6,18 @@ reference. Every function takes tensors with a leading env (or problem) axis
 in place of the JAX package's ``vmap``. Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``; a kernel wrapper launches its CUDA kernel
 for CUDA tensors and takes its plain PyTorch version only for CPU tensors.
+
+Beside the loop (``sim``, ``plan``, ``mapping``, ``sense``, ``ops``,
+``models``, ``learn``, ``utils``):
+
+- ``world``: procedural worlds (``scenegen``), Gazebo ``.world`` files
+  (``worldio``), occupancy grids, voxel volumes and the analytic SDF
+  (``voxelize``);
+- ``io``: the octomap ``.bt`` / PCL ``.pcd`` codec (``octomap``, a C++
+  library built with g++ at first use) and the ONNX protobuf codec;
+- ``parallel``: env-axis data parallelism over ``torch.distributed``, one
+  process per device (``mesh``);
+- ``sim.sweep``: the planners x worlds benchmark sweep.
 """
 
 from neoplanner_tpu_torch.config import (CameraParams, MapParams,  # noqa: F401

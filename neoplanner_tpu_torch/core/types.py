@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 
@@ -69,6 +69,9 @@ class ESDFMap(_Replace):
     occupancy: Optional[torch.Tensor] = None  # (B, H, W) f32 {0, 1}
     grad_x: Optional[torch.Tensor] = None     # (B, H, W) f32 d esdf / dx
     grad_y: Optional[torch.Tensor] = None     # (B, H, W) f32 d esdf / dy
+    # the tensor fields without the env axis (parallel/mesh.py replicates
+    # them where it shards the others)
+    unbatched: ClassVar[tuple] = ("origin",)
 
     @property
     def lite(self) -> bool:

@@ -153,6 +153,15 @@ def sample_bilinear(emap: ESDFMap, pos: torch.Tensor) -> torch.Tensor:
     return torch.where(inb, dis, FAR).reshape((p.shape[0],) + mid)
 
 
+def sample_bilinear_mxu(emap: ESDFMap, pos: torch.Tensor) -> torch.Tensor:
+    """The reference's esdf.py ``sample_bilinear_mxu`` (:148): the same
+    function as :func:`sample_bilinear`. The reference phrases the four
+    taps as one-hot matrix products in bf16 because the TPU has no gather,
+    a TPU workaround that the port does not copy: on the GPU (and the
+    CPU) a tap is an indexed load in f32."""
+    return sample_bilinear(emap, pos)
+
+
 def sample(emap: ESDFMap, pos: torch.Tensor, mode: str = "bilinear"):
     """Distance at pos by pp.esdf_interp: "nearest", "bilinear", or "mxu".
     The reference's "mxu" (esdf.py ``sample_bilinear_mxu`` :148) is the

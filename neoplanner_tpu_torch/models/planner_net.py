@@ -102,6 +102,13 @@ class PlannerNet(nn.Module):
         return self(img, flat[:, n_img:])
 
 
+def create(np_cfg: NetParams = NetParams()) -> PlannerNet:
+    """A PlannerNet of np_cfg with PyTorch's initial weights, on the CPU
+    (planner_net.py:108; learn/train.init_params draws the JAX package's
+    initialization from a generator)."""
+    return PlannerNet(np_cfg)
+
+
 def load(path: str, np_cfg: NetParams, device="cuda") -> PlannerNet:
     """PlannerNet in eval mode on ``device`` with the weights of an exported
     .onnx file (learn/weights.from_onnx)."""

@@ -96,6 +96,23 @@ def _edt_sq_cells(occupancy: torch.Tensor) -> torch.Tensor:
     return _pass2(_row_distance_sq(occupancy > 0.5))
 
 
+def edt_sq_cells(occupancy: torch.Tensor) -> torch.Tensor:
+    """Exact squared EDT in cells of grids (B, H, W) (cells > 0.5 are
+    occupied), float32; _BIG (1e9) throughout a grid with no occupied
+    cell (edt.py:64). Kernel B9 exact for CUDA tensors: it computes
+    sqrt(d2) correctly rounded in f32 (at resolution 1), and since d2 is an
+    integer below 2^21 for the kernel's grids of up to 1024 x 1024 cells,
+    the square of that root taken in f64 lies within 0.25 of d2, so
+    rounding it recovers d2 exactly."""
+    if not occupancy.is_cuda:
+        return _edt_sq_cells(occupancy)
+    out = torch.empty(occupancy.shape, dtype=torch.float32,
+                      device=occupancy.device)
+    launch_edt_exact(occupancy.to(torch.float32).contiguous(), out, 0.5, 1.0)
+    d2 = torch.round(out.to(torch.float64) ** 2).to(torch.float32)
+    return torch.where(out >= FAR, torch.full_like(d2, _BIG), d2)
+
+
 def _pass2_banded(g2: torch.Tensor, radius: int) -> torch.Tensor:
     """out[..., i, j] = min_{|d|<=radius} d^2 + g2[..., i+d, j], clamped at
     radius^2 (rows outside the grid never win)."""

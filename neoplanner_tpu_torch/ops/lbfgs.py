@@ -145,3 +145,11 @@ def minimize(fun: Callable, x0: torch.Tensor, *, max_iters: int = 256,
         it = it + live.to(torch.int32)
         done = done | (live & done_new)
     return LBFGSResult(x=x, f=f, g=g, iters=it, converged=done)
+
+
+def minimize_batched(fun: Callable, x0_batch: torch.Tensor,
+                     **kwargs) -> LBFGSResult:
+    """The JAX package's vmap convenience wrapper (lbfgs.py:194): x0_batch
+    (N, n) -> the batched LBFGSResult. :func:`minimize` is batched over
+    its leading problem axis already, so this is minimize itself."""
+    return minimize(fun, x0_batch, **kwargs)

@@ -575,7 +575,7 @@ def _end_missions(state: EnvState, mission_mode: str, draws: Draws,
         return state.replace(phase=torch.where(
             done, torch.full_like(state.phase, missions.PHASE_DONE),
             state.phase))
-    wm = state.metrics @ state.metrics.new_tensor(METRIC_WEIGHTS)
+    wm = weighted_metric(state)
     mission_ok = state.reached & (wm <= 10.0 * pp.collision_cost_tol)
     if mission_mode == "random":
         counted = advance = done
@@ -615,6 +615,12 @@ def _end_missions(state: EnvState, mission_mode: str, draws: Draws,
         missions_ok=state.missions_ok + (counted & mission_ok).to(
             torch.int32),
         phase=phase)
+
+
+def weighted_metric(state: EnvState) -> torch.Tensor:
+    """(B,) closed-loop weighted cost of each env's mission so far
+    (traj_planner_node.py:333-363; JAX env.py:715)."""
+    return state.metrics @ state.metrics.new_tensor(METRIC_WEIGHTS)
 
 
 def rollout(state: EnvState, num_segments: int, pp: PlannerParams,

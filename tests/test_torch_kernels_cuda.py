@@ -1966,3 +1966,104 @@ def test_geo_front_end_matches_cpu(cuda_device):
                         tail.to(cuda_device), 0.7)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# ---- parsed worlds (world/worldio.py) and 3-D voxelization
+
+
+def _forest_world(path, seed=0):
+    """worldio.forest_world_xml's forest (150 model://pine_tree meshes: a
+    trunk and a canopy cylinder each, 300 primitives, capacity 304 parsed)
+    written to path and parsed on the CPU."""
+    from neoplanner_tpu_torch.world import worldio
+    path.write_text(worldio.forest_world_xml(seed))
+    world = worldio.parse_world(str(path), max_boxes=None, device="cpu")
+    assert int(world.active.sum()) == 300 and world.active.shape == (304,)
+    return world
+
+
+def _batch(world, n):
+    return BoxWorld(*(getattr(world, f).expand(n, *getattr(world, f).shape)
+                      .contiguous() for f in ("centers", "half_sizes",
+                                              "active", "shape")))
+
+
+def test_solver_kernel_on_parsed_forest_world(cuda_device, tmp_path):
+    """B1 on a parsed 300-primitive world, past the flagship's capacity of
+    24: one iteration within 1e-3 relative on f, 24 iterations in the
+    plain version's cost basin (test_solver_kernel_matches_plain's
+    rules)."""
+    worlds = _batch(_forest_world(tmp_path / "forest.world"), 2)
+    sc = scene.build(worlds, MapParams())
+    sc_d = scene.SceneMap(*(getattr(sc, f).to(cuda_device) for f in
+                            ("centers", "half", "is_cyl", "active")))
+    x0, head, tail = _boundary(64, seed=2, start=(2.0, 0.0))
+    env_of = torch.arange(64) % 2
+    args = [a.to(cuda_device) for a in (x0, head, tail)]
+    pp1 = PlannerParams(samples_per_piece=24, max_iters=1, max_ls=4)
+    want = solve.solve_scene(x0, head, tail, sc, env_of, pp1)
+    got = solve.solve_scene(*args, sc_d, env_of.to(cuda_device), pp1)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
+                               rtol=1e-3)
+    pp = dataclasses.replace(pp1, max_iters=24)
+    want = solve.solve_scene(x0, head, tail, sc, env_of, pp)
+    got = solve.solve_scene(*args, sc_d, env_of.to(cuda_device), pp)
+    f_k, f_p = got[1].cpu(), want[1]
+    rel = (f_k - f_p).abs() / f_p.abs().clamp(min=1.0)
+    assert float(rel.median()) <= 1e-4, rel
+    assert abs(float(f_k.mean()) / float(f_p.mean()) - 1.0) <= 1e-2
+
+
+def test_track_kernel_on_parsed_forest_world(cuda_device, tmp_path):
+    """B3 on a parsed 300-primitive world, the commands along the
+    corridor and across the first trees (the collision metric live):
+    _assert_track_match's rules."""
+    pp, mp, sp = PlannerParams(), MissionParams(), SimParams()
+    worlds = _batch(_forest_world(tmp_path / "forest.world", seed=1), 6)
+    cmds = _cmds(6, x0=2.5)
+    cmds[3:, :, 0, 1] += 2.0            # three envs sway into the trees
+    st = env.reset(worlds, pp, mp, MapParams(), _cuda.make_generator(1,
+                                                                    "cpu"),
+                   goal=torch.tensor([[20.0, 0.0]]).expand(6, 2).clone(),
+                   start_pos=cmds[:, 0, 0])
+    want = track.track_segment(st, cmds, pp, mp, sp)
+    got = track.track_segment(_to(st, cuda_device), cmds.to(cuda_device),
+                              pp, mp, sp)
+    _assert_track_match(want, got)
+    assert float(want[3][:, 2].max()) > 0.0
+
+
+def test_voxelize_3d_on_card_equals_cpu(cuda_device, tmp_path):
+    """occupancy_3d and fill_unknown_3d (plain PyTorch on every device) on
+    the card equal the CPU voxel for voxel on a parsed 300-primitive world
+    (the flagship's 256 x 192 map, 60 z cells) and the enclosed shell of
+    tests/test_world.py::test_fill_unknown_3d_cavity; the fill takes the
+    same steps."""
+    from neoplanner_tpu_torch.world import voxelize
+    world = _forest_world(tmp_path / "forest.world", seed=2)
+    mapp = MapParams(**MAPP)
+    want = voxelize.occupancy_3d(world, mapp, 60)
+    got = voxelize.occupancy_3d(_to(world, cuda_device), mapp, 60)
+    assert float(want.sum()) > 1e5 and torch.equal(got.cpu(), want)
+    shell = torch.zeros((8, 16, 16))
+    shell[2:7, 4:10, 4:10] = 1.0
+    shell[3:6, 5:9, 5:9] = 0.0
+    for vol in (want, shell):
+        free_c, steps_c = voxelize.flood_free(vol)
+        free_g, steps_g = voxelize.flood_free(vol.to(cuda_device))
+        assert steps_c == steps_g and torch.equal(free_g.cpu(), free_c)
+        assert torch.equal(voxelize.fill_unknown_3d(vol.to(cuda_device))
+                           .cpu(), voxelize.fill_unknown_3d(vol))
+
+
+def test_edt_sq_cells_kernel_matches_plain(cuda_device):
+    """edt_sq_cells through B9 exact (the squared distance recovered from
+    the kernel's correctly rounded root at resolution 1) equals the plain
+    pass chain exactly, the empty grid's 1e9 included."""
+    before = _cuda.launches["edt_exact"]
+    for occ in _occupancy_grids():
+        want = edt.edt_sq_cells(occ)
+        got = edt.edt_sq_cells(occ.to(cuda_device))
+        assert torch.equal(got.cpu(), want)
+    assert _cuda.launches["edt_exact"] == before + 6
+    assert float(want.max()) == 1e9
