@@ -182,7 +182,24 @@ Phases, one short line each:
    through sharded_vmap_step against the unsharded segment on the same
    state and draws (0 differing elements), mean_over_envs of the weighted
    metric against the unsharded mean (1e-6) and replicate; more than one
-   card is not measured on a one-card machine.
+   card is not measured on a one-card machine;
+35. (v) the JAX package's orbax checkpoints read without JAX
+   (io/zstd.py's decoder built by g++, io/ocdbt.py, io/orbax.py under
+   train.load_checkpoint): the smallconv checkpoint bit for bit against
+   weights.from_onnx of its .onnx; the trained ResNet-18 checkpoint
+   (artifacts/planner_net_resnet640): restore time, bytes decoded and the
+   SHA-256 of its state_dict (weights.digest) against RESNET640_SHA256,
+   the digest of JAX's restore; its forward pass at batch 256 on phase
+   (n)'s frames, card vs CPU (1e-4 of the largest output); the paper's
+   NEO loop with the trained net (phase (o)'s loop: B = 256, 640 x 480,
+   B4 1, B1 2, B5 2, B3 1 a segment), ms a segment, replans ok, L-BFGS
+   iterations a plan and acceptance (over the warm-up and the timed
+   segments: with periodic replans every env plans in the warm-up only)
+   beside the seeded net's from phase (o), then both nets' loops with
+   replan_mode="online" (every env replans every segment until its goal);
+   the trained net's B = 4 card-vs-CPU twin at one solver iteration by phase 4's
+   rules, and at 24 iterations the plan flags' agreement and the median
+   relative objective gap of the plans both accepted (printed, not held).
 
 The vision paths' counts include their reset, which builds the truncated
 lite map of an unknown grid through B9 banded. The last lines are every
@@ -324,8 +341,13 @@ SENSOR_PER_SEGMENT = dict(render_depth=2, fuse_depth_dense=1,
                           track_segment_grid=FUSE_FRAMES)
 
 
+# appended to every line that say() prints (phase (v): the card's name and
+# power limit, also on the lines of the loops it runs)
+_SAY_TAG = [""]
+
+
 def say(msg: str) -> None:
-    print(msg, flush=True)
+    print(msg + _SAY_TAG[0], flush=True)
 
 
 def load_other(checkout: str):
@@ -644,6 +666,12 @@ def pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp):
 
 
 NET640_SEED = 640             # the seeded weights of the 640 x 480 net
+# the trained 640 x 480 net's checkpoint, and weights.digest of the
+# state_dict that JAX's train.load_checkpoint + weights.from_flax give
+# (held there by tests/test_torch_orbax.py)
+RESNET640 = os.path.join("artifacts", "planner_net_resnet640")
+RESNET640_SHA256 = ("375694e11667bb36187f89b6fe7c26b1"
+                    "3f246abf112353349d8151ed00723d3b")
 NEO640_PER_SEGMENT = dict(render_depth=1, lbfgs_scene_solve=2,
                           minco_banded_solve=2, track_segment=1)
 GEO_PATH = ("edt_exact", "lbfgs_grid_solve", "minco_banded_solve",
@@ -680,7 +708,9 @@ def paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v, goals_v,
     (o) the paper's NEO loop at 640 x 480 (scene path, B = 256) and its
     B = 4 card-vs-CPU twin; (p) the 'geo' loop on the gt+grid path at
     B = 512 and the geo front end card vs CPU; (q) the tracker at B = 512;
-    (r) the ResNet-18 trainer. Each phase prints its own wall time."""
+    (r) the ResNet-18 trainer. Each phase prints its own wall time.
+    Returns what phase (v) reuses: (n)'s frames and motion inputs, the
+    256 worlds and the seeded net's loop figures from (o)."""
     import torch
     from neoplanner_tpu_torch import _cuda
     from neoplanner_tpu_torch.config import CameraParams, NetParams
@@ -760,9 +790,10 @@ def paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v, goals_v,
     # ---- (o) the paper's NEO loop: scene path, B = 256, 640 x 480
     t_o = time.perf_counter()
     worlds256 = sub
+    seeded = {}
     run_path("paper NEO 640x480", SCENE_PATH, n_pose, lambda: env.reset(
         worlds256, pp, mp, mapp, _cuda.make_generator(21)), n_seg=2,
-        per_segment=NEO640_PER_SEGMENT, net_=net, cam_=cam640)
+        per_segment=NEO640_PER_SEGMENT, net_=net, cam_=cam640, stats=seeded)
     # card vs CPU at one solver iteration: the seeded net's inits leave
     # 24-iteration solves chaotic (a 1e-6 relative change of its weights
     # moves a plan by 0.07 m on the CPU alone)
@@ -901,6 +932,8 @@ def paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v, goals_v,
     if rel_loss > 1e-4 or rel_bn > 1e-4:
         raise AssertionError("the ResNet-18 training step on the card "
                              "disagrees with the CPU")
+    return dict(img=img, motion=motion, worlds=worlds256, seeded=seeded,
+                seeded_net=net)
 
 
 
@@ -1346,6 +1379,168 @@ def world_phases(dev, card, pp, mp, sp, mapp, cam, nets, worlds, onnx,
         torch.backends.cudnn.deterministic = deterministic
         dist.destroy_process_group()
     say(f"(u) phase {time.perf_counter() - t_u:.1f} s")
+
+
+RESNET640_CPU_FRAMES = 256   # the frames the CPU forward pass checks
+RESNET640_CPU_CHUNK = 16     # frames per CPU forward call
+
+
+def checkpoint_phases(dev, card, pp, mp, mapp, wp, paper, run_path,
+                      small_loop, twin_loops):
+    """(v) the JAX package's orbax checkpoints restored without JAX, and
+    the paper's NEO loop at 640 x 480 with the trained ResNet-18. Every
+    line it prints ends with the card's name and power limit."""
+    t_v = time.perf_counter()
+    _SAY_TAG[0] = f" [{card}]"
+    try:
+        _checkpoint_phases(dev, pp, mp, mapp, wp, paper, run_path,
+                           small_loop, twin_loops)
+        say(f"(v) phase {time.perf_counter() - t_v:.1f} s")
+    finally:
+        _SAY_TAG[0] = ""
+
+
+def _checkpoint_phases(dev, pp, mp, mapp, wp, paper, run_path, small_loop,
+                       twin_loops):
+    import torch
+    from neoplanner_tpu_torch import _cuda
+    from neoplanner_tpu_torch.config import CameraParams, NetParams
+    from neoplanner_tpu_torch.io import orbax, zstd
+    from neoplanner_tpu_torch.learn import train, weights
+    from neoplanner_tpu_torch.mapping import scene
+    from neoplanner_tpu_torch.models.planner_net import PlannerNet
+    from neoplanner_tpu_torch.plan import costs, expert
+    from neoplanner_tpu_torch.sim import env
+    from neoplanner_tpu_torch.world import scenegen
+
+    cam640 = CameraParams(width=640, height=480)
+    # ---- (a) the smallconv checkpoint against its ONNX export
+    t0 = time.perf_counter()
+    zstd.build()
+    build_s = time.perf_counter() - t0
+    small = os.path.join(REPO, "artifacts", "planner_net_smallconv")
+    t0 = time.perf_counter()
+    sd, _ = train.load_checkpoint(small)
+    small_s = time.perf_counter() - t0
+    ref = weights.from_onnx(small + ".onnx")
+    n_eq = sum(k in sd and sd[k].dtype == ref[k].dtype
+               and torch.equal(sd[k], ref[k]) for k in ref)
+    say(f"(v) smallconv orbax checkpoint, restored without JAX in "
+        f"{small_s * 1e3:.1f} ms: {n_eq} of {len(ref)} tensors bit-equal to "
+        f"weights.from_onnx of its .onnx ({len(sd)} restored; all equal "
+        f"expected); zstd decoder built by g++ in {build_s:.2f} s")
+    if n_eq != len(ref) or len(sd) != len(ref):
+        raise AssertionError("the smallconv checkpoint differs from its "
+                             "ONNX export")
+
+    # ---- (b) the trained ResNet-18's checkpoint
+    path = os.path.join(REPO, RESNET640)
+    t0 = time.perf_counter()
+    sd, np_cfg = train.load_checkpoint(path)
+    restore_s = time.perf_counter() - t0
+    stats = {}
+    t0 = time.perf_counter()
+    orbax.restore(path, stats)
+    again_s = time.perf_counter() - t0
+    digest = weights.digest(sd)
+    n_values = sum(t.numel() for t in sd.values())
+    say(f"(v) resnet640 orbax checkpoint: train.load_checkpoint "
+        f"{restore_s * 1e3:.1f} ms (the run's first read of its files; "
+        f"io/orbax.restore again {again_s * 1e3:.1f} ms, warm), "
+        f"{stats['arrays']} arrays, "
+        f"{len(sd)} tensors, {n_values:,} values, {stats['bytes_read']:,} "
+        f"bytes of zstd frames decoded to {stats['bytes_decoded']:,} "
+        f"({stats['bytes_decoded'] / again_s / 1e6:.0f} MB/s whole); "
+        f"NetParams() {np_cfg == NetParams()}; state_dict SHA-256 {digest} "
+        f"(JAX's restore: {RESNET640_SHA256})")
+    if digest != RESNET640_SHA256 or np_cfg != NetParams():
+        raise AssertionError("the trained ResNet-18 checkpoint restores "
+                             "to other weights than JAX's")
+
+    # ---- (c) its forward pass at batch 256 on phase (n)'s frames
+    img, motion = paper["img"], paper["motion"]
+    net = PlannerNet(np_cfg)
+    net.load_state_dict(sd)
+    net.to(dev).eval()
+    net_cpu = PlannerNet(np_cfg)
+    net_cpu.load_state_dict(sd)
+    net_cpu.eval()
+    with torch.no_grad():
+        fwd_ms = median_ms(torch, lambda: net(img[..., None], motion), 5)
+        out_g = net(img[..., None], motion).cpu()
+        t0 = time.perf_counter()
+        n_c = RESNET640_CPU_FRAMES
+        out_c = torch.cat([net_cpu(img[i:i + RESNET640_CPU_CHUNK, ..., None]
+                                   .cpu(), motion[i:i + RESNET640_CPU_CHUNK]
+                                   .cpu())
+                           for i in range(0, n_c, RESNET640_CPU_CHUNK)])
+        cpu_s = time.perf_counter() - t0
+    err = float((out_g[:n_c] - out_c).abs().max() / out_c.abs().max())
+    say(f"(v) trained PlannerNet forward batch {img.shape[0]}: {fwd_ms:.2f} "
+        f"ms; card vs CPU on {n_c} frames (CPU {cpu_s:.1f} s in chunks of "
+        f"{RESNET640_CPU_CHUNK}): max diff {err:.3g} of the largest output "
+        f"(tol 1e-4), outputs |max| {float(out_c.abs().max()):.3g}")
+    if err > 1e-4:
+        raise AssertionError("the trained ResNet-18 on the card disagrees "
+                             "with the CPU")
+
+    # ---- (d) the paper's NEO loop with the trained net: phase (o)'s
+    # periodic loop, then both nets with replan_mode="online" (every env
+    # replans every segment until its goal: plans in the timed segments)
+    worlds256 = paper["worlds"]
+
+    def loop(name, net_, **kw):
+        st = {}
+        run_path(name, SCENE_PATH, img.shape[0], lambda: env.reset(
+            worlds256, pp, mp, mapp, _cuda.make_generator(21)), n_seg=2,
+            per_segment=NEO640_PER_SEGMENT, net_=net_, cam_=cam640,
+            stats=st, **kw)
+        return st
+
+    def line(mode, a, b):
+        say(f"(v) paper NEO 640x480 B={img.shape[0]} {mode}, trained vs "
+            f"seeded (same worlds, reset seed and draws' seed): "
+            f"{a['ms_segment']:.1f} vs {b['ms_segment']:.1f} ms/segment; "
+            f"replans ok {a['ok']}/{a['planned']} vs {b['ok']}/"
+            f"{b['planned']} (warm-up and 2 timed segments; timed "
+            f"{a['timed_planned']} vs {b['timed_planned']}); L-BFGS "
+            f"iterations a plan {a['iters']:.2f} vs {b['iters']:.2f}; "
+            f"acceptance {a['ok'] / max(a['planned'], 1):.3f} vs "
+            f"{b['ok'] / max(b['planned'], 1):.3f}; accepted plans' "
+            f"duration {a['duration']:.3f} vs {b['duration']:.3f} s")
+    trained = loop("paper NEO 640x480 trained", net)
+    if trained["planned"] <= 0:
+        raise AssertionError("the trained NEO loop planned no replan")
+    line("periodic (phase (o)'s loop)", trained, paper["seeded"])
+    online = [loop(f"paper NEO 640x480 {k} online", n_, replan_mode="online")
+              for k, n_ in (("trained", net), ("seeded", paper["seeded_net"]))]
+    line("online", *online)
+
+    # ---- (e) its B = 4 card-vs-CPU twin: one iteration held, 24 printed
+    small_loop("paper NEO 640x480 trained (1 iteration)", 4, 22,
+               lambda g, n: scenegen.generate_batch(g, n, wp), mapp, {},
+               pp_=dataclasses.replace(pp, max_iters=1), cam_=cam640,
+               nets=(net, net_cpu))
+    first = {}
+    twin_loops(4, 22, lambda g, n: scenegen.generate_batch(g, n, wp), mapp,
+               {}, pp, {}, cam640, (net, net_cpu), first)
+    i_c, i_g = first["cpu"], first["card"]
+    pmap = scene.build(first["worlds"], mapp)
+
+    def plan_f(info):
+        head = expert.pad_boundary_state(info.plan_init.cpu(), pp)
+        tail = expert.pad_boundary_state(info.target.cpu(), pp)
+        c, _ = costs.traj_costs(head, tail, info.int_wpts.cpu(),
+                                info.ts.cpu(), pmap, pp)
+        return c @ costs.weights(pp)
+    both = i_c.ok & i_g.ok.cpu()
+    f_c, f_g = plan_f(i_c), plan_f(i_g)
+    gap = ((f_g - f_c).abs() / f_c.abs().clamp_min(1e-12))[both]
+    flags = float((i_g.ok.cpu() == i_c.ok).float().mean())
+    say(f"(v) trained NEO 640x480 B=4 twin at 24 iterations (information, "
+        f"not held): plan flags agree {flags:.3f}, accepted both "
+        f"{int(both.sum())}, median relative objective gap "
+        f"{float(gap.median()) if len(gap) else float('nan'):.3g}")
 
 
 def main(argv=None) -> int:
@@ -2303,11 +2498,12 @@ def main(argv=None) -> int:
     net_cpu = planner_net.load(onnx, npc, "cpu")
 
     def twin_loops(n, seed, gen_world, map_params, path, pp_, seg_kw, cam_,
-                   nets=None):
+                   nets=None, first=None):
         """n envs, 2 segments, on the card and on the CPU from the same
         worlds, goals and draws; returns (CPU state, card state, segment 1
         planned count, segment 1 plan-flag agreement, per env whether the
-        plan flags agreed in both segments)."""
+        plan flags agreed in both segments). first, when given, receives
+        segment 1's CPU and card SegmentInfo and the CPU worlds."""
         gen_c = _cuda.make_generator(seed, "cpu")
         w_c = gen_world(gen_c, n)
         w_g = type(w_c)(*(getattr(w_c, f).to(dev) for f in
@@ -2328,6 +2524,8 @@ def main(argv=None) -> int:
                                         (nets or (net, net_cpu))[0],
                                         draws=d_g, **seg_kw)
             agree = (i_g.ok.cpu() == i_c.ok) & (agree if seg else True)
+            if seg == 0 and first is not None:
+                first.update(cpu=i_c, card=i_g, worlds=w_c)
             if seg == 0:
                 n_plan = int(i_c.planned.sum())
                 flags = float((i_g.ok.cpu() == i_c.ok).float().mean())
@@ -2398,20 +2596,25 @@ def main(argv=None) -> int:
 
     def run_path(name, path_kernels, n, make_state, n_seg=SEGMENTS, pp_=pp,
                  per_segment=None, at_reset=None, absent=(), net_=None,
-                 cam_=None, **seg_kw):
+                 cam_=None, stats=None, **seg_kw):
         """The loop of the path that reset chose: counts set to 0, the
         state made by make_state() (the reset), one warm-up and n_seg timed
         segments stepped with seg_kw, counts read. For the kernels in
         per_segment and at_reset the counts are held to exactly that many
         launches per segment plus that many at the reset, the kernels in
         absent to none; returns (state, planned replans in the timed
-        segments)."""
+        segments). stats, when given, receives the timed segments' ms a
+        segment and, over the warm-up and the timed segments, replans ok
+        and planned, L-BFGS iterations a plan and the accepted plans' mean
+        duration (s)."""
         net_, cam_ = net_ or net, cam_ or cam
         _cuda.reset_launches()
         state = make_state()
         state, info = env.step_segment(state, pp_, mp, sp, cam_, net_,
                                        **seg_kw)
         warm = (int(info.planned.sum()), int(info.ok.sum()))
+        iters = (info.iters * info.planned).sum()
+        dur = (info.ts.sum(1) * info.ok).sum()
         planned, accepted_plans = 0, 0
         torch.cuda.synchronize()
         timer = StageTimer()
@@ -2421,8 +2624,18 @@ def main(argv=None) -> int:
                                            timer=timer, **seg_kw)
             planned = planned + info.planned.sum()
             accepted_plans = accepted_plans + info.ok.sum()
+            iters = iters + (info.iters * info.planned).sum()
+            dur = dur + (info.ts.sum(1) * info.ok).sum()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        if stats is not None:
+            n_plans = warm[0] + int(planned)
+            stats.update(ms_segment=secs * 1e3 / n_seg,
+                         ok=warm[1] + int(accepted_plans), planned=n_plans,
+                         iters=int(iters) / max(n_plans, 1),
+                         duration=float(dur) / max(warm[1]
+                                                   + int(accepted_plans), 1),
+                         timed_planned=int(planned))
         counts = dict(_cuda.launches)
         stages = timer.ms()
         per_segment, at_reset = per_segment or {}, at_reset or {}
@@ -3441,14 +3654,19 @@ def main(argv=None) -> int:
         pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp)
 
     # ================= the paper's ResNet-18 net, 'geo', the tracker ======
-    paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v, goals_v,
-                 launch_totals, run_path, small_loop, render_work, wp)
+    paper = paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v,
+                         goals_v, launch_totals, run_path, small_loop,
+                         render_work, wp)
 
     # ================= world files, the .bt map, the env-axis mesh =======
     with tempfile.TemporaryDirectory() as tmp:
         world_phases(dev, card, pp, mp, sp, mapp, cam, (net, net_cpu),
                      worlds, onnx, launch_totals, tmp, small_loop,
                      boundary_problems, accepted, basin)
+
+    # ================= the JAX package's checkpoints, the trained net ====
+    checkpoint_phases(dev, card, pp, mp, mapp, wp, paper, run_path,
+                      small_loop, twin_loops)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -7,70 +7,40 @@ writes compatible files for generated worlds (the interchange that
 plugin_build_octomap.cpp:104-146 produces). Host I/O: numpy in and out.
 
 The codec is the package's own copy of the JAX package's C++ source,
-``octomap_cc/octomap_codec.cc`` (byte for byte the same). At first use it
-is built with ``g++ -O2 -std=c++17 -fPIC -shared`` into
-``neoplanner_tpu_torch/_build/`` under a name keyed by a hash of the source
-and the flags, as ``_cuda.py`` keys the CUDA libraries; a failed build or
-load raises with the compiler's or the loader's message.
+``octomap_cc/octomap_codec.cc`` (byte for byte the same), built by g++ at
+first use (io/native.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 
+from neoplanner_tpu_torch.io import native
+
 _SRC = Path(__file__).resolve().parent / "octomap_cc" / "octomap_codec.cc"
-_BUILD = Path(__file__).resolve().parent.parent / "_build"
-_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared"]
+_BUILD = native.BUILD
 _lib = None
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    h.update(_SRC.read_bytes())
-    return _BUILD / f"liboctomap_codec_{h.hexdigest()[:16]}.so"
+    return native.library_path(_SRC, _BUILD, "octomap_codec")
 
 
 def build() -> Path:
     """Build the codec's shared library unless it exists; returns its
-    path. Concurrent builds each write a file of their own and rename it
-    into place."""
-    so = library_path()
-    if so.exists():
-        return so
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as exc:
-        raise RuntimeError(f"cannot run g++ to build the octomap codec: "
-                           f"{exc}") from exc
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed ({proc.returncode}) building the "
-                           f"octomap codec:\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    path."""
+    return native.build(_SRC, _BUILD, "octomap_codec", "the octomap codec")
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    path = build()
-    try:
-        lib = ctypes.CDLL(str(path))
-    except OSError as exc:
-        raise RuntimeError(f"cannot load the octomap codec {path}: "
-                           f"{exc}") from exc
+    lib = native.load(build(), "the octomap codec")
     lib.bt_read.restype = ctypes.c_void_p
     lib.bt_read.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
                             ctypes.POINTER(ctypes.c_double)]

@@ -11,9 +11,9 @@ its dense head (nn_trainer.py:115-117, _freeze_mask train.py:45). The
 ResNet-18's BatchNorm trains as flax's does (mutable batch_stats): each
 step normalizes by the batch's statistics and moves the running stats,
 also in a frozen trunk; evaluation runs the net in eval() mode, on the
-running stats. The JAX package writes orbax checkpoints; the port writes
-its own (a ``torch.save`` of CPU tensors, running stats included) with the
-same ``.netcfg.json`` beside it.
+running stats. The JAX package writes orbax checkpoints; the port reads
+them (io/orbax.py) and writes its own (a ``torch.save`` of CPU tensors,
+running stats included) with the same ``.netcfg.json`` beside it.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import time
 from typing import Dict, Optional, Tuple
 
@@ -29,6 +30,8 @@ import torch
 
 from neoplanner_tpu_torch import _cuda
 from neoplanner_tpu_torch.config import NetParams
+from neoplanner_tpu_torch.io import orbax
+from neoplanner_tpu_torch.learn import weights
 from neoplanner_tpu_torch.models.planner_net import PlannerNet
 
 # flax's lecun_normal: a standard normal truncated to [-2, 2], scaled so
@@ -192,8 +195,16 @@ def save_checkpoint(path: str, state_dict, np_cfg: NetParams) -> None:
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], NetParams]:
-    """(state_dict on the CPU, NetParams) of a save_checkpoint."""
-    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    """(state_dict on the CPU, NetParams) of a checkpoint: a directory is
+    an orbax checkpoint of the JAX package (its save_checkpoint; read by
+    io/orbax.py without JAX and converted by weights.from_flax), a file
+    the port's own save_checkpoint. The NetParams come from
+    path + '.netcfg.json' in both cases."""
+    path = os.path.normpath(path)
+    if os.path.isdir(path):
+        state_dict = weights.from_flax(orbax.restore(path))
+    else:
+        state_dict = torch.load(path, map_location="cpu", weights_only=True)
     with open(path + ".netcfg.json") as f:
         np_cfg = NetParams(**json.load(f))
     return state_dict, np_cfg

@@ -149,3 +149,16 @@ def from_onnx(path: str) -> dict:
         sd[f"{name}.weight"] = _tensor(w)
         sd[f"{name}.bias"] = _tensor(b)
     return sd
+
+
+def digest(state_dict) -> str:
+    """SHA-256 (hex) over a state_dict: for each key in sorted order, the
+    key, the tensor's dtype and shape, and its bytes (C order, on the
+    CPU)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(state_dict):
+        t = state_dict[k].detach().cpu().contiguous()
+        h.update(f"{k}|{t.dtype}|{tuple(t.shape)}|".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()

@@ -111,9 +111,12 @@ def create(np_cfg: NetParams = NetParams()) -> PlannerNet:
 
 def load(path: str, np_cfg: NetParams, device="cuda") -> PlannerNet:
     """PlannerNet in eval mode on ``device`` with the weights of an exported
-    .onnx file (learn/weights.from_onnx)."""
+    .onnx file (learn/weights.from_onnx) or of the JAX package's orbax
+    checkpoint directory (learn/train.load_checkpoint)."""
+    import os
     from neoplanner_tpu_torch import _cuda
-    from neoplanner_tpu_torch.learn import weights
+    from neoplanner_tpu_torch.learn import train, weights
     net = PlannerNet(np_cfg)
-    net.load_state_dict(weights.from_onnx(path))
+    net.load_state_dict(train.load_checkpoint(path)[0] if os.path.isdir(path)
+                        else weights.from_onnx(path))
     return net.to(_cuda.resolve_device(device)).eval()

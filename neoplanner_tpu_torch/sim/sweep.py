@@ -18,7 +18,7 @@ the same start; its records go through ``utils/metrics``
 (``from_env_states``, ``write_metrics_file``, ``analyze``).
 
     python -m neoplanner_tpu_torch.sim.sweep --planners expert neo \\
-        --net artifacts/planner_net_smallconv.onnx --worlds 0 1 poles.world
+        --net artifacts/planner_net_smallconv --worlds 0 1 poles.world
     python -m neoplanner_tpu_torch.sim.sweep --device cpu --repeats 2 \\
         --segments 2 --max-iters 4
 """
@@ -62,8 +62,9 @@ def parse_args(argv=None):
     ap.add_argument("--max-iters", type=int, default=64,
                     help="the L-BFGS iterations (multi_run.py: 64)")
     ap.add_argument("--net", default=None,
-                    help="the PlannerNet's .onnx file ('nn', 'neo'), its "
-                         "NetParams beside it as .netcfg.json")
+                    help="the PlannerNet ('nn', 'neo'): an .onnx file or "
+                         "the JAX package's orbax checkpoint directory, "
+                         "its NetParams beside it as .netcfg.json")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="planning_metrics.txt path")
     return ap.parse_args(argv)
@@ -131,6 +132,17 @@ def clear_goal(world: BoxWorld, mapp: MapParams,
     return pts[int(clear[0])]
 
 
+def load_net(path: str, device):
+    """(PlannerNet in eval mode on device, its NetParams) of --net: an
+    exported .onnx file or the JAX package's orbax checkpoint directory
+    (multi_run.py:55), its NetParams from the .netcfg.json beside it."""
+    path = os.path.normpath(path)
+    base = path if os.path.isdir(path) else os.path.splitext(path)[0]
+    with open(base + ".netcfg.json") as f:
+        np_cfg = NetParams(**json.load(f))
+    return planner_net.load(path, np_cfg, device), np_cfg
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -154,9 +166,7 @@ def main(argv=None) -> dict:
     if any(p in ("nn", "neo") for p in args.planners):
         if args.net is None:
             raise ValueError("the 'nn' and 'neo' planners need --net")
-        with open(os.path.splitext(args.net)[0] + ".netcfg.json") as f:
-            np_cfg = NetParams(**json.load(f))
-        net = planner_net.load(args.net, np_cfg, dev)
+        net, np_cfg = load_net(args.net, dev)
         cam = CameraParams(width=np_cfg.img_width, height=np_cfg.img_height)
 
     loaded = load_worlds(args.worlds, wp, dev)

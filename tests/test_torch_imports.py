@@ -1,7 +1,10 @@
 """The PyTorch port imports no JAX: not jax, flax or orbax, and nothing of
 the JAX package neoplanner_tpu — checked over the source text of every
 module and of chip_smoke.py, and by importing every module in a fresh
-interpreter in which those packages cannot be imported."""
+interpreter in which those packages cannot be imported. Nor does it import
+the libraries that JAX's checkpoints are read with (zstandard, tensorstore,
+google_crc32c): the port reads them with its own io/zstd.py, io/ocdbt.py
+and io/orbax.py, and the GPU host has none of them."""
 
 import ast
 import os
@@ -13,7 +16,8 @@ import torch
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(ROOT, "neoplanner_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "neoplanner_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "neoplanner_tpu",
+             "zstandard", "tensorstore", "google_crc32c")
 
 
 @pytest.fixture(autouse=True, scope="module")
