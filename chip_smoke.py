@@ -199,7 +199,18 @@ Phases, one short line each:
    replan_mode="online" (every env replans every segment until its goal);
    the trained net's B = 4 card-vs-CPU twin at one solver iteration by phase 4's
    rules, and at 24 iterations the plan flags' agreement and the median
-   relative objective gap of the plans both accepted (printed, not held).
+   relative objective gap of the plans both accepted (printed, not held);
+36. (w) checkpoints written without JAX as the JAX package's orbax
+   directories (learn/train.save_checkpoint: weights.to_flax, io/orbax.py,
+   io/ocdbt.py's writer): the trained ResNet-18 of phase (v)'s restore
+   written three times into a temporary directory (ms each and bytes) and
+   read back (ms), its state_dict SHA-256 held to RESNET640_SHA256; the
+   smallconv net that phase 19's pipeline trained on the card, restored
+   from the orbax directory that the pipeline wrote, and one scene 'neo'
+   segment at B = 512 (B4 1, B1 2, B5 2, B3 1 launches held) flown by the
+   restored net and one by the net in memory, from one reset with one set
+   of draws: the differing elements of position, velocity and the reached
+   and failed flags, which must be 0. Every line carries the card line.
 
 The vision paths' counts include their reset, which builds the truncated
 lite map of an unknown grid through B9 banded. The last lines are every
@@ -524,7 +535,9 @@ def pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp):
     """learn/pipeline.main at examples/train.py's widths, cut to 2 pulls of
     4 segments and 2 epochs, with its record launches held per segment;
     then the first training step card vs CPU, the exported program and
-    ONNX file against the net, and two scene 'neo' segments with it."""
+    ONNX file against the net, and two scene 'neo' segments with it.
+    Returns the trained net and the checkpoint directory the pipeline
+    wrote under tmp, for phase (w)."""
     import torch
     from neoplanner_tpu_torch import _cuda
     from neoplanner_tpu_torch.config import PlannerParams, WorldParams
@@ -663,6 +676,7 @@ def pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp):
         f"{ok}/{planned}, finite {finite}")
     if not finite or planned == 0:
         raise AssertionError("the trained net's loop did not run")
+    return net, res["paths"]["checkpoint"]
 
 
 NET640_SEED = 640             # the seeded weights of the 640 x 480 net
@@ -1541,6 +1555,106 @@ def _checkpoint_phases(dev, pp, mp, mapp, wp, paper, run_path, small_loop,
         f"not held): plan flags agree {flags:.3f}, accepted both "
         f"{int(both.sum())}, median relative objective gap "
         f"{float(gap.median()) if len(gap) else float('nan'):.3g}")
+
+
+def write_phases(dev, card, mp, sp, mapp, cam, small, tmp):
+    """(w) checkpoints that the port writes as the JAX package's orbax
+    directories: the trained ResNet-18 written and read back, and the
+    pipeline's smallconv net restored from its directory flying a segment
+    beside the net in memory. small is (the net, its checkpoint) from
+    pipeline_phase. Every line it prints ends with the card line."""
+    t_w = time.perf_counter()
+    _SAY_TAG[0] = f" [{card}]"
+    try:
+        _write_phases(dev, mp, sp, mapp, cam, small, tmp)
+        say(f"(w) phase {time.perf_counter() - t_w:.1f} s")
+    finally:
+        _SAY_TAG[0] = ""
+
+
+def _write_phases(dev, mp, sp, mapp, cam, small, tmp):
+    import torch
+    from neoplanner_tpu_torch import _cuda
+    from neoplanner_tpu_torch.config import (NetParams, PlannerParams,
+                                             WorldParams)
+    from neoplanner_tpu_torch.learn import train, weights
+    from neoplanner_tpu_torch.models.planner_net import PlannerNet
+    from neoplanner_tpu_torch.sim import env
+    from neoplanner_tpu_torch.world import scenegen
+
+    # ---- (a) the trained ResNet-18 of phase (v)'s restore, written as
+    # orbax and read back
+    sd, np_cfg = train.load_checkpoint(os.path.join(REPO, RESNET640))
+    out = os.path.join(tmp, "planner_net_resnet640")
+    save_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        train.save_checkpoint(out, sd, np_cfg)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(out) for f in fs]
+    n_bytes = sum(os.path.getsize(f) for f in files)
+    t0 = time.perf_counter()
+    back, back_cfg = train.load_checkpoint(out)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    digest = weights.digest(back)
+    n_values = sum(t.numel() for t in back.values())
+    say(f"(w) resnet640 written by train.save_checkpoint as an orbax "
+        f"directory: {n_bytes:,} bytes in {len(files)} files, save "
+        f"{', '.join(f'{m:.1f}' for m in save_ms)} ms (three saves, each "
+        f"replacing the last; {n_bytes / min(save_ms) / 1e3:.0f} MB/s at "
+        f"the fastest); read back by train.load_checkpoint in "
+        f"{restore_ms:.1f} ms: {len(back)} tensors, {n_values:,} values, "
+        f"NetParams() {back_cfg == NetParams()}; state_dict SHA-256 "
+        f"{digest} (phase (v)'s and JAX's restore: {RESNET640_SHA256})")
+    if digest != RESNET640_SHA256 or back_cfg != NetParams():
+        raise AssertionError("the ResNet-18 written and read back differs "
+                             "from phase (v)'s restore")
+
+    # ---- (b) the pipeline's smallconv net restored from its orbax
+    # directory, one segment beside the net in memory
+    net, ckpt = small
+    t0 = time.perf_counter()
+    sd, np_cfg = train.load_checkpoint(ckpt)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    restored = PlannerNet(np_cfg)
+    restored.load_state_dict(sd)
+    restored.to(dev).eval()
+    mem = net.state_dict()
+    n_tensors = sum(not torch.equal(sd[k], mem[k].cpu()) for k in mem)
+    pp48 = PlannerParams(max_iters=48)
+    worlds = scenegen.generate_batch(_cuda.make_generator(31, dev), 512,
+                                     WorldParams(num_boxes=12))
+    state = env.reset(worlds, pp48, mp, mapp, _cuda.make_generator(32, dev))
+    draws = env.draw(_cuda.make_generator(33, dev), 512, pp48)
+    runs = []
+    for net_ in (restored, net):
+        _cuda.reset_launches()
+        st, info = env.step_segment(state, pp48, mp, sp, cam, net_,
+                                    draws=draws)
+        torch.cuda.synchronize()
+        runs.append((st, info, {k: _cuda.launches[k] for k in SCENE_PATH}))
+    (a, ia, ca), (b, ib, cb) = runs
+    diff = {name: int((x != y).sum()) for name, x, y in (
+        ("position", a.drone.pos, b.drone.pos),
+        ("velocity", a.drone.vel, b.drone.vel),
+        ("reached", a.reached, b.reached), ("failed", a.failed, b.failed),
+        ("replan ok", ia.ok, ib.ok))}
+    say(f"(w) pipeline smallconv net restored from its orbax directory in "
+        f"{restore_ms:.1f} ms: {n_tensors} of {len(mem)} tensors differ "
+        f"from the trained net's; one scene 'neo' segment B=512 from one "
+        f"reset, restored vs in memory: differing elements " + ", ".join(
+            f"{k} {v}" for k, v in diff.items()) + f" (0 expected); replans"
+        f" ok {int(ia.ok.sum())}/{int(ia.planned.sum())}; launches "
+        + ", ".join(f"{k} {ca[k]}/{cb[k]}" for k in SCENE_PATH))
+    if n_tensors or any(diff.values()):
+        raise AssertionError("the net restored from the pipeline's orbax "
+                             "directory flies otherwise than the trained "
+                             "net")
+    for k in SCENE_PATH:
+        if not ca[k] == cb[k] == NEO640_PER_SEGMENT.get(k, 0):
+            raise AssertionError(f"the phase (w) segment launched {k} "
+                                 f"{ca[k]}/{cb[k]} times, expected "
+                                 f"{NEO640_PER_SEGMENT.get(k, 0)}")
 
 
 def main(argv=None) -> int:
@@ -3650,23 +3764,28 @@ def main(argv=None) -> int:
 
     # ================= the expert-data and training path ==================
     record_check(dev, pp, mp, sp, mapp, cam, card)
-    with tempfile.TemporaryDirectory() as tmp:
-        pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp)
+    with tempfile.TemporaryDirectory() as pipe_tmp:
+        small = pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals,
+                               pipe_tmp)
 
-    # ================= the paper's ResNet-18 net, 'geo', the tracker ======
-    paper = paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v,
-                         goals_v, launch_totals, run_path, small_loop,
-                         render_work, wp)
+        # ================= the paper's ResNet-18 net, 'geo', the tracker ==
+        paper = paper_phases(dev, card, pp, mp, sp, mapp, worlds, worlds_v,
+                             goals_v, launch_totals, run_path, small_loop,
+                             render_work, wp)
 
-    # ================= world files, the .bt map, the env-axis mesh =======
-    with tempfile.TemporaryDirectory() as tmp:
-        world_phases(dev, card, pp, mp, sp, mapp, cam, (net, net_cpu),
-                     worlds, onnx, launch_totals, tmp, small_loop,
-                     boundary_problems, accepted, basin)
+        # ================= world files, the .bt map, the env-axis mesh ===
+        with tempfile.TemporaryDirectory() as tmp:
+            world_phases(dev, card, pp, mp, sp, mapp, cam, (net, net_cpu),
+                         worlds, onnx, launch_totals, tmp, small_loop,
+                         boundary_problems, accepted, basin)
 
-    # ================= the JAX package's checkpoints, the trained net ====
-    checkpoint_phases(dev, card, pp, mp, mapp, wp, paper, run_path,
-                      small_loop, twin_loops)
+        # ================= the JAX package's checkpoints, the trained net
+        checkpoint_phases(dev, card, pp, mp, mapp, wp, paper, run_path,
+                          small_loop, twin_loops)
+
+        # ================= checkpoints written as orbax ==================
+        with tempfile.TemporaryDirectory() as tmp:
+            write_phases(dev, card, mp, sp, mapp, cam, small, tmp)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
 

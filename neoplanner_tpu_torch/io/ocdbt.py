@@ -1,5 +1,6 @@
-"""A read-only OCDBT key-value store: the format in which orbax writes the
-JAX package's checkpoints (tensorstore's B-tree database, "ocdbt").
+"""The OCDBT key-value store: the format in which orbax writes the JAX
+package's checkpoints (tensorstore's B-tree database, "ocdbt"), read in
+any layout that tensorstore writes and written in one.
 
 A store is a directory. Its ``manifest.ocdbt`` holds the configuration and
 the versions of the tree; each version names the root of a B-tree whose
@@ -45,11 +46,22 @@ stored column by column. The pieces, as this reader takes them:
 Corrupt input raises ValueError: a bad magic, length, version, checksum or
 compression, a body that is not consumed exactly, or a tree whose key count
 differs from its version's.
+
+``write_store`` writes a new store in the simplest layout of these pieces:
+one generation (1) with one version, in a kind-0 ``manifest.ocdbt`` with
+no version tree nodes; every value out of line in one data file
+``d/<32 hex>``, followed there by one leaf node (root height 0) that holds
+every key, sorted and prefix compressed. The records are uncompressed, and
+the config is a random uuid and tensorstore's default limits
+(``WRITE_LIMITS``) with compression none. A node past
+max_decoded_node_bytes raises ValueError.
 """
 
 from __future__ import annotations
 
+import os
 import struct
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -58,6 +70,9 @@ from neoplanner_tpu_torch.io import zstd
 MANIFEST_MAGIC = 0x0CDB3A2A
 NODE_MAGIC = 0x0CDB20DE
 _EMPTY = (1 << 64) - 1
+# what tensorstore writes when a store is opened with default settings:
+# max inline value bytes, max decoded node bytes, version tree arity log2
+WRITE_LIMITS = (100, 8 << 20, 4)
 
 
 def _crc_table() -> List[int]:
@@ -137,6 +152,54 @@ class _Reader:
             prev = prev[:shared[k]] + self.take(suffix[k])
             out.append(prev)
         return out, extra
+
+
+class _Writer:
+    """A body being built, in the layout that _Reader takes apart."""
+
+    def __init__(self):
+        self.d = bytearray()
+
+    def byte(self, v: int):
+        self.d.append(v)
+
+    def varint(self, v: int):
+        while v >= 0x80:
+            self.d.append(v & 0x7F | 0x80)
+            v >>= 7
+        self.d.append(v)
+
+    def col(self, values):
+        for v in values:
+            self.varint(v)
+
+    def u64s(self, values):
+        for v in values:
+            self.d += struct.pack("<Q", v)
+
+    def prefixed(self, items: List[bytes], extra=None):
+        """_Reader.prefixed's layout of items, each prefix compressed
+        against the previous one."""
+        shared = [len(os.path.commonprefix([a, b]))
+                  for a, b in zip(items, items[1:])]
+        self.col(shared)
+        self.col(len(k) - n for k, n in zip(items, [0] + shared))
+        if extra is not None:
+            self.col(extra)
+        for k, n in zip(items, [0] + shared):
+            self.d += k[n:]
+
+
+def _write_file_table(w: _Writer, paths: List[str]):
+    w.varint(len(paths))
+    w.prefixed([p.encode() for p in paths], extra=[0] * len(paths))
+
+
+def _wrap(body: bytes, magic: int) -> bytes:
+    """The record of an uncompressed body: the inverse of _unwrap."""
+    n = 4 + 8 + 2 + len(body) + 4
+    raw = struct.pack(">I", magic) + struct.pack("<Q", n) + b"\0\0" + body
+    return raw + struct.pack("<I", crc32c(raw))
 
 
 def _file_table(r: _Reader) -> List[str]:
@@ -317,3 +380,58 @@ class OcdbtStore:
             key = key.encode()
         v = self._entries()[key]
         return v if isinstance(v, bytes) else self._read_file(v)
+
+
+def write_store(path, items: Dict[bytes, bytes]) -> None:
+    """A new OCDBT store at path (a directory, made if missing) that holds
+    items, in the layout the module docstring gives; the files it would
+    write must not exist yet."""
+    root = Path(path)
+    keys = sorted(items)
+    inline, node_bytes, arity = WRITE_LIMITS
+    w = _Writer()                                    # the manifest's body
+    w.d += os.urandom(16)
+    w.col((0, inline, node_bytes))
+    w.byte(arity)
+    w.varint(0)                                      # compression: none
+    if not keys:
+        _write_file_table(w, [""])
+        w.varint(1)
+        w.col((1,))
+        w.byte(0)
+        w.col((0, _EMPTY, _EMPTY, 0, 0, 0))
+    else:
+        data = f"d/{os.urandom(16).hex()}"
+        node = _Writer()
+        node.byte(0)                                 # height: a leaf
+        _write_file_table(node, [data])
+        node.varint(len(keys))
+        node.prefixed(keys)
+        node.col(len(items[k]) for k in keys)
+        node.d += bytes([1]) * len(keys)             # every value indirect
+        node.col([0] * len(keys))
+        offsets, off = [], 0
+        for k in keys:
+            offsets.append(off)
+            off += len(items[k])
+        node.col(offsets)
+        if len(node.d) > node_bytes:
+            raise ValueError(f"ocdbt: a node of {len(node.d)} bytes for "
+                             f"{len(keys)} keys, above the store's "
+                             f"{node_bytes}")
+        record = _wrap(bytes(node.d), NODE_MAGIC)
+        (root / "d").mkdir(parents=True, exist_ok=True)
+        with open(root / data, "xb") as f:
+            for k in keys:
+                f.write(items[k])
+            f.write(record)
+        _write_file_table(w, [data])
+        w.varint(1)
+        w.col((1,))                                  # generation
+        w.byte(0)                                    # root height
+        w.col((0, off, len(record), len(keys), len(record), off))
+    w.u64s((time.time_ns(),))                        # commit time
+    w.varint(0)                                      # no version tree nodes
+    root.mkdir(parents=True, exist_ok=True)
+    with open(root / "manifest.ocdbt", "xb") as f:
+        f.write(_wrap(bytes(w.d), MANIFEST_MAGIC))

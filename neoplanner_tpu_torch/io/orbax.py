@@ -24,6 +24,16 @@ JAX package's nets and orbax write: IEEE floats, signed and unsigned
 integers and bool; any other raises ValueError naming it, as does a
 checkpoint without OCDBT, with zarr v3 arrays or with sequence keys (the
 JAX package writes none of them).
+
+``save_tree`` and ``save`` are their inverses: they write what orbax's
+StandardCheckpointer writes for a pytree of nested dicts of numpy arrays
+with ``force=True`` (an existing checkpoint at the path is replaced), in
+the layout that orbax and tensorstore restore: ``_METADATA`` (a leaf's
+value type ``np.ndarray``, an empty dict's ``Dict`` with
+``skip_deserialize``), ``_CHECKPOINT_METADATA``, and the arrays as zarr v2
+without compressor or filters, one chunk the whole shape in C order and
+fill value null, in an OCDBT store at the root that io/ocdbt.py writes.
+Only the dtypes that are read may be written.
 """
 
 from __future__ import annotations
@@ -32,6 +42,9 @@ import ast
 import itertools
 import json
 import math
+import os
+import shutil
+import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -43,6 +56,8 @@ _KEY_DICT = 2
 _EMPTY_NODES = {"Dict": dict, "List": list, "Tuple": tuple,
                 "None": lambda: None}
 _KINDS = {"f": (2, 4, 8), "i": (1, 2, 4, 8), "u": (1, 2, 4, 8), "b": (1,)}
+_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+            "StandardCheckpointHandler")
 
 
 def _dtype(code: str) -> np.dtype:
@@ -166,3 +181,73 @@ def restore(path, stats: Optional[dict] = None) -> Dict[str, Any]:
         raise ValueError(f"orbax: {path} holds {sorted(tree)}, not "
                          f"'variables'")
     return tree["variables"]
+
+
+def _leaves(tree, keys, out) -> None:
+    """(key path, leaf) of a nested dict in JAX's flattening order (keys
+    sorted at every level); an empty dict is a leaf."""
+    if isinstance(tree, dict) and tree:
+        for k in sorted(tree):
+            if not isinstance(k, str):
+                raise TypeError(f"orbax: key {k!r} under {keys} is not a str")
+            _leaves(tree[k], keys + (k,), out)
+    elif isinstance(tree, (dict, np.ndarray, np.generic)):
+        if not keys:
+            raise ValueError("orbax: the tree is a single leaf")
+        out.append((keys, tree))
+    else:
+        raise TypeError(f"orbax: {type(tree).__name__} at {keys} is neither "
+                        f"a dict nor a numpy array")
+
+
+def save_tree(path, tree: Dict[str, Any]) -> None:
+    """Write tree (nested dicts of numpy arrays and empty dicts) as an
+    orbax checkpoint at path, replacing what is there."""
+    init_ns = time.time_ns()
+    leaves = []
+    _leaves(tree, (), leaves)
+    meta, items = {}, {}
+    for keys, leaf in leaves:
+        if isinstance(leaf, dict):
+            vm = {"value_type": "Dict", "skip_deserialize": True}
+        else:
+            a = np.asarray(leaf)
+            dt = _dtype(a.dtype.newbyteorder("<").str)
+            name = ".".join(keys)
+            zarray = {"chunks": [max(n, 1) for n in a.shape],
+                      "compressor": None, "dimension_separator": ".",
+                      "dtype": dt.str, "fill_value": None, "filters": None,
+                      "order": "C", "shape": list(a.shape), "zarr_format": 2}
+            items[f"{name}/.zarray".encode()] = json.dumps(
+                zarray, sort_keys=True, separators=(",", ":")).encode()
+            if a.size:
+                chunk = ".".join("0" * a.ndim) if a.ndim else "0"
+                items[f"{name}/{chunk}".encode()] = np.ascontiguousarray(
+                    a, dtype=dt).tobytes()
+            vm = {"value_type": "np.ndarray", "skip_deserialize": False}
+        meta[str(keys)] = {"key_metadata": [{"key": k, "key_type": _KEY_DICT}
+                                            for k in keys],
+                           "value_metadata": vm}
+    root = Path(os.path.abspath(path))
+    tmp = root.with_name(f"{root.name}.orbax-checkpoint-tmp-{init_ns}")
+    ocdbt.write_store(tmp, items)
+    (tmp / "_METADATA").write_text(json.dumps({
+        "tree_metadata": meta, "use_ocdbt": True, "use_zarr3": False,
+        "store_array_data_equal_to_fill_value": True,
+        "custom_metadata": None}))
+    (tmp / "_CHECKPOINT_METADATA").write_text(json.dumps({
+        "item_handlers": _HANDLER, "metrics": {}, "performance_metrics": {},
+        "init_timestamp_nsecs": init_ns,
+        "commit_timestamp_nsecs": time.time_ns(), "custom_metadata": {}}))
+    if root.is_dir():
+        shutil.rmtree(root)
+    elif root.exists():
+        root.unlink()
+    tmp.rename(root)
+
+
+def save(path, variables: Dict[str, Any]) -> None:
+    """Write a PlannerNet's variables ({'params', 'batch_stats'} of numpy
+    arrays) as the JAX package's save_checkpoint does: the tree
+    ``{'variables': variables}``."""
+    save_tree(path, {"variables": variables})

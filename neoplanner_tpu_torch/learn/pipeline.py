@@ -7,9 +7,11 @@ few segments whose frames are kept as uint8 on the host; then Adam
 training of the PlannerNet (learn/train.py, a 90/10 split as
 examples/train.py takes): the smallconv net on 160 x 120 frames, or with
 --resnet640 the reference's contract, the ResNet-18 net (NetParams()) on
-640 x 480 frames (examples/train.py:13, 64-66); then a checkpoint
-(OUT.pt and OUT.pt.netcfg.json), a ``torch.export`` program (OUT.pt2) and
-an ONNX file (OUT.onnx), and the program's latency at batch 1.
+640 x 480 frames (examples/train.py:13, 64-66); then the checkpoint as
+examples/train.py:149 writes it (the orbax directory OUT and
+OUT.netcfg.json, which the JAX package's train.load_checkpoint reads), a
+``torch.export`` program (OUT.pt2) and an ONNX file (OUT.onnx), and the
+program's latency at batch 1.
 
     python -m neoplanner_tpu_torch.learn.pipeline \\
         --out artifacts/planner_net_torch
@@ -124,7 +126,7 @@ def main(argv=None) -> dict:
     train_s = time.perf_counter() - t0
 
     # ---- checkpoint and export
-    paths = dict(checkpoint=args.out + ".pt", program=args.out + ".pt2",
+    paths = dict(checkpoint=args.out, program=args.out + ".pt2",
                  onnx=args.out + ".onnx")
     train.save_checkpoint(paths["checkpoint"], net.state_dict(), netp)
     export.save(paths["program"], net)

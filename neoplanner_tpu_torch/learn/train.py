@@ -11,9 +11,10 @@ its dense head (nn_trainer.py:115-117, _freeze_mask train.py:45). The
 ResNet-18's BatchNorm trains as flax's does (mutable batch_stats): each
 step normalizes by the batch's statistics and moves the running stats,
 also in a frozen trunk; evaluation runs the net in eval() mode, on the
-running stats. The JAX package writes orbax checkpoints; the port reads
-them (io/orbax.py) and writes its own (a ``torch.save`` of CPU tensors,
-running stats included) with the same ``.netcfg.json`` beside it.
+running stats. Checkpoints are the JAX package's orbax directories, read
+and written without JAX (io/orbax.py, weights.from_flax / to_flax), with
+the net's ``.netcfg.json`` beside them; a ``torch.save`` file that the
+port wrote before it wrote orbax still loads.
 """
 
 from __future__ import annotations
@@ -186,19 +187,22 @@ def train(depths, motions, labels, np_cfg: NetParams,
 
 
 def save_checkpoint(path: str, state_dict, np_cfg: NetParams) -> None:
-    """The weights as CPU tensors (torch.save) at path, and the net's
-    configuration as JSON at path + '.netcfg.json' (as the JAX package
-    writes it beside its orbax checkpoint)."""
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    """What the JAX package's save_checkpoint writes for the same net: the
+    weights (weights.to_flax) as an orbax checkpoint directory at path,
+    replacing one that is there (io/orbax.save), and the net's
+    configuration as JSON at path + '.netcfg.json', JAX's text."""
+    path = os.path.abspath(path)
+    orbax.save(path, weights.to_flax(state_dict, np_cfg))
     with open(path + ".netcfg.json", "w") as f:
         json.dump(dataclasses.asdict(np_cfg), f)
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], NetParams]:
     """(state_dict on the CPU, NetParams) of a checkpoint: a directory is
-    an orbax checkpoint of the JAX package (its save_checkpoint; read by
-    io/orbax.py without JAX and converted by weights.from_flax), a file
-    the port's own save_checkpoint. The NetParams come from
+    an orbax checkpoint, written by save_checkpoint or by the JAX
+    package's (read by io/orbax.py without JAX and converted by
+    weights.from_flax); a file is a torch.save of the state_dict, as the
+    port wrote checkpoints before it wrote orbax. The NetParams come from
     path + '.netcfg.json' in both cases."""
     path = os.path.normpath(path)
     if os.path.isdir(path):

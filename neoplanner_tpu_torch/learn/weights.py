@@ -1,5 +1,5 @@
 """PlannerNet weights into the port's ``state_dict``: from the JAX package's
-flax variables, or from an ONNX export.
+flax variables, or from an ONNX export; and back into flax variables.
 
 ``from_flax`` maps flax Dense kernels (in, out) to Linear weights (out, in),
 HWIO convolution kernels to OIHW, the conv1d stacks' (W, I, O) kernels to
@@ -10,6 +10,9 @@ exported by neoplanner_tpu/learn/onnx_interop.py or by the port's
 learn/onnx_interop.py (``artifacts/planner_net_smallconv.onnx``) with the
 port's protobuf codec, io/onnx_proto.py: the smallconv backbone or the
 ResNet-18 (Conv without bias, BatchNormalization), 'mlp' fusion.
+``to_flax`` is from_flax's inverse: the tree that the JAX package's
+``planner_net.create(cfg).init`` gives, with ``batch_stats`` empty for a
+net without BatchNorm, as its training loop returns it.
 """
 
 from __future__ import annotations
@@ -97,6 +100,74 @@ def from_flax(variables) -> dict:
         for i in range(4):
             _linear(sd, f"{name}.{i}", params[f"{name}_{i}"])
     return sd
+
+
+def _array(sd, key) -> np.ndarray:
+    """A copy of sd[key] as numpy, taken out of sd."""
+    return np.array(sd.pop(key).detach().cpu().numpy())
+
+
+def _dense_of(sd, name):
+    return {"kernel": _array(sd, f"{name}.weight").T,
+            "bias": _array(sd, f"{name}.bias")}
+
+
+def _conv_of(sd, name):
+    k = _array(sd, f"{name}.weight")
+    # OIHW -> HWIO (2-D), OIW -> WIO (1-D)
+    out = {"kernel": k.transpose(2, 3, 1, 0) if k.ndim == 4
+           else k.transpose(2, 1, 0)}
+    if f"{name}.bias" in sd:
+        out["bias"] = _array(sd, f"{name}.bias")
+    return out
+
+
+def _bn_of(sd, name):
+    return ({"scale": _array(sd, f"{name}.weight"),
+             "bias": _array(sd, f"{name}.bias")},
+            {"mean": _array(sd, f"{name}.running_mean"),
+             "var": _array(sd, f"{name}.running_var")})
+
+
+def to_flax(state_dict, np_cfg) -> dict:
+    """state_dict of PlannerNet(np_cfg) -> its flax variables
+    {'params', 'batch_stats'} as numpy arrays, each in its tensor's dtype;
+    num_batches_tracked is dropped, and a key that the net of np_cfg does
+    not hold raises ValueError."""
+    sd = {k: v for k, v in state_dict.items()
+          if not k.endswith(".num_batches_tracked")}
+    img, stats = {}, {}
+    if np_cfg.backbone == "resnet18":
+        st = stats["img_backbone"] = {}
+        img["Conv_0"] = _conv_of(sd, "img_backbone.conv_0")
+        img["BatchNorm_0"], st["BatchNorm_0"] = _bn_of(sd,
+                                                       "img_backbone.bn_0")
+        for k in range(8):
+            bp, bs = {}, {}
+            img[f"BasicBlock_{k}"], st[f"BasicBlock_{k}"] = bp, bs
+            for i in ((0, 1, 2) if k in DOWNSAMPLE_BLOCKS else (0, 1)):
+                name = f"img_backbone.blocks.{k}"
+                bp[f"Conv_{i}"] = _conv_of(sd, f"{name}.conv_{i}")
+                bp[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"] = _bn_of(
+                    sd, f"{name}.bn_{i}")
+    else:
+        for i in range(4):
+            img[f"Conv_{i}"] = _conv_of(sd, f"img_backbone.convs.{i}")
+    img["Dense_0"] = _dense_of(sd, "img_backbone.head")
+    params = {"img_backbone": img}
+    for name in ("motion_backbone", "mlp"):
+        if np_cfg.fusion_arch == "conv1d":
+            params[name] = {f"Conv_{i}": _conv_of(sd, f"{name}.convs.{i}")
+                            for i in range(3)}
+            params[name]["Dense_0"] = _dense_of(sd, f"{name}.head")
+        else:
+            for i in range(4):
+                params[f"{name}_{i}"] = _dense_of(sd, f"{name}.{i}")
+    if sd:
+        raise ValueError(f"state_dict keys that a {np_cfg.backbone}/"
+                         f"{np_cfg.fusion_arch} PlannerNet does not hold: "
+                         f"{sorted(sd)}")
+    return {"params": params, "batch_stats": stats}
 
 
 def from_onnx(path: str) -> dict:

@@ -11,6 +11,8 @@ below 1e-6 at some step, and there within 2 lr a step; the losses are held
 within 1e-4 relative at every step.
 """
 
+import dataclasses
+import json
 import os
 
 import numpy as np
@@ -232,8 +234,9 @@ def test_freeze_backbone_matches_jax_mask():
 
 def test_checkpoints(tmp_path):
     """A JAX orbax checkpoint, restored and converted, gives the port's net
-    JAX's outputs (1e-5); the port's own checkpoint round trip is exact and
-    its .netcfg.json is JAX's text."""
+    JAX's outputs (1e-5); the port's own checkpoint, an orbax directory,
+    round-trips exactly through the port and through JAX's loader, and its
+    .netcfg.json is JAX's text."""
     jcfg = JNetParams(**NET)
     jvars = _variables(NET, 5)
     jpath = str(tmp_path / "jax_ckpt")
@@ -245,8 +248,9 @@ def test_checkpoints(tmp_path):
     with torch.no_grad():
         got = net(_t(img)[..., None], _t(mot))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-    path = str(tmp_path / "port.pt")
+    path = str(tmp_path / "port_ckpt")
     train.save_checkpoint(path, net.state_dict(), NetParams(**NET))
+    assert os.path.isfile(os.path.join(path, "manifest.ocdbt"))
     sd, cfg = train.load_checkpoint(path)
     assert cfg == NetParams(**NET)
     for k, v in net.state_dict().items():
@@ -254,6 +258,30 @@ def test_checkpoints(tmp_path):
     with open(jpath + ".netcfg.json") as fa, \
             open(path + ".netcfg.json") as fb:
         assert fa.read() == fb.read()
+    got, jcfg3 = jtrain.load_checkpoint(path)
+    assert jcfg3 == jcfg
+    for (kp, g), (_, w) in zip(jax.tree_util.tree_leaves_with_path(got),
+                               jax.tree_util.tree_leaves_with_path(restored)):
+        assert g.dtype == w.dtype and np.array_equal(g, w), kp
+
+
+def test_checkpoint_torch_save_file(tmp_path):
+    """A checkpoint that the port wrote before it wrote orbax (a torch.save
+    file of the state_dict with the .netcfg.json beside it) still loads."""
+    net = _port_net(_variables(NET, 5), NET)
+    path = str(tmp_path / "port.pt")
+    torch.save({k: v.detach().cpu() for k, v in net.state_dict().items()},
+               path)
+    with open(path + ".netcfg.json", "w") as f:
+        f.write('{"img_width": 64, "img_height": 48, "motion_input_size": '
+                '24, "output_size": 9, "img_feature_size": 24, '
+                '"motion_feature_size": 24, "backbone": "smallconv", '
+                '"fusion_arch": "mlp"}')
+    sd, cfg = train.load_checkpoint(path)
+    assert cfg == NetParams(**NET)
+    assert sorted(sd) == sorted(net.state_dict())
+    for k, v in net.state_dict().items():
+        assert torch.equal(sd[k], v), k
 
 
 def test_init_params_lecun_normal():
@@ -392,7 +420,9 @@ def test_record_rollout_env_major():
 
 def test_pipeline_on_cpu(tmp_path):
     """pipeline.main at a tiny size on the CPU: data, training, the
-    checkpoint, the program and the ONNX file, each holding the net."""
+    checkpoint (an orbax directory at OUT that the port and JAX's loader
+    read, with JAX's .netcfg.json text), the program and the ONNX file,
+    each holding the net."""
     out = str(tmp_path / "net")
     res = pipeline.main(["--device", "cpu", "--envs", "3", "--pulls", "1",
                          "--segments-per-pull", "2", "--epochs", "1",
@@ -400,8 +430,16 @@ def test_pipeline_on_cpu(tmp_path):
     assert res["samples"] > 0 and res["steps_per_epoch"] == 1
     assert res["step_ms"] > 0 and len(res["history"]["epoch_s"]) == 1
     net = res["net"]
+    assert res["paths"]["checkpoint"] == out and os.path.isdir(out)
     sd, cfg = train.load_checkpoint(res["paths"]["checkpoint"])
     assert cfg == net.np_cfg
+    jvars, jcfg = jtrain.load_checkpoint(out)
+    assert jcfg == JNetParams(img_width=160, img_height=120,
+                              backbone="smallconv")
+    with open(out + ".netcfg.json") as f:
+        assert f.read() == json.dumps(dataclasses.asdict(jcfg))
+    for k, v in weights.from_flax(jvars).items():
+        assert torch.equal(v, net.state_dict()[k]), k
     for k, v in weights.from_onnx(res["paths"]["onnx"]).items():
         assert torch.equal(v, net.state_dict()[k])
         assert torch.equal(sd[k], v)

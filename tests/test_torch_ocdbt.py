@@ -5,8 +5,8 @@ writes here: hundreds of keys under small node limits (interior nodes,
 keys prefix compressed under long common prefixes), inline and indirect
 values, uncompressed and zstd nodes, several commits (the latest read,
 deleted keys gone), and a version tree past the manifest's inline
-versions. A corrupt CRC, magic or length raises ValueError, a missing key
-KeyError."""
+versions. A corrupt CRC, body, magic or length of the manifest or of the
+newest version's root node raises ValueError, a missing key KeyError."""
 
 import os
 import shutil
@@ -132,33 +132,21 @@ def test_emptied_store(tmp_path):
     assert store.list() == [] and store._root is None
 
 
-def _node_files(path):
-    """(path, offset, length) of every B-tree node in the store's data
-    files, found by their magic and length."""
-    out = []
-    for dirpath, _, files in os.walk(path):
-        for f in files:
-            p = os.path.join(dirpath, f)
-            data = open(p, "rb").read()
-            i = data.find(b"\x0c\xdb\x20\xde")
-            while i >= 0:
-                n = int.from_bytes(data[i + 4:i + 12], "little")
-                if 0 < n <= len(data) - i:
-                    out.append((p, i, n))
-                i = data.find(b"\x0c\xdb\x20\xde", i + 1)
-    return out
-
-
 @pytest.mark.parametrize("where", ["manifest", "node"])
 @pytest.mark.parametrize("part", ["crc", "body", "magic", "length"])
 def test_corruption_raises(tmp_path, where, part):
+    """A flipped bit in the manifest, or in the root node of the newest
+    version (which every read walks; tensorstore may commit one
+    transaction in several generations, so a node found in the data files
+    may belong to an older one that is never read), raises ValueError."""
     _write(tmp_path, {"compression": None, "max_decoded_node_bytes": 256},
            [_keys(60, np.random.default_rng(2))])
     if where == "manifest":
         path, off, n = str(tmp_path / "manifest.ocdbt"), 0, os.path.getsize(
             tmp_path / "manifest.ocdbt")
     else:
-        path, off, n = _node_files(tmp_path)[0]
+        (rel, off, n), _ = ocdbt.OcdbtStore(tmp_path)._root
+        path = str(tmp_path / rel)
     data = bytearray(open(path, "rb").read())
     pos = {"crc": off + n - 2, "body": off + n // 2, "magic": off + 1,
            "length": off + 5}[part]
