@@ -210,7 +210,36 @@ Phases, one short line each:
    segment at B = 512 (B4 1, B1 2, B5 2, B3 1 launches held) flown by the
    restored net and one by the net in memory, from one reset with one set
    of draws: the differing elements of position, velocity and the reached
-   and failed flags, which must be 0. Every line carries the card line.
+   and failed flags, which must be 0. Every line carries the card line;
+37. (x) the user entry points of examples/marathon.py, latency.py and
+   demo.py: sim/marathon.main's ten cells ({expert, warmstart, geo, nn,
+   neo} x {scene, vision}) at B = 256 and 20 segments from one set of
+   worlds and one reset per mode (each row: missions, ok, the weighted
+   metric, iterations a plan, plans, ms a segment, launches; plans above
+   0 and the cell's kernels above 0 in every cell, 'nn' launching no
+   solver; every cell of a mode from the same goals, positions and
+   generator state); from the cells' final states, B4 and B8 v3 at the
+   vision cells' row stride 1 over every env's five mid-segment poses
+   against their plain versions (1e-3 of the pixels at 1e-3 m; one quantum
+   on 1e-4 of the updated cells), B1 on the scene and B6 on the sensed bf16
+   lite map over every lane of the marathon's bank (3 primaries, the
+   +-2.5 laterals, 2 retries) at one iteration by parity.one_iteration and
+   at 32 in basin() (median and mean f held to twice the gaps of the plain
+   solver on the CPU on every problem, no less than 1e-4 and 1e-2), the
+   lazy two-launch bank at one
+   iteration across each env's nearest obstacle card vs CPU (flags agree
+   on 95%, median weighted cost 1e-4, the scene's retries live), the
+   vetted goals' ring search card vs CPU on 16 draws of 256 goals (the
+   same picks: goals within 1e-5 m), and
+   B = 16 two-segment card-vs-CPU loops of scene/expert, vision/neo and
+   vision/geo with their one-iteration twins by phase 4's rules; the geo
+   front end at B = 8 on the vision geo cell's
+   sensed lite map, card vs CPU exactly equal; plan/latency.main in both
+   profiles (50 reps: p50, p90, launches), each map's B = 1 plan at one
+   iteration card vs CPU (the acceptance flag equal, the weighted cost
+   within 1e-3 relative) and at the profile's iterations printed; two
+   sim/demo.main missions to (25, 0), scene/gt/expert and depth/grid/expert
+   (the result line, launches above 0). Every line carries the card line.
 
 The vision paths' counts include their reset, which builds the truncated
 lite map of an unknown grid through B9 banded. The last lines are every
@@ -541,12 +570,10 @@ def pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp):
     import torch
     from neoplanner_tpu_torch import _cuda
     from neoplanner_tpu_torch.config import PlannerParams, WorldParams
-    from torch.autograd import DeviceType
     from neoplanner_tpu_torch.learn import (data, datagen, export, pipeline,
                                             train, weights)
     from neoplanner_tpu_torch.models import planner_net
     from neoplanner_tpu_torch.sim import env
-    from neoplanner_tpu_torch.utils import profiling
     from neoplanner_tpu_torch.world import scenegen
     pulls, seg_per_pull, epochs = 2, 4, 2
     _cuda.reset_launches()
@@ -642,27 +669,8 @@ def pipeline_phase(dev, mp, sp, mapp, cam, card, launch_totals, tmp):
             ("record segment B=512", lambda: datagen.record_rollout(
                 state, 1, pp48, mp, sp, cam, mp.des_pos_z)),
             ("training step", lambda: train.train_step(tnet, opt, *batch))):
-        fn()
-        torch.cuda.synchronize()
-        with profiling.device_trace(os.path.join(tmp, "trace")) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # the device's kernels and copies (not the ranges that user
-        # annotations such as the optimizer's step span on the device)
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)]
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-        by_name = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        say(f"{name} under torch.profiler: {wall:.2f} ms wall, "
-            f"{len(kern)} device events busy {busy:.3f} ms (idle share "
-            f"{1.0 - busy / wall:.3f}); most device time: " + "; ".join(
-                f"{k[:40]} {v:.3f} ms" for k, v in top) + f" [{card}]")
+        say(_busy_line(name, *_device_busy(torch, fn, tmp, top=4))
+            + f" [{card}]")
 
     # two scene 'neo' segments at B = 512 with the trained net
     ok, planned = 0, 0
@@ -1657,6 +1665,539 @@ def _write_phases(dev, mp, sp, mapp, cam, small, tmp):
                                  f"{NEO640_PER_SEGMENT.get(k, 0)}")
 
 
+# (x) the marathon (sim/marathon.py) at B = 256 and 20 segments a cell: the
+# kernels above 0 in each cell's reset and segments ('nn' solves nothing:
+# no L-BFGS launch), and those it must not launch
+MARATHON_ENVS = 256
+MARATHON_SEGMENTS = 20
+_MARATHON_VISION = ("render_depth", "fuse_depth_dense", "fuse_depth_multi",
+                    "edt_banded", "edt_trunc_lite", "minco_banded_solve",
+                    "track_segment_grid")
+MARATHON_PATHS = {
+    ("scene", "expert"): (EXPERT_SCENE_PATH, ("render_depth",)),
+    ("scene", "warmstart"): (EXPERT_SCENE_PATH, ("render_depth",)),
+    ("scene", "geo"): (GEO_PATH, ("render_depth", "lbfgs_scene_solve")),
+    ("scene", "nn"): (("render_depth", "minco_banded_solve",
+                       "track_segment"), ("lbfgs_scene_solve",)),
+    ("scene", "neo"): (SCENE_PATH, ()),
+    **{("vision", p): (_MARATHON_VISION + ("lbfgs_grid_solve",),
+                       ("lbfgs_scene_solve",))
+       for p in ("expert", "warmstart", "geo", "neo")},
+    ("vision", "nn"): (_MARATHON_VISION, ("lbfgs_grid_solve",
+                                          "lbfgs_scene_solve")),
+}
+# the marathon's cells flown card against CPU (B = 16, two segments, and
+# their one-iteration twins, by the small loops' rules)
+MARATHON_TWIN_ENVS = 16
+MARATHON_TWINS = (("scene", "expert"), ("vision", "neo"), ("vision", "geo"))
+GOAL_DRAWS = 16               # draws of B goals for the ring search check
+# the latency's maps (plan/latency.py): each plan's kernels, the ESDF's
+LATENCY_PATHS = dict(scene=("lbfgs_scene_solve", "minco_banded_solve"),
+                     grid=("lbfgs_grid_solve", "minco_banded_solve"))
+# the demo's two missions: (flags, the kernels above 0)
+DEMO_RUNS = (
+    (["--planner", "expert", "--sensing", "gt", "--plan-map", "scene"],
+     EXPERT_SCENE_PATH),
+    (["--planner", "expert", "--sensing", "depth", "--plan-map", "grid"],
+     ("render_depth",) + EXPERT_GRID_PATH))
+
+
+def entry_phases(dev, card, launch_totals, tmp, small_loop, basin,
+                 accepted, control_tol):
+    """(x) the user entry points that mirror examples/marathon.py, demo.py
+    and latency.py: the marathon's ten cells; its kernels at its own
+    shapes against their plain versions, its vetted goals and three of its
+    cells card vs CPU (_marathon_checks); the geo front end on a marathon
+    vision state card vs CPU, the B = 1 replan latency in both profiles,
+    two demo missions. Every line it prints ends with the card line."""
+    t_x = time.perf_counter()
+    _SAY_TAG[0] = f" [{card}]"
+    try:
+        _entry_phases(dev, launch_totals, tmp, small_loop, basin, accepted,
+                      control_tol)
+        say(f"(x) phase {time.perf_counter() - t_x:.1f} s")
+    finally:
+        _SAY_TAG[0] = ""
+
+
+def _device_busy(torch, fn, tmp, top=3):
+    """fn() once more under torch.profiler after a warm call: (wall ms,
+    device ms busy over its kernels and copies, device events, the top
+    names with the most device time)."""
+    from torch.autograd import DeviceType
+    from neoplanner_tpu_torch.utils import profiling
+    fn()
+    torch.cuda.synchronize()
+    with profiling.device_trace(os.path.join(tmp, "trace")) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the device's kernels and copies (not the ranges that user
+    # annotations such as the optimizer's step span on the device)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return wall, sum(by_name.values()), len(kern), names
+
+
+def _busy_line(what, wall, busy, n, top):
+    return (f"{what} under torch.profiler: {wall:.2f} ms wall, {n} device "
+            f"events busy {busy:.3f} ms (idle share {1.0 - busy / wall:.3f}"
+            f"); most device time: " + "; ".join(f"{k[:40]} {v:.3f} ms"
+                                                for k, v in top))
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output captured: (result, its lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def _emap_cpu(emap):
+    """An ESDFMap with its tensors on the CPU."""
+    return emap.replace(**{f: getattr(emap, f).cpu() for f in (
+        "esdf", "origin", "occupancy", "grad_x", "grad_y")
+        if getattr(emap, f) is not None})
+
+
+def _obstacle_near(state, pmap):
+    """(B, 2) per env the obstacle nearest its drone that the planning map
+    holds: on the scene the centre of the nearest active primitive, on a
+    sensed grid the nearest occupied cell's (distance 0); the drone's own
+    position where the grid holds none."""
+    import torch
+    from neoplanner_tpu_torch.mapping import scene
+    pos = state.drone.pos[:, :2]
+    if isinstance(pmap, scene.SceneMap):
+        c = state.world.centers[..., :2]
+        d = (c - pos[:, None]).norm(dim=-1).masked_fill(~state.world.active,
+                                                        float("inf"))
+        return c[torch.arange(c.shape[0], device=c.device), d.argmin(1)]
+    B, H, W = pmap.esdf.shape
+    res = pmap.resolution
+    ys = pmap.origin[1] + (torch.arange(H, device=pos.device) + 0.5) * res
+    xs = pmap.origin[0] + (torch.arange(W, device=pos.device) + 0.5) * res
+    d = ((xs[None, None, :] - pos[:, 0, None, None]) ** 2
+         + (ys[None, :, None] - pos[:, 1, None, None]) ** 2)
+    d = d.masked_fill(pmap.esdf > 0, float("inf")).flatten(1)
+    k = d.argmin(1)
+    cell = torch.stack([xs[k % W], ys[k // W]], 1)
+    return torch.where(torch.isfinite(d.amin(1))[:, None], cell, pos)
+
+
+def _marathon_checks(dev, out, nets, cam, small_loop, basin, accepted,
+                     control_tol):
+    """The marathon's kernels at the shapes its cells give them, against
+    their plain versions, from its final states (out: sim/marathon.main's
+    result at B = MARATHON_ENVS): (b) B4 and B8 v3 at the vision cells' row
+    stride over the five mid-segment poses of every env; (c) B1 on the
+    scene and B6 on the sensed bf16 lite map over every lane of the
+    marathon's bank (3 primaries, the +-2.5 laterals, 2 retries, under its
+    PlannerParams), one iteration by parity.one_iteration and 32 in
+    basin() against a CPU control on every problem, then the
+    lazy two-launch bank (expert.plan) at one iteration card vs CPU; (d)
+    the vetted goals' ring search (missions.sample_clear_goal) card vs CPU
+    on the marathon's worlds; (e) B = 16 two-segment card-vs-CPU loops of
+    three cells and their one-iteration twins (small_loop's rules)."""
+    import torch
+    from neoplanner_tpu_torch import _cuda
+    from neoplanner_tpu_torch.mapping import fusion, occupancy, query, scene
+    from neoplanner_tpu_torch.ops import minco
+    from neoplanner_tpu_torch.plan import costs, expert, parity, solve
+    from neoplanner_tpu_torch.sense import raycast
+    from neoplanner_tpu_torch.sim import env, marathon, missions, track
+    from neoplanner_tpu_torch.world import scenegen
+
+    pp, mp, sp, wp = marathon.params()
+    pp1 = dataclasses.replace(pp, max_iters=1)
+    spr = mp.steps_per_replan
+    n = out["states"]["scene", "expert"].goal.shape[0]    # B
+
+    # ---- (b) B4 and B8 v3 at the vision cells' row stride: the poses of
+    # the next segment's five mid-segment frames from the vision neo
+    # cell's final state (as step_segment's batch_fuse gathers them)
+    st = out["states"]["vision", "neo"]
+    fuse = marathon.cell_settings("vision", "neo")[1]
+    mapp, chunk = st.mapp, spr // fuse
+    rs = mapp.fusion_row_stride
+    s_c, pos5, quat5 = st, [], []
+    for c in range(fuse - 1):
+        drone, reached, steps, metrics, metric_pos, _ = \
+            track.track_segment_grid(s_c, st.buffer[:, c * chunk:(c + 1)
+                                                    * chunk], pp, mp, sp,
+                                     i0=c * chunk)
+        s_c = s_c.replace(drone=drone, reached=reached, steps=steps,
+                          metrics=metrics, metric_pos=metric_pos)
+        pos5.append(drone.pos)
+        quat5.append(drone.quat)
+    pos5 = torch.stack(pos5, 1).contiguous()
+    quat5 = torch.stack(quat5, 1).contiguous()
+    depth5 = raycast.render_depth_auto(st.world, pos5, quat5, cam,
+                                       row_stride=rs)
+    want = raycast.render_depth(st.world, pos5, quat5, cam, row_stride=rs)
+    d4 = (depth5 - want).abs()
+    frac = float((d4 > 1e-3).float().mean())
+    say(f"(x) render_depth at the marathon's row stride {rs}, {n} x "
+        f"{fuse - 1} poses of the vision neo cell: shape "
+        f"{tuple(depth5.shape)}, {float((want < cam.max_range).float().mean()):.3f}"
+        f" of the pixels hit within range, {frac:.2e} off by > 1e-3 m (tol "
+        f"1e-3), max abs {float(d4.max()):.3g}")
+    if frac > 1e-3:
+        raise AssertionError("render_depth at the marathon's row stride "
+                             "disagrees with its plain version")
+    lo = st.logodds.contiguous()
+    tabs, sc5, hit = fusion._multi_inputs(depth5, pos5, quat5, cam, mapp, rs)
+    fused = torch.empty_like(lo)
+    fusion.launch_fuse_multi(lo, tabs, sc5, hit, fused, cam, mapp)
+    want = fusion._fuse_multi_plain(lo, tabs, sc5, hit, cam, mapp)
+    d8 = (fused - want).abs()
+    off = d8 > 0
+    n_upd = int((want != lo).sum())
+    quanta = torch.tensor([occupancy._l(mapp.prob_miss),
+                           occupancy._l(mapp.prob_hit)]).abs()
+    q = float((d8[off].cpu()[:, None] - quanta[None]).abs().amin(1).max()) \
+        if off.any() else 0.0
+    say(f"(x) fuse_depth_multi at the marathon's row stride {rs}, {fuse - 1}"
+        f" frames onto the {n} grids of the vision neo cell "
+        f"({tuple(lo.shape)}): {int(off.sum())} of {n_upd} updated cells "
+        f"differ (tol 1e-4 of them, each by one quantum; {q:.2g} from one)")
+    if n_upd == 0 or q > 1e-5 or int(off.sum()) > 1e-4 * n_upd:
+        raise AssertionError("fuse_depth_multi at the marathon's row stride "
+                             "disagrees with its plain version")
+
+    # ---- (c) B1 and B6 over every lane of the marathon's bank, from the
+    # final states of the scene and the vision expert cells: the replan's
+    # head and local target as env._replan draws them
+    for mode, label in (("scene", "lbfgs_scene_solve"),
+                        ("vision", "lbfgs_grid_solve")):
+        st = out["states"][mode, "expert"]
+        grid = st.emap is not None
+        pmap = st.emap if grid else st.scene
+        draws = env.draw(_cuda.make_generator(60, dev), n, pp)
+        ahead = st.buffer[:, spr]
+        target, _ = missions.set_local_target(
+            pmap, ahead[:, 0], st.goal, draws.target_noise, st.fail_count,
+            mp, pp)
+        head = expert.pad_boundary_state(ahead[:, :2], pp)
+        tail = expert.pad_boundary_state(target, pp)
+        seeds = expert.seed_bank(head[:, 0], tail[:, 0], draws.bank_noise, pp)
+        lanes = seeds.shape[1]
+        P = n * lanes
+        ts0 = expert.init_ts(pp, dev).expand(P, -1)
+        x0 = costs.pack(seeds.reshape((P,) + seeds.shape[2:]),
+                        minco.T_to_tau(ts0, pp.t_min, pp.t_max),
+                        pp).contiguous()
+        env_of = torch.arange(n, device=dev).repeat_interleave(lanes)
+        head_p = head.repeat_interleave(lanes, 0).contiguous()
+        tail_p = tail.repeat_interleave(lanes, 0).contiguous()
+        if grid:
+            smap = expert.make_plan_window(pmap, head, tail, pp)
+            smap_c = type(smap)(smap.win.cpu(), smap.worg.cpu())
+            fused_solve = solve.solve_grid
+            cost_pp = dataclasses.replace(pp, esdf_interp="nearest")
+            pmap_c = _emap_cpu(pmap)
+        else:
+            smap = pmap
+            smap_c = pmap_c = scene.SceneMap(*(getattr(pmap, f).cpu() for f
+                                               in ("centers", "half",
+                                                   "is_cyl", "active")))
+            fused_solve = solve.solve_scene
+            cost_pp = pp
+        args = (x0, head_p, tail_p, smap, env_of)
+        k1 = fused_solve(*args, pp1)
+        w1 = solve._solve_plain(*args, pp1)
+        e1, n_flip = parity.one_iteration(*args, pp1, k1, w1)
+        k32 = fused_solve(*args, pp)
+        w32 = solve._solve_plain(*args, pp)
+
+        def cpu(p, smap_c=smap_c, x0=x0, head_p=head_p, tail_p=tail_p,
+                env_of=env_of):
+            return solve._solve_plain(x0.cpu(), head_p.cpu(), tail_p.cpu(),
+                                      smap_c, env_of.cpu(), p)[1]
+        name = f"{label} on the marathon's {mode} bank"
+        say(f"(x) {name}: {n} envs x {lanes} lanes = {P} problems "
+            f"({pp.samples_per_piece} samples, max_ls {pp.max_ls}, laterals "
+            f"{pp.extra_lateral_scales}{', bf16 lite map' if grid else ''}); "
+            f"one iteration max rel f {e1:.3g} (tol 1e-3) outside {n_flip} "
+            f"problems held by parity.one_iteration's rule (tol 1 in 16)")
+        # the control: the plain solver on the CPU on every problem. Where
+        # a lane starts deep in an obstacle (the wide laterals, the
+        # retries), two f32 solvers part within 32 iterations on a few
+        # problems whose f is in the thousands, and those carry the mean f:
+        # the median and the mean are held to twice the control's gaps,
+        # and to no less than basin()'s defaults (1e-4, 1e-2)
+        t_c = time.perf_counter()
+        c32 = cpu(pp)
+        t_c = time.perf_counter() - t_c
+        med_tol = control_tol(f"(x) {name}", w32[1], c32)
+        mean_c = abs(float(c32.mean()) / float(w32[1].cpu().mean()) - 1.0)
+        say(f"(x) {name}: the control on the CPU {t_c:.1f} s; mean f "
+            f"tolerance max(1e-2, 2 x {mean_c:.2e})")
+        rows = pmap.index(env_of)
+        basin(f"(x) {name}", accepted(k32[0], head_p, tail_p, rows, cost_pp),
+              accepted(w32[0], head_p, tail_p, rows, cost_pp), k32[1],
+              w32[1], k32[2], rel(w1[1].cpu(), cpu(pp1)),
+              rel(w32[1].cpu(), c32), P, med_tol, max(1e-2, 2.0 * mean_c),
+              n_iters=pp.max_iters)
+        # the lazy bank: the 3 primaries, then the 4-lane launch of the
+        # laterals and retries for every env whose primaries all failed; on
+        # problems from rest to rest 6 m along x across the obstacle nearest
+        # each drone that the planning map holds, so that the primaries
+        # fail on most envs
+        noise = draws.bank_noise
+        mid = _obstacle_near(st, pmap)
+        h_o, t_o = torch.zeros_like(head), torch.zeros_like(tail)
+        h_o[:, 0] = mid - torch.tensor([3.0, 0.0], device=dev)
+        t_o[:, 0] = mid + torch.tensor([3.0, 0.0], device=dev)
+        tg = expert.plan(pmap, h_o, t_o, noise, pp1)
+        tc = expert.plan(pmap_c, h_o.cpu(), t_o.cpu(), noise.cpu(), pp1)
+        retried = (tg.iters.cpu() > pp.batch_num, tc.iters > pp.batch_num)
+        agree = float((tg.ok.cpu() == tc.ok).float().mean())
+        wts = costs.weights(pp, "cpu")
+        rel_b = rel(tg.costs.cpu() @ wts, tc.costs @ wts)
+        say(f"(x) {name}, the lazy bank (expert.plan) across obstacles at "
+            f"one iteration: "
+            f"{int(retried[0].sum())} envs retried on the card, "
+            f"{int(retried[1].sum())} on the CPU, the same envs "
+            f"{bool(torch.equal(*retried))}; ok {int(tg.ok.sum())} card, "
+            f"{int(tc.ok.sum())} CPU, agree {agree:.3f} (tol 0.95); weighted "
+            f"cost rel diff median {np.median(rel_b):.2e} (tol 1e-4) "
+            f"max {rel_b.max():.2e}")
+        # the scene's boxes fail the primaries of some envs for sure; a
+        # sensed map may hold only faces thin enough to pass at one
+        # iteration, so there the retries are printed, not required
+        if (not grid and int(retried[0].sum()) == 0) or agree < 0.95 \
+                or np.median(rel_b) > 1e-4:
+            raise AssertionError(f"the marathon's {mode} lazy bank on the "
+                                 f"card disagrees with the CPU")
+
+    # ---- (d) the vetted goals: the ring search on the card against the
+    # CPU, GOAL_DRAWS draws of B goals on the marathon's worlds, both flaps
+    sc_g = out["states"]["scene", "expert"].scene
+    sc_c = scene.SceneMap(*(getattr(sc_g, f).cpu() for f in
+                            ("centers", "half", "is_cyl", "active")))
+    g = np.random.default_rng(61)
+    n_moved = n_diff = n_near = 0
+    worst = 0.0
+    for k in range(GOAL_DRAWS):
+        u = torch.from_numpy(g.uniform(size=n)).float()
+        flap = torch.full((n,), k % 2, dtype=torch.int32)
+        gg, fg = missions.sample_clear_goal(u.to(dev), flap.to(dev), sc_g,
+                                            mp.goal_clear_dis)
+        gc, fc = missions.sample_clear_goal(u, flap, sc_c, mp.goal_clear_dis)
+        raw, _ = missions.sample_random_goal(u, flap)
+        gg = gg.cpu()
+        # the ring's offsets take cos and sin, which differ by an ulp on
+        # the card: the same pick lands within ~5e-7 m, another pick at
+        # least 0.38 m away (the ring's 0.5 m steps, 8 directions)
+        gap = (gg - gc).abs().amax(1)
+        bad = (gap > 1e-5) | (fg.cpu() != fc)
+        worst = max(worst, float(gap[~bad].max()) if (~bad).any() else 0.0)
+        n_moved += int((gc != raw).any(1).sum())
+        n_diff += int(bad.sum())
+        if bad.any():
+            # roundoff may tip a candidate's clearance test only where its
+            # distance lies at the threshold: the pick of one side then
+            d = query.distance(sc_c.index(torch.nonzero(bad)[:, 0]),
+                               torch.stack([gg[bad], gc[bad]], 1))
+            n_near += int(((d - mp.goal_clear_dis).abs() < 1e-5).any(1)
+                          .sum())
+    say(f"(x) vetted goals (missions.sample_clear_goal, clearance "
+        f"{mp.goal_clear_dis:g} m) on the marathon's {n} worlds, "
+        f"{GOAL_DRAWS} draws: {n_moved} of {GOAL_DRAWS * n} moved by the "
+        f"ring search; {n_diff} picks differ from the CPU's (goals apart by "
+        f"> 1e-5 m; 0 expected, allowed only where a pick lies within 1e-5 "
+        f"m of the threshold: {n_near}); the same picks within "
+        f"{worst:.3g} m")
+    if n_moved == 0 or n_diff != n_near:
+        raise AssertionError("the vetted goals on the card differ from the "
+                             "CPU")
+
+    # ---- (e) three cells card vs CPU: B = 16, two segments from the same
+    # worlds, goals and draws, and their one-iteration twins
+    for mode, planner in MARATHON_TWINS:
+        sensing, fuse, mapp_c, plan_map = marathon.cell_settings(mode,
+                                                                 planner)
+        small_loop(f"(x) marathon {mode}/{planner}", MARATHON_TWIN_ENVS, 62,
+                   lambda g_, k: scenegen.generate_batch(g_, k, wp), mapp_c,
+                   dict(sensing=sensing, plan_map=plan_map), pp_=pp,
+                   twin=True, cam_=cam, nets=nets, mp_=mp,
+                   fuse_frames=fuse, planner=planner, mission_mode="random")
+
+
+def _entry_phases(dev, launch_totals, tmp, small_loop, basin, accepted,
+                  control_tol):
+    import torch
+    from neoplanner_tpu_torch import _cuda
+    from neoplanner_tpu_torch.config import CameraParams
+    from neoplanner_tpu_torch.plan import costs, expert, geo, latency, parity
+    from neoplanner_tpu_torch.sim import demo, env, marathon, sweep
+
+    # ---- (a) the marathon: ten cells, one set of worlds and resets
+    t0 = time.perf_counter()
+    out, _ = _quiet(marathon.main, [
+        "--envs", str(MARATHON_ENVS), "--segments", str(MARATHON_SEGMENTS)])
+    for r in out["rows"]:
+        cell = (r["mode"], r["planner"])
+        need, absent = MARATHON_PATHS[cell]
+        la = r["launches"]
+        say(f"(x) marathon {r['mode']}/{r['planner']} B={MARATHON_ENVS}, "
+            f"{MARATHON_SEGMENTS} segments: missions {r['missions']}, ok "
+            f"{r['ok']} ({r['ok_pct']}%), avg weighted metric "
+            f"{r['avg_weighted_metric']}, iterations a plan "
+            f"{r['avg_iters_per_plan']}, plans {r['plans']}; "
+            f"{r['ms_segment']:.1f} ms/segment; launches (reset and "
+            f"segments) " + ", ".join(f"{k} {v}" for k, v in la.items()))
+        if r["plans"] <= 0:
+            raise AssertionError(f"the marathon cell {cell} planned nothing")
+        for k in need:
+            if la.get(k, 0) <= 0:
+                raise AssertionError(f"the marathon cell {cell} never "
+                                     f"launched {k}")
+        for k in absent:
+            if la.get(k, 0):
+                raise AssertionError(f"the marathon cell {cell} launched {k}")
+        for k, v in la.items():
+            launch_totals[k] += v
+        first = out["starts"][r["mode"], out["rows"][0]["planner"]]
+        start = out["starts"][cell]
+        if not all(torch.equal(start[k], first[k])
+                   for k in ("goal", "pos", "generator")):
+            raise AssertionError(f"the marathon cell {cell} starts from "
+                                 f"another reset than its mode's first")
+        st = out["states"][cell]
+        if not all(bool(torch.isfinite(t).all()) for t in (
+                st.drone.pos, st.drone.vel, st.buffer, st.metrics)):
+            raise AssertionError(f"the marathon cell {cell} produced "
+                                 f"non-finite state")
+    say(f"(x) marathon's ten cells {time.perf_counter() - t0:.1f} s, every "
+        f"cell of a mode from the same reset (goals, positions, generator)")
+    # where a marathon segment's time goes: one more segment of two cells
+    pp, mp, sp, _ = marathon.params()
+    net, np_cfg = sweep.load_net(marathon.DEFAULT_NET, dev)
+    cam = CameraParams(width=np_cfg.img_width, height=np_cfg.img_height)
+    for mode, planner in (("scene", "neo"), ("vision", "geo")):
+        fuse = marathon.cell_settings(mode, planner)[1]
+        st = out["states"][mode, planner]
+        say("(x) " + _busy_line(
+            f"marathon {mode}/{planner} segment B={MARATHON_ENVS}",
+            *_device_busy(torch, lambda: env.step_segment(
+                st, pp, mp, sp, cam, net, fuse_frames=fuse, planner=planner),
+                tmp)))
+
+    # ---- (b)-(e) the marathon's kernels at its shapes, its vetted goals,
+    # three of its cells card vs CPU
+    t0 = time.perf_counter()
+    _marathon_checks(dev, out, (net, sweep.load_net(marathon.DEFAULT_NET,
+                                                    "cpu")[0]),
+                     cam, small_loop, basin, accepted, control_tol)
+    say(f"(x) the marathon's checks {time.perf_counter() - t0:.1f} s")
+
+    # ---- (f) the geo front end on the vision geo cell's sensed lite map,
+    # B = 8, card vs CPU
+    st = out["states"]["vision", "geo"]
+    n8 = 8
+    emap8 = st.emap.index(torch.arange(n8, device=dev))
+    emap8_c = _emap_cpu(emap8)
+    head = torch.zeros((n8, 3, 2), device=dev)
+    tail = torch.zeros((n8, 3, 2), device=dev)
+    head[:, 0] = st.drone.pos[:n8, :2]
+    tail[:, 0] = head[:, 0] + torch.tensor([5.0, 0.0], device=dev)
+    fe_g = geo.front_end(emap8, head, tail, pp.safe_dis)
+    fe_c = geo.front_end(emap8_c, head.cpu(), tail.cpu(), pp.safe_dis)
+    same = [bool(torch.equal(a.cpu(), b)) for a, b in zip(fe_g, fe_c)]
+    say(f"(x) geo front end on the marathon's vision state (lite "
+        f"{st.emap.esdf.dtype} map after {MARATHON_SEGMENTS} segments), "
+        f"B={n8}, targets 5 m ahead, card vs CPU: field, descent points, "
+        f"ends, key indices equal {same} (exact expected)")
+    if not all(same):
+        raise AssertionError("the geo front end on the sensed map differs "
+                             "on the card from the CPU")
+
+    # ---- (g) the B = 1 replan latency, both profiles; the plans at one
+    # iteration card vs CPU by the one-iteration rule, at the profile's
+    # iterations printed
+    for profile in sorted(latency.PROFILES):
+        res, lines = _quiet(latency.main, ["--profile", profile,
+                                           "--reps", "50"])
+        for line in lines:
+            say(f"(x) {line}")
+        pp_l, _, w1, sc, em, head, tail, noise = latency.problem(profile,
+                                                                 dev)
+        cpu = latency.problem(profile, "cpu", world=type(w1)(*(
+            getattr(w1, f)[0].cpu() for f in ("centers", "half_sizes",
+                                              "active", "shape"))),
+            noise=noise.cpu())
+        for name, pmap, pmap_c in (("scene", sc, cpu[3]),
+                                   ("grid", em, cpu[4])):
+            la = res[name]["launches"]
+            for k in LATENCY_PATHS[name]:
+                if la.get(k, 0) <= 0:
+                    raise AssertionError(f"the {name} latency never "
+                                         f"launched {k}")
+                launch_totals[k] += la[k]
+            pp1 = dataclasses.replace(pp_l, max_iters=1)
+            g1 = expert.plan(pmap, head, tail, noise, pp1)
+            c1 = expert.plan(pmap_c, cpu[5], cpu[6], cpu[7], pp1)
+            f1 = [float(t.costs[0].cpu() @ costs.weights(pp_l))
+                  for t in (g1, c1)]
+            gap1 = float(parity.rel(torch.tensor(f1[0]), torch.tensor(f1[1])))
+            g = res[name]["plan"]
+            c = expert.plan(pmap_c, cpu[5], cpu[6], cpu[7], pp_l)
+            f = [float(t.costs[0].cpu() @ costs.weights(pp_l))
+                 for t in (g, c)]
+            say(f"(x) latency {name} ({profile}) p50 {res[name]['p50']:.3f} "
+                f"ms, p90 {res[name]['p90']:.3f} ms over 50 reps; launches "
+                f"(warm-up and reps) " + ", ".join(
+                    f"{k} {v}" for k, v in la.items())
+                + f"; one iteration card vs CPU: ok {bool(g1.ok[0])}/"
+                f"{bool(c1.ok[0])}, weighted cost rel {gap1:.3g} (tol 1e-3);"
+                f" {pp_l.max_iters} iterations (printed, not held): ok "
+                f"{bool(g.ok[0])}/{bool(c.ok[0])}, weighted cost "
+                f"{f[0]:.6g}/{f[1]:.6g}, iterations {int(g.iters[0])}/"
+                f"{int(c.iters[0])}")
+            if bool(g1.ok[0]) != bool(c1.ok[0]) or gap1 > 1e-3:
+                raise AssertionError(f"the {name} latency plan at one "
+                                     f"iteration disagrees with the CPU")
+            say("(x) " + _busy_line(
+                f"latency {name} ({profile}) plan B=1", *_device_busy(
+                    torch, lambda pmap=pmap: expert.plan(
+                        pmap, head, tail, noise, pp_l), tmp)))
+        em_la = res["esdf_launches"]
+        if em_la.get("edt_exact", 0) <= 0:
+            raise AssertionError("the latency's exact ESDF never launched "
+                                 "edt_exact")
+        launch_totals["edt_exact"] += em_la["edt_exact"]
+
+    # ---- (h) two demo missions to (25, 0)
+    for flags, need in DEMO_RUNS:
+        before = dict(_cuda.launches)
+        t0 = time.perf_counter()
+        res, lines = _quiet(demo.main, flags)
+        la = _cuda.launches_since(before)
+        say(f"(x) demo {' '.join(flags)}: {lines[0]} ({res['segments']} "
+            f"segments, {time.perf_counter() - t0:.1f} s with the setup); "
+            f"launches " + ", ".join(f"{k} {v}" for k, v in la.items()))
+        st = res["state"]
+        if int(st.plan_count[0]) <= 0 or not bool(
+                torch.isfinite(st.drone.pos).all()):
+            raise AssertionError(f"the demo {flags} did not plan")
+        for k in need:
+            if la.get(k, 0) <= 0:
+                raise AssertionError(f"the demo {flags} never launched {k}")
+        for k, v in la.items():
+            launch_totals[k] += v
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None, help="another checkout whose "
@@ -1822,8 +2363,8 @@ def main(argv=None) -> int:
         return int((new & (cells >= 0)).sum())
 
     def basin(name, ok_k, ok_p, f_k, f_p, iters, f1_ctrl, f_ctrl, n_c,
-              med_tol=1e-4, mean_tol=1e-2):
-        """Hold a 24-iteration solve to its plain version's cost basin:
+              med_tol=1e-4, mean_tol=1e-2, n_iters=24):
+        """Hold an n_iters-iteration solve to its plain version's cost basin:
         acceptance flags agree on >= 95% of problems, the median relative f
         difference is <= med_tol and the mean f agrees to mean_tol (None:
         printed, not held), the median f to 1%, and among the problems
@@ -1831,7 +2372,7 @@ def main(argv=None) -> int:
         version's on at least 40% (when there are 20 such: a solver that
         is worse shows in the sign); print the plain GPU-vs-CPU control
         beside it (f1_ctrl and f_ctrl, the relative f differences of its
-        first n_c problems at 1 and 24 iterations). At M = 3 the
+        first n_c problems at 1 and n_iters iterations). At M = 3 the
         tolerances are 1e-4 and 1e-2. Past M = 3 two f32 solvers part
         within 24 iterations on many problems, the plain solver on the
         card and on the CPU too: the median is held to twice the
@@ -1847,7 +2388,7 @@ def main(argv=None) -> int:
         parted = rel_f > 1e-4
         lower = float((f_k < f_p).cpu().numpy()[parted].mean()) \
             if parted.any() else 1.0
-        say(f"{name} 24 iters: accepted {int(ok_k.sum())}/{n} kernel, "
+        say(f"{name} {n_iters} iters: accepted {int(ok_k.sum())}/{n} kernel, "
             f"{int(ok_p.sum())}/{n} plain, flags agree {agree:.3f} (tol "
             f"0.95); f rel diff median {np.median(rel_f):.2e} (tol "
             f"{med_tol:.2e}) p99 {np.percentile(rel_f, 99):.2e} max "
@@ -1865,7 +2406,7 @@ def main(argv=None) -> int:
             + f"; their share of the summed difference "
             f"{float(gap[top].sum() / gap.sum().clamp(min=1e-30)):.3f}")
         say(f"{name} plain GPU vs CPU ({n_c} problems): f rel diff max "
-            f"{f1_ctrl.max():.2e} at 1 iter; at 24 iters median "
+            f"{f1_ctrl.max():.2e} at 1 iter; at {n_iters} iters median "
             f"{np.median(f_ctrl):.2e} p99 {np.percentile(f_ctrl, 99):.2e}"
             f" max {f_ctrl.max():.2e}")
         if agree < 0.95 or np.median(rel_f) > med_tol \
@@ -2612,7 +3153,7 @@ def main(argv=None) -> int:
     net_cpu = planner_net.load(onnx, npc, "cpu")
 
     def twin_loops(n, seed, gen_world, map_params, path, pp_, seg_kw, cam_,
-                   nets=None, first=None):
+                   nets=None, first=None, mp_=mp):
         """n envs, 2 segments, on the card and on the CPU from the same
         worlds, goals and draws; returns (CPU state, card state, segment 1
         planned count, segment 1 plan-flag agreement, per env whether the
@@ -2622,8 +3163,8 @@ def main(argv=None) -> int:
         w_c = gen_world(gen_c, n)
         w_g = type(w_c)(*(getattr(w_c, f).to(dev) for f in
                           ("centers", "half_sizes", "active", "shape")))
-        s_c = env.reset(w_c, pp_, mp, map_params, gen_c, **path)
-        s_g = env.reset(w_g, pp_, mp, map_params, _cuda.make_generator(seed),
+        s_c = env.reset(w_c, pp_, mp_, map_params, gen_c, **path)
+        s_g = env.reset(w_g, pp_, mp_, map_params, _cuda.make_generator(seed),
                         goal=s_c.goal.to(dev), **path)
         s_g = s_g.replace(flap=s_c.flap.to(dev))
         for seg in range(2):
@@ -2631,10 +3172,10 @@ def main(argv=None) -> int:
             d_g = env.Draws(*(x.to(dev) for x in (d_c.target_noise,
                                                   d_c.bank_noise,
                                                   d_c.goal_u)))
-            s_c, i_c = env.step_segment(s_c, pp_, mp, sp, cam_,
+            s_c, i_c = env.step_segment(s_c, pp_, mp_, sp, cam_,
                                         (nets or (net, net_cpu))[1],
                                         draws=d_c, **seg_kw)
-            s_g, i_g = env.step_segment(s_g, pp_, mp, sp, cam_,
+            s_g, i_g = env.step_segment(s_g, pp_, mp_, sp, cam_,
                                         (nets or (net, net_cpu))[0],
                                         draws=d_g, **seg_kw)
             agree = (i_g.ok.cpu() == i_c.ok) & (agree if seg else True)
@@ -2646,7 +3187,7 @@ def main(argv=None) -> int:
         return s_c, s_g, n_plan, flags, agree
 
     def small_loop(name, n, seed, gen_world, map_params, path, pp_=pp,
-                   twin=False, cam_=cam, path_kernels=(), nets=None,
+                   twin=False, cam_=cam, path_kernels=(), nets=None, mp_=mp,
                    **seg_kw):
         """Segment 1 plans every env while the drones hover on the reset
         buffer; segment 2 flies those plans. Gate: the plan flags of
@@ -2654,12 +3195,13 @@ def main(argv=None) -> int:
         position after segment 2 is within 1e-3 m of the CPU loop's. With
         twin, the same loop at one solver iteration is also held
         elementwise: drone states, setpoint buffers and metrics within 1e-3
-        on the envs whose plan flags agree, and the log-odds grids within
-        one update quantum on at most 1e-4 of the updated cells."""
+        on the envs whose plan flags agree, and the log-odds grids (the
+        vision path's) within one update quantum on at most 1e-4 of the
+        updated cells."""
         _cuda.reset_launches()
         s_c, s_g, n_plan, flags, _ = twin_loops(n, seed, gen_world,
                                                 map_params, path, pp_, seg_kw,
-                                                cam_, nets)
+                                                cam_, nets, mp_=mp_)
         counts = dict(_cuda.launches)
         diff = (s_g.drone.pos.cpu() - s_c.drone.pos).abs().amax(1)
         say(f"small {name} loop B={n}: segment 1 planned {n_plan}, plan flags "
@@ -2683,7 +3225,8 @@ def main(argv=None) -> int:
             return
         s_c, s_g, _, flags1, same = twin_loops(
             n, seed, gen_world, map_params, path,
-            dataclasses.replace(pp_, max_iters=1), seg_kw, cam_, nets)
+            dataclasses.replace(pp_, max_iters=1), seg_kw, cam_, nets,
+            mp_=mp_)
         if int(same.sum()) < 0.9 * n:
             raise AssertionError(f"the {name} one-iteration twin's plan "
                                  f"flags agree on {int(same.sum())} of {n}")
@@ -2694,11 +3237,13 @@ def main(argv=None) -> int:
                                     - getattr(s_c.drone, k)).abs().amax(1)
                                    [same].max())
                              for k in ("pos", "vel", "quat")))
-        d_lo = (s_g.logodds.cpu() - s_c.logodds).abs()
+        lo_c = s_c.logodds if s_c.logodds is not None else torch.zeros(1)
+        lo_g = s_g.logodds if s_g.logodds is not None else torch.zeros(1)
+        d_lo = (lo_g.cpu() - lo_c).abs()
         off = d_lo > 0
         quantum = float((d_lo[off][:, None] - l_quanta.abs()[None]).abs()
                         .amin(1).max()) if off.any() else 0.0
-        n_upd = int((s_c.logodds != 0).sum())
+        n_upd = int((lo_c != 0).sum())
         say(f"small {name} twin (1 iteration): plan flags agree {flags1:.3f}"
             f" (tol 0.9); state, buffer, metrics max diff {worst:.3g} (tol "
             f"1e-3); log-odds {int(off.sum())} of {n_upd} updated cells "
@@ -3786,6 +4331,11 @@ def main(argv=None) -> int:
         # ================= checkpoints written as orbax ==================
         with tempfile.TemporaryDirectory() as tmp:
             write_phases(dev, card, mp, sp, mapp, cam, small, tmp)
+
+    # ================= the user entry points: marathon, latency, demo ====
+    with tempfile.TemporaryDirectory() as tmp:
+        entry_phases(dev, card, launch_totals, tmp, small_loop, basin,
+                     accepted, control_tol)
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
 

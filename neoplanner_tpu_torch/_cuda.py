@@ -132,6 +132,19 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def launches_since(before: dict) -> dict:
+    """Each kernel's launches since before (a copy of launches), for the
+    kernels launched only."""
+    return {k: v - before[k] for k, v in launches.items() if v != before[k]}
+
+
+def synchronize(device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the
+    CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

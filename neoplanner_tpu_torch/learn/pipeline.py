@@ -60,11 +60,6 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-
-
 def main(argv=None) -> dict:
     """Run the pipeline; returns what it measured and made: samples,
     record_s (datagen seconds, frames to the host included), pull_s (each
@@ -94,7 +89,7 @@ def main(argv=None) -> dict:
     state = env.reset(worlds, pp, mp, mapp, gen)
     before = dict(_cuda.launches)
     D, M, L, pull_s = [], [], [], []
-    _sync(dev)
+    _cuda.synchronize(dev)
     t0 = time.perf_counter()
     for p in range(args.pulls):
         t_pull = time.perf_counter()
@@ -119,10 +114,10 @@ def main(argv=None) -> dict:
                             train_split=0.9, seed=0)
     n_tr = int(cfg.train_split * len(D))
     steps_per_epoch = max(n_tr // cfg.batch_size, 1)
-    _sync(dev)
+    _cuda.synchronize(dev)
     t0 = time.perf_counter()
     net, history = train.train(D, M, L, netp, cfg, log_every=1, device=dev)
-    _sync(dev)
+    _cuda.synchronize(dev)
     train_s = time.perf_counter() - t0
 
     # ---- checkpoint and export

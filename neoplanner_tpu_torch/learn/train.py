@@ -33,7 +33,7 @@ from neoplanner_tpu_torch import _cuda
 from neoplanner_tpu_torch.config import NetParams
 from neoplanner_tpu_torch.io import orbax
 from neoplanner_tpu_torch.learn import weights
-from neoplanner_tpu_torch.models.planner_net import PlannerNet
+from neoplanner_tpu_torch.models.planner_net import PlannerNet, ieee_f32
 
 # flax's lecun_normal: a standard normal truncated to [-2, 2], scaled so
 # that the truncated distribution has variance 1 / fan_in
@@ -106,10 +106,12 @@ def train_step(net: PlannerNet, opt: torch.optim.Optimizer,
                label: torch.Tensor) -> torch.Tensor:
     """One Adam step on a batch (img (b, h, w, 1)); returns its loss. The
     caller sets the net's mode: in train() a ResNet's BatchNorm normalizes
-    by the batch's statistics and moves its running stats."""
+    by the batch's statistics and moves its running stats. The backward
+    pass runs in IEEE f32 as the forward does (:func:`ieee_f32`)."""
     opt.zero_grad(set_to_none=True)
     loss = ((net(img, motion) - label) ** 2).mean()
-    loss.backward()
+    with ieee_f32():
+        loss.backward()
     opt.step()
     return loss.detach()
 

@@ -14,9 +14,16 @@ both backbones (NetParams.backbone: 'resnet18', the reference's, or
 
 The ResNet's BatchNorm follows the module's mode: eval() (the JAX package's
 train=False) normalizes by the running stats, train() by the batch's.
+
+On the card the net computes in IEEE f32 whoever calls it: its forward
+pass (and learn/train's backward pass) run under :func:`ieee_f32`, which
+turns TF32 off for cuDNN's convolutions and for matrix products and puts
+the caller's settings back afterwards.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +34,21 @@ from neoplanner_tpu_torch.models.resnet import ResNet18, SmallConvEncoder
 
 BACKBONES = ("resnet18", "smallconv")
 FUSIONS = ("mlp", "conv1d")
+
+
+@contextlib.contextmanager
+def ieee_f32():
+    """TF32 off for cuDNN's convolutions and for matrix products inside;
+    the caller's torch.backends settings restored on the way out."""
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
 class Conv1dStack(nn.Module):
@@ -87,10 +109,11 @@ class PlannerNet(nn.Module):
 
     def forward(self, img: torch.Tensor, motion: torch.Tensor) -> torch.Tensor:
         """img (B, H, W, 1) in [0, 255] (NHWC, as the JAX net); motion (B, 24).
-        -> (B, 9)."""
-        feat = self.img_backbone(img.permute(0, 3, 1, 2))
-        x = self.motion_backbone(motion)
-        return self.mlp(torch.cat([feat, x], dim=-1))
+        -> (B, 9), in IEEE f32 (:func:`ieee_f32`)."""
+        with ieee_f32():
+            feat = self.img_backbone(img.permute(0, 3, 1, 2))
+            x = self.motion_backbone(motion)
+            return self.mlp(torch.cat([feat, x], dim=-1))
 
     def forward_flat(self, flat: torch.Tensor) -> torch.Tensor:
         """The ONNX I/O contract (apply_flat, planner_net.py:108): flat

@@ -143,11 +143,6 @@ def load_net(path: str, device):
     return planner_net.load(path, np_cfg, device), np_cfg
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-
-
 def main(argv=None) -> dict:
     """Run the sweep; returns records (the MissionRecords), analysis
     (metrics.analyze's table) and cells, one dict per (world, planner):
@@ -196,10 +191,10 @@ def main(argv=None) -> dict:
             roll(start())
             state = start()
             before = dict(_cuda.launches)
-            _sync(dev)
+            _cuda.synchronize(dev)
             t0 = time.perf_counter()
             out = roll(state)
-            _sync(dev)
+            _cuda.synchronize(dev)
             wall = time.perf_counter() - t0
             launches = {k: v - before[k] for k, v in _cuda.launches.items()}
             plans = int(out.plan_count.sum())
