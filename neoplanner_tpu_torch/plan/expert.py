@@ -46,6 +46,7 @@ from neoplanner_tpu_torch.core.types import ESDFMap, Trajectory
 from neoplanner_tpu_torch.mapping import esdf as esdf_map
 from neoplanner_tpu_torch.ops import lbfgs, minco
 from neoplanner_tpu_torch.plan import costs, solve
+from neoplanner_tpu_torch.utils import profiling
 
 
 def init_ts(pp: PlannerParams, device=None) -> torch.Tensor:
@@ -126,38 +127,42 @@ def solve_one(pmap, head: torch.Tensor, tail: torch.Tensor,
     cost is within collision_cost_tol. pmap is the scene map or, with its
     per-env ``window`` (make_plan_window), the sensed grid. A skipped
     problem returns its seed unsolved with iters 0. ``solver`` is 'fused'
-    or 'per_eval' (see the module docstring)."""
-    x0 = costs.pack(int_wpts0, minco.T_to_tau(ts0, pp.t_min, pp.t_max), pp)
-    grid = isinstance(pmap, ESDFMap)
-    cost_pp = pp
+    or 'per_eval' (see the module docstring). The spans 'solve' and
+    'accept' hold the two parts."""
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; the port runs "
                          f"{SOLVERS}")
-    rows = pmap.index(env_of)
+    grid = isinstance(pmap, ESDFMap)
     absolute = pp.sampling == "absolute"
-    if absolute:
-        res = lbfgs.minimize(
-            lambda x: costs.objective(x, head, tail, rows, pp), x0,
-            max_iters=pp.max_iters, history=pp.history, max_ls=pp.max_ls,
-            ftol=1e-10, gtol=1e-8, skip=skip)
-        x, iters = res.x, res.iters
-    elif solver == "per_eval":
-        x, _, iters = solve.solve_per_eval(x0, head, tail,
-                                           window if grid else pmap, env_of,
+    with profiling.span("solve"):
+        x0 = costs.pack(int_wpts0, minco.T_to_tau(ts0, pp.t_min, pp.t_max),
+                        pp)
+        rows = pmap.index(env_of)
+        if absolute:
+            res = lbfgs.minimize(
+                lambda x: costs.objective(x, head, tail, rows, pp), x0,
+                max_iters=pp.max_iters, history=pp.history,
+                max_ls=pp.max_ls, ftol=1e-10, gtol=1e-8, skip=skip)
+            x, iters = res.x, res.iters
+        elif solver == "per_eval":
+            x, _, iters = solve.solve_per_eval(x0, head, tail,
+                                               window if grid else pmap,
+                                               env_of, pp, skip=skip)
+        elif grid:
+            x, _, iters = solve.solve_grid(x0, head, tail, window, env_of,
                                            pp, skip=skip)
-    elif grid:
-        x, _, iters = solve.solve_grid(x0, head, tail, window, env_of, pp,
-                                       skip=skip)
-    else:
-        x, _, iters = solve.solve_scene(x0, head, tail, pmap, env_of, pp,
-                                        skip=skip)
-    if grid and not absolute:
-        cost_pp = dataclasses.replace(pp, esdf_interp="nearest")
-    q, tau = costs.unpack(x, pp)
-    ts = minco.tau_to_T(tau, pp.t_min, pp.t_max)
-    with torch.no_grad():
-        cvec, coeffs = costs.traj_costs(head, tail, q, ts, rows, cost_pp)
-    ok = cvec[:, 3] * pp.w_collision <= pp.collision_cost_tol
+        else:
+            x, _, iters = solve.solve_scene(x0, head, tail, pmap, env_of,
+                                            pp, skip=skip)
+    with profiling.span("accept"):
+        cost_pp = pp
+        if grid and not absolute:
+            cost_pp = dataclasses.replace(pp, esdf_interp="nearest")
+        q, tau = costs.unpack(x, pp)
+        ts = minco.tau_to_T(tau, pp.t_min, pp.t_max)
+        with torch.no_grad():
+            cvec, coeffs = costs.traj_costs(head, tail, q, ts, rows, cost_pp)
+        ok = cvec[:, 3] * pp.w_collision <= pp.collision_cost_tol
     return Trajectory(int_wpts=q, ts=ts, coeffs=coeffs, costs=cvec, ok=ok,
                       iters=iters)
 
@@ -184,14 +189,26 @@ def _fields(traj: Trajectory):
 
 def _lazy_bank(pmap, head, tail, seeds, ts_bank, n_first, skip_of, pp,
                window, solver) -> Trajectory:
-    """The lazy bank: lanes [0, n_first) of every env first, then the
-    others with skip = skip_of(first lanes) per env (two launches that
-    share the grid's windows); fields (B, S, ...)."""
-    first = _solve_lanes(pmap, head, tail, seeds[:, :n_first],
-                         ts_bank[:, :n_first], pp, window, solver)
-    rest = _solve_lanes(pmap, head, tail, seeds[:, n_first:],
-                        ts_bank[:, n_first:], pp, window, solver,
-                        skip=skip_of(first))
+    """The lazy bank: lanes [0, n_first) of every env first (the span
+    'bank.first'), then, where the bank has more, the others with skip =
+    skip_of(first lanes) per env ('bank.rest'; two launches that share
+    the grid's windows); fields (B, S, ...). Counts the envs handed to it
+    ('bank.envs') and those whose other lanes were solved
+    ('bank.retry_envs')."""
+    B, S = seeds.shape[:2]
+    profiling.count("bank.envs", B)
+    with profiling.span("bank.first"):
+        first = _solve_lanes(pmap, head, tail, seeds[:, :n_first],
+                             ts_bank[:, :n_first], pp, window, solver)
+    if S <= n_first:
+        return first
+    with profiling.span("bank.rest"):
+        skip = skip_of(first)
+        if profiling.active() is not None:
+            profiling.count("bank.retry_envs", ~skip)
+        rest = _solve_lanes(pmap, head, tail, seeds[:, n_first:],
+                            ts_bank[:, n_first:], pp, window, solver,
+                            skip=skip)
     return Trajectory(*(torch.cat([a, b], 1) for a, b in
                         zip(_fields(first), _fields(rest))))
 
@@ -233,13 +250,10 @@ def plan(pmap, head: torch.Tensor, tail: torch.Tensor, noise: torch.Tensor,
     seeds = seed_bank(head[:, 0], tail[:, 0], noise, pp)     # (B, S, D, n)
     ts_bank = init_ts(pp, head.device).expand(B, seeds.shape[1], -1)
     window = _plan_window(pmap, head, tail, pp)
-    if seeds.shape[1] > pp.batch_num:
-        bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, pp.batch_num,
-                          lambda prim: prim.ok.any(1), pp, window, solver)
-    else:
-        bank = _solve_lanes(pmap, head, tail, seeds, ts_bank, pp, window,
-                            solver)
-    return _select(bank, pp)
+    bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, pp.batch_num,
+                      lambda prim: prim.ok.any(1), pp, window, solver)
+    with profiling.span("bank.select"):
+        return _select(bank, pp)
 
 
 def plan_with_carry(pmap, head: torch.Tensor, tail: torch.Tensor,
@@ -262,21 +276,18 @@ def plan_with_carry(pmap, head: torch.Tensor, tail: torch.Tensor,
                                      ts_bank[:, 0])[:, None],
                          ts_bank[:, 1:]], 1)
     window = _plan_window(pmap, head, tail, pp)
-    if S > 1:
-        bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, 1,
-                          lambda first: has_carry & first.ok[:, 0], pp,
-                          window, solver)
-    else:
-        bank = _solve_lanes(pmap, head, tail, seeds, ts_bank, pp, window,
-                            solver)
-    sel = _select(bank, pp)
-    use_carry = has_carry & bank.ok[:, 0]
-    picked = Trajectory(*(
-        torch.where(use_carry.reshape((B,) + (1,) * (s.dim() - 1)),
-                    lanes[:, 0], s)
-        for lanes, s in zip(_fields(bank), _fields(sel))))
-    return picked.replace(ok=sel.ok, iters=bank.iters.sum(1,
-                                                          dtype=torch.int32))
+    bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, 1,
+                      lambda first: has_carry & first.ok[:, 0], pp, window,
+                      solver)
+    with profiling.span("bank.select"):
+        sel = _select(bank, pp)
+        use_carry = has_carry & bank.ok[:, 0]
+        picked = Trajectory(*(
+            torch.where(use_carry.reshape((B,) + (1,) * (s.dim() - 1)),
+                        lanes[:, 0], s)
+            for lanes, s in zip(_fields(bank), _fields(sel))))
+        return picked.replace(ok=sel.ok,
+                              iters=bank.iters.sum(1, dtype=torch.int32))
 
 
 def adaptive_num_pieces(start, target, init_seg_len: float = 2.0) -> int:
@@ -332,13 +343,14 @@ def warm_start_plan(pmap, head: torch.Tensor, tail: torch.Tensor,
     ts_bank = torch.cat([ts0[:, None], init_ts(pp, dev).expand(B, R, -1)], 1)
     bank = _lazy_bank(pmap, head, tail, seeds, ts_bank, 1,
                       lambda first: first.ok[:, 0], pp, window, solver)
-    ok, cvec = bank.ok, bank.costs                  # (B, 1+R), (B, 1+R, 4)
-    total = cvec @ costs.weights(pp, dev).to(cvec.dtype)
-    any_ok = ok.any(1)
-    best_ok = torch.argmin(torch.where(ok, total, torch.full_like(
-        total, float("inf"))), dim=1)
-    least_coll = torch.argmin(cvec[..., 3], dim=1)
-    idx = torch.where(ok[:, 0], torch.zeros_like(best_ok),
-                      torch.where(any_ok, best_ok, least_coll))
-    return _pick(bank, idx).replace(
-        ok=any_ok, iters=bank.iters.sum(1, dtype=torch.int32))
+    with profiling.span("bank.select"):
+        ok, cvec = bank.ok, bank.costs              # (B, 1+R), (B, 1+R, 4)
+        total = cvec @ costs.weights(pp, dev).to(cvec.dtype)
+        any_ok = ok.any(1)
+        best_ok = torch.argmin(torch.where(ok, total, torch.full_like(
+            total, float("inf"))), dim=1)
+        least_coll = torch.argmin(cvec[..., 3], dim=1)
+        idx = torch.where(ok[:, 0], torch.zeros_like(best_ok),
+                          torch.where(any_ok, best_ok, least_coll))
+        return _pick(bank, idx).replace(
+            ok=any_ok, iters=bank.iters.sum(1, dtype=torch.int32))

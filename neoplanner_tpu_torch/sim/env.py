@@ -69,6 +69,7 @@ from neoplanner_tpu_torch.ops import edt, minco
 from neoplanner_tpu_torch.plan import expert, geo, neo, nn_init
 from neoplanner_tpu_torch.sense import raycast
 from neoplanner_tpu_torch.sim import dynamics, missions, track
+from neoplanner_tpu_torch.utils import profiling
 from neoplanner_tpu_torch.utils.profiling import stage
 from neoplanner_tpu_torch.world import voxelize
 
@@ -350,9 +351,10 @@ def _replan(state: EnvState, pp, mp, planner: str, solver: str, net,
                                     torch.zeros_like(state.goal)], 1)
         near = torch.ones_like(state.near_goal)
     else:
-        target_state, near = missions.set_local_target(
-            pmap, ahead[:, 0], state.goal, draws.target_noise,
-            state.fail_count, mp, pp)
+        with profiling.span("target"):
+            target_state, near = missions.set_local_target(
+                pmap, ahead[:, 0], state.goal, draws.target_noise,
+                state.fail_count, mp, pp)
     head = expert.pad_boundary_state(ahead[:, :2], pp)
     tail = expert.pad_boundary_state(target_state, pp)
     if planner == "expert":
@@ -384,7 +386,7 @@ def _replan(state: EnvState, pp, mp, planner: str, solver: str, net,
                                  mp.des_pos_z, ahead[:, :2], target_state,
                                  draws.bank_noise, pp, timer=timer,
                                  solver=solver)
-    with stage(timer, "plan"):
+    with stage(timer, "plan"), profiling.span("cmd"):
         new_cmd, _, _ = minco.full_state_cmd(traj.coeffs, traj.ts,
                                              mp.cmd_hz, n_traj_samples(pp, mp))
     return traj, new_cmd, near, ahead[:, :2], target_state
@@ -458,21 +460,39 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
     when esdf_rate is 1; else each after its chunk, with an ESDF rebuild
     every F // esdf_rate chunks. goal_stream (B, C, 2) replaces each env's
     goal at the start of each of C tracking chunks (C = F when both are
-    given). ``timer`` (a utils.profiling.StageTimer) records the render,
-    fuse, esdf, net, plan and track stages, fuse_multi for the batched
-    frames, and geo for the 'geo' planner's front end."""
+    given). ``timer`` (a utils.profiling.StageTimer) records the call as
+    the span 'segment', and in it the render, fuse, esdf, net, plan and
+    track stages, fuse_multi for the batched frames, geo for the 'geo'
+    planner's front end, target (the local target), missions (the ended
+    missions), and inside plan the bank's spans and counters
+    (plan/expert.py) and cmd (the setpoints)."""
     _check_planner(planner, solver, pp)
     if mission_mode not in MISSION_MODES:
         raise ValueError(f"unknown mission_mode: {mission_mode}")
     if replan_mode not in REPLAN_MODES:
         raise ValueError(f"unknown replan_mode: {replan_mode}")
+    if draws is None:
+        draws = draw(state.generator, state.buffer.shape[0], pp)
+    with stage(timer, "segment"):
+        state, info = _plan_and_track(state, pp, mp, sp, cam, net, draws,
+                                      timer, fuse_frames, goal_stream,
+                                      esdf_rate, planner, solver,
+                                      replan_mode)
+        with profiling.span("missions"):
+            state = _end_missions(state, mission_mode, draws, pp, mp)
+    return state, info
+
+
+def _plan_and_track(state: EnvState, pp, mp, sp, cam, net, draws: Draws,
+                    timer, fuse_frames: int, goal_stream, esdf_rate: int,
+                    planner: str, solver: str, replan_mode: str):
+    """step_segment up to the missions' end: sense, (maybe) replan,
+    track; returns (state, SegmentInfo)."""
     grid = state.emap is not None          # the gt+grid or vision path
     sensed = state.logodds is not None     # the vision path
     spr = mp.steps_per_replan
     B, nbuf = state.buffer.shape[:2]
     n_chunks = _chunks(sensed, spr, fuse_frames, goal_stream, esdf_rate)
-    if draws is None:
-        draws = draw(state.generator, B, pp)
 
     depth = None
     if planner in ("nn", "neo"):
@@ -561,8 +581,7 @@ def step_segment(state: EnvState, pp: PlannerParams, mp: MissionParams,
                        trace=torch.cat(traces, 1))
     failed = state.failed | (state.fail_count > mp.local_target_retries) \
         | (state.steps > mp.max_mission_steps)
-    state = state.replace(failed=failed)
-    return _end_missions(state, mission_mode, draws, pp, mp), info
+    return state.replace(failed=failed), info
 
 
 def _end_missions(state: EnvState, mission_mode: str, draws: Draws,
